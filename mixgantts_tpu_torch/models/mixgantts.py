@@ -1,0 +1,162 @@
+"""MixGAN-TTS generator (`mixgantts_tpu/models/mixgantts.py`), inference.
+
+Linguistic encoder -> (aux, shallow: FFT decoder + mel_linear + PostNet ->
+coarse mel) -> Gaussian diffusion.  The three modes:
+- naive: `num_timesteps` reverse steps from Gaussian noise;
+- shallow: the coarse mel diffused to the last step, then the reverse
+  steps (one for LJSpeech);
+- aux: no reverse process; `mel_pred` is the diffuse trace
+  [S+1, B, T, n_mels] whose element 0 is the clamped normalised coarse mel.
+
+Randomness comes from `noise_override` ({"start_noise": [B, T, M],
+"step_noises": [S, B, T, M]}) or from an explicit `torch.Generator`.
+"""
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+
+from ..utils.tools import resolve_device
+from .aux_decoder import Decoder, PostNet
+from .denoiser import Denoiser
+from .diffusion import GaussianDiffusion, schedule_betas
+from .linguistic_encoder import LinguisticEncoder
+
+
+class GeneratorOutput(NamedTuple):
+    mel_pred: torch.Tensor                 # [B, T, M] raw-scale mel; aux: trace
+    mel_lens: torch.Tensor                 # [B]
+    mel_mask: torch.Tensor                 # [B, T] bool, True = valid
+    coarse_mel: Optional[torch.Tensor]     # [B, T, M] PostNet output (aux, shallow)
+    pitch_pred: torch.Tensor               # [B, P]
+    energy_pred: torch.Tensor              # [B, P]
+    log_dur_w_pred: torch.Tensor           # [B, W]
+    dur_w_rounded: torch.Tensor            # [B, W]
+
+
+class MixGANTTS(nn.Module):
+    def __init__(self, mode, betas, stats, hidden=256, encoder_layers=4,
+                 encoder_heads=2, conv_kernel_size=9, encoder_window_size=4,
+                 decoder_layers=6, decoder_heads=2, conv_filter_size=1024,
+                 max_seq_len=1000, n_mels=80, n_bins=256,
+                 pitch_quantization="linear", energy_quantization="linear",
+                 vp_filter_size=256, vp_kernel_size=3, residual_channels=256,
+                 residual_layers=20, multi_speaker=False, device=None):
+        super().__init__()
+        if mode not in ("naive", "aux", "shallow"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if multi_speaker:
+            raise NotImplementedError(
+                "multi-speaker synthesis (speaker table, external embedding "
+                "and the denoiser's speaker projection) is not ported yet")
+        device = resolve_device(device)
+        self.mode = mode
+        self.max_seq_len = max_seq_len
+        self.n_mels = n_mels
+        self.linguistic_encoder = LinguisticEncoder(
+            hidden=hidden, n_layers=encoder_layers, n_heads=encoder_heads,
+            conv_kernel_size=conv_kernel_size, window_size=encoder_window_size,
+            max_seq_len=max_seq_len, n_bins=n_bins,
+            pitch_range=(stats.pitch_min, stats.pitch_max),
+            energy_range=(stats.energy_min, stats.energy_max),
+            pitch_quantization=pitch_quantization,
+            energy_quantization=energy_quantization,
+            vp_filter_size=vp_filter_size, vp_kernel_size=vp_kernel_size)
+        if mode in ("aux", "shallow"):
+            self.decoder = Decoder(
+                hidden=hidden, n_layers=decoder_layers, n_heads=decoder_heads,
+                d_inner=conv_filter_size, kernel_size=conv_kernel_size,
+                max_seq_len=max_seq_len)
+            self.mel_linear = nn.Linear(hidden, n_mels)
+            self.postnet = PostNet(n_mels=n_mels)
+        self.diffusion = GaussianDiffusion(
+            Denoiser(n_mels=n_mels, d_encoder=hidden,
+                     residual_channels=residual_channels,
+                     residual_layers=residual_layers),
+            betas, stats.spec_min[:n_mels], stats.spec_max[:n_mels])
+        self.to(device)
+        self.eval()
+
+    @classmethod
+    def from_configs(cls, mode, preprocess_config, model_config, stats,
+                     device=None):
+        """Build from the preprocess/model YAML configs and dataset stats."""
+        t = model_config["transformer"]
+        d = model_config["denoiser"]
+        v = model_config["variance_predictor"]
+        ve = model_config["variance_embedding"]
+        n_mels = preprocess_config["preprocessing"]["mel"]["n_mel_channels"]
+        return cls(
+            mode=mode,
+            betas=schedule_betas(d, mode),
+            stats=stats,
+            hidden=t["encoder_hidden"],
+            encoder_layers=t["encoder_layer"],
+            encoder_heads=t["encoder_head"],
+            conv_kernel_size=t["conv_kernel_size"],
+            encoder_window_size=t["encoder_window_size"],
+            decoder_layers=t["decoder_layer"],
+            decoder_heads=t["decoder_head"],
+            conv_filter_size=t["conv_filter_size"],
+            max_seq_len=model_config["max_seq_len"],
+            n_mels=n_mels,
+            n_bins=ve["n_bins"],
+            pitch_quantization=ve["pitch_quantization"],
+            energy_quantization=ve["energy_quantization"],
+            vp_filter_size=v["filter_size"],
+            vp_kernel_size=v["kernel_size"],
+            residual_channels=d["residual_channels"],
+            residual_layers=d["residual_layers"],
+            multi_speaker=model_config["multi_speaker"],
+            device=device,
+        )
+
+    def forward(self, speakers, texts, src_lens, word_boundaries, src_w_lens,
+                max_mel_len, p_control=1.0, e_control=1.0, d_control=1.0,
+                noise_override=None, generator=None):
+        """Synthesis.  texts [B, P] phoneme ids, src_lens [B],
+        word_boundaries [B, W], src_w_lens [B]; max_mel_len is the static
+        frame axis.  `speakers` is unused by single-speaker models;
+        e_control is unused, as in the reference (energy follows p_control).
+        """
+        if max_mel_len > self.max_seq_len:
+            raise ValueError(
+                f"max_mel_len={max_mel_len} exceeds max_seq_len="
+                f"{self.max_seq_len}; raise model.yaml max_seq_len (the "
+                f"positional tables are sized by it) or add a smaller "
+                f"length bucket")
+        enc = self.linguistic_encoder(
+            texts, src_lens, word_boundaries, src_w_lens, max_mel_len,
+            p_control=p_control, d_control=d_control)
+        cond, mel_mask = enc.features, enc.mel_mask
+        maskf = mel_mask[..., None].to(cond.dtype)
+
+        coarse_mel = None
+        if self.mode in ("aux", "shallow"):
+            coarse = self.mel_linear(self.decoder(cond, mel_mask))
+            coarse_mel = coarse + self.postnet(coarse)
+
+        diffusion = self.diffusion
+        ov = noise_override or {}
+        if self.mode == "aux":
+            mel_pred = diffusion.diffuse_trace(coarse_mel, mel_mask, generator)
+        else:
+            start = ov.get("start_noise")
+            if self.mode == "shallow":
+                if start is None:
+                    start = torch.randn(coarse_mel.shape, generator=generator,
+                                        device=coarse_mel.device)
+                t_start = torch.full((texts.shape[0],), diffusion.num_timesteps - 1,
+                                     dtype=torch.long, device=cond.device)
+                start = diffusion.diffuse(coarse_mel, t_start, start) * maskf
+            x0 = diffusion.sampling(cond, noise=start,
+                                    step_noises=ov.get("step_noises"),
+                                    generator=generator)
+            mel_pred = diffusion.denorm_spec(x0) * maskf
+
+        return GeneratorOutput(
+            mel_pred=mel_pred, mel_lens=enc.mel_len, mel_mask=mel_mask,
+            coarse_mel=coarse_mel, pitch_pred=enc.pitch_pred,
+            energy_pred=enc.energy_pred, log_dur_w_pred=enc.log_dur_w_pred,
+            dur_w_rounded=enc.dur_w_rounded)
