@@ -26,12 +26,21 @@ prints no result line):
    noise): mel mean |diff| < 1e-3 and int16 samples within 16 LSB;
 6. time each kernel and its plain version with CUDA events, and a request's
    latency and real-time factor with the host clock around work that ends
-   in a synchronisation.
+   in a synchronisation;
+7. drive the vocoder's C=256 MRF stage through the whole-stage kernel
+   (`mrf_stack_streamed`) at the shapes of a B=1 request at bucket 1000
+   and a B=4 request at bucket 512, hold it against its plain version
+   (same tolerance), and time it beside the branchwise route that
+   `fused_apply` takes (three one-branch `mrf_stack` calls);
+8. synthesize from raw text through the CLI (`cli.synthesize`, single and
+   batch mode) in a temporary working directory, from a checkpoint of the
+   phase-4 weights; the wavs must be int16 at 22050 Hz and mel_len * hop
+   long, and every kernel of that path must launch.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
-phase 4, max error in phase 3, and the time, plain time and bound of one
-B=1 request at frame bucket 1000); the last line is
-{"ok": true, "device": {...}}.
+phase 4, or phase 7 for `mrf_stack_streamed`; max error in phase 3 or 7;
+and the time, plain time and bound of one B=1 request at frame bucket
+1000); the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -145,10 +154,10 @@ def build_kernels():
             report = f.read()
         kernel, usage = None, {}
         for line in report.splitlines():
-            m = re.search(r"(residual_layer|mrf_pair)I((?:Li\d+E)+)E", line)
-            if m:
+            m = re.search(r"(residual_layer|mrf_pair|mrf_stage_streamed)((?:I(?:Li\d+E)+E)?)", line)
+            if m and "entry function" in line:
                 args = re.findall(r"Li(\d+)E", m.group(2))
-                kernel = f"{m.group(1)}<{', '.join(args)}>"
+                kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             elif kernel and ("registers" in line or "spill" in line):
                 usage.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
         for kernel, lines in usage.items():
@@ -160,6 +169,10 @@ def build_kernels():
             smem.argtypes = [ctypes.c_int]
             log(f"  residual_layer shared memory per block: "
                 f"{', '.join(f'C={c}: {smem(c)} B' for c in (128, 256))}")
+        elif name == "mrf_stack_streamed":
+            smem.argtypes = [ctypes.c_int] * 3
+            log(f"  mrf_stage_streamed shared memory per block (the largest pass, "
+                f"k=11 at dilation 5): {smem(256, 11, 5)} B")
         else:
             smem.argtypes = [ctypes.c_int] * 3
             for c in (32, 64, 128, 256):
@@ -173,7 +186,7 @@ def build_serving(torch, device):
     from mixgantts_tpu_torch.config import NormStats, get_configs_of
     from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
     from mixgantts_tpu_torch.models.vocoder import get_vocoder
-    pre, cfg = get_configs_of("LJSpeech")
+    pre, cfg, _ = get_configs_of("LJSpeech")
     torch.manual_seed(0)
     model = MixGANTTS.from_configs(
         "shallow", pre, cfg,
@@ -281,9 +294,8 @@ def kernel_timings(torch, model, vocoder, records):
         gen = vocoder.generator
         rks = gen.resblock_kernel_sizes
         dils = gen.resblock_dilation_sizes[0]
-        for rec in records.values():
-            if rec["name"] != "fused_residual_stack":
-                rec.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0, nbytes=0)
+        for name in ("mrf_stack", "mrf_stack_folded"):
+            records[name].update(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0, nbytes=0)
         for stage, (C, T, call) in enumerate(mrf_calls(gen, rks, dils, T_mel=1000)):
             x = torch.randn(1, T, C, device=dev, generator=g)
             for name, st, ks, run in call:
@@ -299,9 +311,146 @@ def kernel_timings(torch, model, vocoder, records):
                 rec["plain_ms"] += plain
                 rec["flops"] += flops
                 rec["nbytes"] += nbytes
-        for rec in records.values():
-            if rec["name"] != "fused_residual_stack":
-                rec["bound_ms"], rec["bound_by"] = bound_ms(rec.pop("flops"), rec.pop("nbytes"))
+        for name in ("mrf_stack", "mrf_stack_folded"):
+            rec = records[name]
+            rec["bound_ms"], rec["bound_by"] = bound_ms(rec.pop("flops"), rec.pop("nbytes"))
+
+
+def c256_stage(torch, vocoder, records):
+    """Phase 7: the C=256 MRF stage (stage 0) of the vocoder in use, at the
+    shapes of a B=1 request at frame bucket 1000 and a B=4 request at
+    bucket 512, through the whole-stage kernel (`mrf_stack_streamed`; its
+    launch count is read around this drive), held against the plain
+    version, then timed beside the branchwise route that
+    `models.hifigan.fused_apply` takes (three one-branch `mrf_stack` calls)
+    and the plain version."""
+    from mixgantts_tpu_torch.ops import mrf
+    gen = vocoder.generator
+    rks = gen.resblock_kernel_sizes
+    dils = gen.resblock_dilation_sizes[0]
+    C = gen.ups[0].out_channels
+    whole = mrf.stack_mrf_params(gen, 0, rks, dils)
+    branches = [(mrf.stack_mrf_params(gen, 0, (rk,), dils, branches=[(j, rk)]), rk)
+                for j, rk in enumerate(rks)]
+    g = torch.Generator("cuda").manual_seed(7)
+    shapes = ((1, 1000 * gen.upsample_rates[0]), (4, 512 * gen.upsample_rates[0]))
+    rec = records["mrf_stack_streamed"]
+    with torch.no_grad():
+        xs = [torch.randn(B, T, C, device="cuda", generator=g) for B, T in shapes]
+        mrf.mrf_stack_streamed.launches = 0
+        outs = [mrf.mrf_stack_streamed(x, whole, rks, dils) for x in xs]
+        sync(torch)
+        rec["launches"] = mrf.mrf_stack_streamed.launches
+        log(f"[stage] mrf_stack_streamed launches during the C={C} stage drive: "
+            f"{rec['launches']}")
+        if rec["launches"] == 0:
+            raise AssertionError("mrf_stack_streamed was not launched on the stage path")
+        for (B, T), x, got in zip(shapes, xs, outs):
+            rec["err"] = max(rec["err"], check_close(
+                f"mrf_stack_streamed B={B} T={T} C={C}", got,
+                mrf.mrf_stack_plain(x, whole, rks, dils)))
+
+        def branchwise(x):
+            return sum(mrf.mrf_stack(x, st, (rk,), dils) for st, rk in branches) / len(rks)
+
+        faster = []
+        for (B, T), x in zip(shapes, xs):
+            # in turns: branchwise, streamed, streamed, branchwise
+            bw1 = time_ms(lambda: branchwise(x), 10)
+            st1 = time_ms(lambda: mrf.mrf_stack_streamed(x, whole, rks, dils), 10)
+            st2 = time_ms(lambda: mrf.mrf_stack_streamed(x, whole, rks, dils), 10)
+            bw2 = time_ms(lambda: branchwise(x), 10)
+            ms, bw = (st1 + st2) / 2, (bw1 + bw2) / 2
+            plain = time_ms(lambda: mrf.mrf_stack_plain(x, whole, rks, dils), 5)
+            flops, nbytes = mrf_work(B, T, C, rks)
+            b, by = bound_ms(flops, nbytes)
+            share = mrf.streamed_flops(B, T, rks, dils) / flops
+            log(f"  C={C} stage B={B} T={T} (tile {mrf.streamed_tile(B, T, x.device)}): "
+                f"streamed {st1:.4f}/{st2:.4f} ms, branchwise {bw1:.4f}/{bw2:.4f} ms, "
+                f"plain {plain:.4f} ms, bound {b:.4f} ms ({by}); streamed "
+                f"{flops / ms / 1e9:.1f} TFLOP/s of needed work, recompute share {share:.3f}")
+            faster.append(ms < bw)
+            if B == 1:
+                rec.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        log(f"[stage] streamed faster than branchwise at both shapes: {all(faster)}")
+
+
+def cli_phase(torch, pre, cfg, model):
+    """Phase 8: the synthesis CLI from raw text (`mixgantts_tpu_torch.cli.
+    synthesize.cli`, in-process), in a temporary working directory that
+    holds the phase-4 generator's weights as the reference checkpoint
+    `output/ckpt/LJSpeech_shallow/200000.pth.tar`, a lexicon without some
+    of the words, `speakers.json`, three `phones_per_word` files and a
+    3-line source file: single mode on raw text, then batch mode on the
+    source.  Every wav must be int16 at the corpus's rate and mel_len * hop
+    long, and every kernel of the path must launch (counts set to 0 just
+    before, read just after)."""
+    import tempfile
+
+    import numpy as np
+    from scipy.io import wavfile
+    from mixgantts_tpu_torch.cli.synthesize import cli
+    from mixgantts_tpu_torch.frontend import preprocess_english
+    from mixgantts_tpu_torch.ops import denoiser_stack as den
+    from mixgantts_tpu_torch.ops import mrf
+    from mixgantts_tpu_torch.text import sequence_to_text
+    counters = {"fused_residual_stack": den.fused_residual_stack,
+                "mrf_stack": mrf.mrf_stack, "mrf_stack_folded": mrf.mrf_stack_folded}
+    hop = pre["preprocessing"]["stft"]["hop_length"]
+    sr = pre["preprocessing"]["audio"]["sampling_rate"]
+    text = "Dr. Smith read 3 zorblatt pages to the class, didn't he?"
+    sources = ["The quick brown fox jumps over the lazy dog.",
+               "Mrs. Jones paid 12 dollars for a flumboid teapot!",
+               "Hello world"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as ws:
+        os.chdir(ws)
+        try:
+            os.makedirs("output/ckpt/LJSpeech_shallow")
+            torch.save({"epoch": 1, "G": {k: v.cpu() for k, v in model.state_dict().items()}},
+                       "output/ckpt/LJSpeech_shallow/200000.pth.tar")
+            os.makedirs(os.path.dirname(pre["path"]["lexicon_path"]))
+            with open(pre["path"]["lexicon_path"], "w") as f:
+                f.write("the DH AH0\nto T UW1\nhello HH AH0 L OW1\nworld W ER1 L D\n"
+                        "dog D AO1 G\nclass K L AE1 S\n")
+            pp = pre["path"]["preprocessed_path"]
+            os.makedirs(os.path.join(pp, "phones_per_word"))
+            with open(os.path.join(pp, "speakers.json"), "w") as f:
+                json.dump({"LJSpeech": 0}, f)
+            lines = []
+            for i, raw in enumerate(sources):
+                seq, wb = preprocess_english(raw, pre, verbose=False)
+                np.save(os.path.join(pp, "phones_per_word",
+                                     f"LJSpeech-phones_per_word-LJ{i:03d}.npy"), wb)
+                lines.append(f"LJ{i:03d}|LJSpeech|{sequence_to_text(seq.tolist())}|{raw}")
+            with open("source.txt", "w") as f:
+                f.write("\n".join(lines) + "\n")
+            common = ["--restore_step", "200000", "--model", "shallow", "--dataset", "LJSpeech"]
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            written = cli(common + ["--mode", "single", "--text", text])
+            t_single = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            written += cli(common + ["--mode", "batch", "--source", "source.txt"])
+            t_batch = time.perf_counter() - t0
+            sync(torch)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            for path, mel_len in written:
+                rate, wav = wavfile.read(path)
+                if rate != sr or wav.dtype != np.int16 or mel_len <= 0 or len(wav) != mel_len * hop:
+                    raise AssertionError(f"{path}: {rate} Hz, {wav.dtype}, {len(wav)} "
+                                         f"samples, mel_len {mel_len}")
+        finally:
+            os.chdir(cwd)
+    log(f"[cli] wrote {len(written)} wavs (int16, {sr} Hz, mel_len * {hop} samples), "
+        f"mel lengths {[n for _, n in written]}; launches {launches}")
+    log(f"[cli] text -> written wav, single mode: {t_single:.3f} s wall for the whole "
+        f"cli() call (configs, model build, checkpoint restore, synthesis, file); batch "
+        f"mode, 3 utterances: {t_batch:.3f} s")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched on the CLI path")
 
 
 def serve(torch, pre, cfg, model, vocoder, records):
@@ -457,7 +606,9 @@ def main():
                "mrf_stack": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
                              "mixgantts_tpu/ops/pallas_vocoder.py:528"),
                "mrf_stack_folded": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
-                                    "mixgantts_tpu/ops/pallas_vocoder.py:303")}
+                                    "mixgantts_tpu/ops/pallas_vocoder.py:303"),
+               "mrf_stack_streamed": ("mixgantts_tpu_torch/csrc/mrf_stack_streamed.cu",
+                                      "mixgantts_tpu/ops/pallas_vocoder.py:461")}
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "err": 0.0}
                for name, (src, rep) in sources.items()}
@@ -470,6 +621,10 @@ def main():
     latency(torch, pipe, pre, one, four)
     if args.profile:
         profile_request(torch, pipe, one, args.profile)
+    log("[stage] the C=256 MRF stage in one launch (TF32 off)")
+    c256_stage(torch, vocoder, records)                           # phase 7
+    log("[cli] raw text -> wav files through the synthesis CLI")
+    cli_phase(torch, pre, cfg, model)                             # phase 8
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

@@ -1,0 +1,63 @@
+"""Shared CLI plumbing (`mixgantts_tpu/cli/common.py`): config loading,
+path-tag routing, model assembly and the generator checkpoint.
+
+Path routing as the reference: checkpoint and log directories take the
+suffix `_naive` or `_shallow` (aux and shallow share), result directories
+the exact model name, each with an optional extra path tag.
+"""
+
+import os
+
+import torch
+
+from ..config import NormStats, get_configs_of
+from ..convert import load_reference_generator
+from ..models.mixgantts import MixGANTTS
+
+
+def route_paths(train_config, model, path_tag=""):
+    train_tag = "naive" if model == "naive" else "shallow"
+    tag = f"_{path_tag}" if path_tag else ""
+    p = train_config["path"]
+    p["ckpt_path"] = p["ckpt_path"] + f"_{train_tag}{tag}"
+    p["log_path"] = p["log_path"] + f"_{train_tag}{tag}"
+    p["result_path"] = p["result_path"] + f"_{model}{tag}"
+    return train_config
+
+
+def load_configs(args):
+    preprocess_config, model_config, train_config = get_configs_of(args.dataset)
+    if args.model == "shallow" and args.restore_step < train_config["step"]["total_step_aux"]:
+        raise AssertionError("shallow training must restore from a finished aux checkpoint")
+    route_paths(train_config, args.model, getattr(args, "path_tag", ""))
+    return preprocess_config, model_config, train_config
+
+
+def build_model(mode, preprocess_config, model_config, device=None):
+    """The generator of a mode, with the corpus's stats.json (placeholder
+    stats where there is none), on `device` (default cuda)."""
+    stats = NormStats.load_or_default(
+        preprocess_config["path"]["preprocessed_path"],
+        n_mels=preprocess_config["preprocessing"]["mel"]["n_mel_channels"])
+    model = MixGANTTS.from_configs(mode, preprocess_config, model_config, stats,
+                                   device=device)
+    return model, stats
+
+
+def restore_generator(model, ckpt_path, restore_step):
+    """Load G from `{ckpt_path}/{restore_step}.pth.tar`, the reference's
+    checkpoint format (a dict with "G", as `python -m mixgantts_tpu.export`
+    writes from an orbax checkpoint)."""
+    path = os.path.join(ckpt_path, f"{restore_step}.pth.tar")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"no checkpoint {path}: the port reads the reference's .pth.tar "
+            f"format (`python -m mixgantts_tpu.export` writes one from an "
+            f"orbax checkpoint)")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    load_reference_generator(model, ckpt["G"])
+
+
+def model_batch_of(batch):
+    """Strip host-only fields before handing a batch to the device."""
+    return {k: v for k, v in batch.items() if k not in ("ids", "raw_texts")}

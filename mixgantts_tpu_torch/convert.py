@@ -9,6 +9,8 @@ of numpy arrays.
   `mixgantts_tpu/models/hifigan.py::convert_torch_generator`, with plain
   `.weight`s (weight norm already folded).
 Both load into the port's modules with `load_state_dict(strict=True)`.
+- `load_reference_generator`: the "G" of a reference `.pth.tar` (what
+  `mixgantts_tpu/export.py` writes) into the port's `MixGANTTS`.
 
 Layout rules:
 - flax conv kernel [k, in, out]          -> torch Conv1d .weight [out, in, k]
@@ -164,3 +166,37 @@ def hifigan_state_dict(params):
                 _conv(block[f"convs1_{c}"], f"{base}.convs1.{c}", out)
                 _conv(block[f"convs2_{c}"], f"{base}.convs2.{c}", out)
     return out
+
+
+# Buffers the reference's modules register, so that its state_dict carries
+# them: all derive from the config, the beta schedule and the corpus
+# statistics, which the port derives itself (non-persistent buffers, or on
+# the fly).
+REFERENCE_DERIVED_BUFFERS = frozenset(
+    ["diffusion." + n for n in (
+        "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
+        "sqrt_one_minus_alphas_cumprod", "log_one_minus_alphas_cumprod",
+        "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod",
+        "posterior_variance", "posterior_log_variance_clipped",
+        "posterior_mean_coef1", "posterior_mean_coef2", "spec_min", "spec_max")]
+    + ["linguistic_encoder.abs_position_enc", "linguistic_encoder.pitch_bins",
+       "linguistic_encoder.energy_bins", "decoder.position_enc"])
+
+
+def load_reference_generator(model, state_dict):
+    """Load the "G" state_dict of a reference checkpoint into the port's
+    MixGANTTS.  Every parameter loads with `strict=True`; of the derived
+    buffers, those the port also keeps must agree with its own (rtol 1e-4:
+    float32 against float64 arithmetic), so a checkpoint made with other
+    statistics or another schedule raises instead of loading."""
+    params = {k: v for k, v in state_dict.items() if k not in REFERENCE_DERIVED_BUFFERS}
+    model.load_state_dict(params, strict=True)
+    own = dict(model.named_buffers())
+    for key in REFERENCE_DERIVED_BUFFERS & set(state_dict) & set(own):
+        theirs = np.asarray(state_dict[key], dtype=np.float64).reshape(-1)
+        mine = own[key].detach().cpu().double().numpy().reshape(-1)
+        if theirs.shape != mine.shape or not np.allclose(theirs, mine, rtol=1e-4, atol=1e-5):
+            raise ValueError(
+                f"checkpoint buffer {key} disagrees with the model's: the "
+                f"checkpoint was made with other statistics (stats.json), "
+                f"config or noise schedule")

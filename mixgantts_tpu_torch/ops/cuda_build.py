@@ -3,8 +3,9 @@
 Each source compiles with nvcc into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), which ctypes
 loads.  Libraries go to `mixgantts_tpu_torch/_build/`, named by a hash of
-the source and the flags, so a changed source rebuilds and an unchanged one
-is reused.  Nothing here runs at import: the first kernel call builds.
+the source, the shared headers (`csrc/*.cuh`) and the flags, so a changed
+source or header rebuilds and an unchanged one is reused.  Nothing here
+runs at import: the first kernel call builds.
 """
 
 import ctypes
@@ -17,7 +18,7 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("denoiser_stack", "mrf_stack")
+SOURCES = ("denoiser_stack", "mrf_stack", "mrf_stack_streamed")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,8 +42,10 @@ def nvcc():
 
 def library_path(name):
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest.update(f.read())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for src in (name + ".cu", *headers):
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

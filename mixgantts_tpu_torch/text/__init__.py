@@ -1,0 +1,64 @@
+"""Text-to-ID sequence codec, a copy of `mixgantts_tpu/text/__init__.py`
+(reference parity: `text/__init__.py:15-58`)."""
+
+import re
+
+from . import cleaners
+from .symbols import symbols, silence_symbols
+
+_symbol_to_id = {s: i for i, s in enumerate(symbols)}
+_id_to_symbol = {i: s for i, s in enumerate(symbols)}
+
+# Text enclosed in curly braces is treated as a phone (ARPAbet/pinyin) string.
+_curly_re = re.compile(r"(.*?)\{(.+?)\}(.*)")
+
+
+def text_to_sequence(text, cleaner_names):
+    """Convert a string (optionally with {PHONE STRINGS}) to symbol IDs."""
+    sequence = []
+    while len(text):
+        m = _curly_re.match(text)
+        if not m:
+            sequence += _symbols_to_sequence(_clean_text(text, cleaner_names))
+            break
+        sequence += _symbols_to_sequence(_clean_text(m.group(1), cleaner_names))
+        sequence += _arpabet_to_sequence(m.group(2))
+        text = m.group(3)
+    return sequence
+
+
+def sequence_to_text(sequence):
+    """Inverse of text_to_sequence (phones re-wrapped in curly braces)."""
+    result = ""
+    for symbol_id in sequence:
+        if symbol_id in _id_to_symbol:
+            s = _id_to_symbol[symbol_id]
+            if len(s) > 1 and s[0] == "@":
+                s = "{%s}" % s[1:]
+            result += s
+    return result.replace("}{", " ")
+
+
+def sil_phonemes_ids():
+    return [_symbol_to_id[s] for s in silence_symbols]
+
+
+def _clean_text(text, cleaner_names):
+    for name in cleaner_names:
+        cleaner = getattr(cleaners, name, None)
+        if cleaner is None:
+            raise ValueError("Unknown cleaner: %s" % name)
+        text = cleaner(text)
+    return text
+
+
+def _symbols_to_sequence(syms):
+    return [_symbol_to_id[s] for s in syms if _should_keep_symbol(s)]
+
+
+def _arpabet_to_sequence(text):
+    return _symbols_to_sequence(["@" + s for s in text.split()])
+
+
+def _should_keep_symbol(s):
+    return s in _symbol_to_id and s != "_" and s != "~"

@@ -1,7 +1,37 @@
-"""Small helpers: the length buckets (`mixgantts_tpu/utils/tools.py`) and
-the device rule of the port's entry points."""
+"""Small helpers (`mixgantts_tpu/utils/tools.py`): host-side padding and
+word subdivision (numpy), the length buckets, and the device rule of the
+port's entry points."""
 
+import numpy as np
 import torch
+
+
+def word_level_subdivision(phones_per_word, max_phoneme_num):
+    """Split words longer than max_phoneme_num into chunks."""
+    res = []
+    for n in phones_per_word:
+        if n <= max_phoneme_num:
+            res.append(int(n))
+        else:
+            s, r = divmod(int(n), max_phoneme_num)
+            res += [max_phoneme_num] * s + ([r] if r else [])
+    return res
+
+
+def pad_1d(inputs, length=None, pad_value=0):
+    """Stack 1D arrays padded to a common (or given) length."""
+    length = length or max(len(x) for x in inputs)
+    return np.stack([
+        np.pad(np.asarray(x), (0, length - len(x)), constant_values=pad_value)
+        for x in inputs])
+
+
+def pad_2d(inputs, length=None):
+    """Stack [T_i, D] arrays padded on the time axis."""
+    length = length or max(np.shape(x)[0] for x in inputs)
+    return np.stack([
+        np.pad(np.asarray(x), ((0, length - np.shape(x)[0]), (0, 0)))
+        for x in inputs])
 
 
 def bucket_length(n, buckets):

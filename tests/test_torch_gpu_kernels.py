@@ -20,7 +20,7 @@ from mixgantts_tpu_torch.ops.denoiser_stack import (
     fused_residual_stack, fused_residual_stack_plain,
 )
 from mixgantts_tpu_torch.ops.mrf import (
-    TAPS, mrf_stack, mrf_stack_folded, mrf_stack_plain,
+    TAPS, mrf_stack, mrf_stack_folded, mrf_stack_plain, mrf_stack_streamed,
 )
 
 pytestmark = pytest.mark.gpu
@@ -120,6 +120,24 @@ def test_mrf_stack_folded_kernel_matches_plain(cuda, C, T):
     assert_close(got, mrf_stack_plain(x, st))
 
 
+@pytest.mark.parametrize("B,T,kernel_sizes", [
+    (2, 1000, (3, 7, 11)),   # ragged last tile, two batch rows
+    (1, 37, (3, 7, 11)),     # shorter than one pass
+    (1, 300, (11,)),         # one branch
+    (1, 8000, (3, 7, 11)),   # the main path's shapes: 64-frame tiles
+    (4, 4096, (3, 7, 11)),   # and 128-frame tiles
+])
+def test_mrf_stack_streamed_kernel_matches_plain(cuda, B, T, kernel_sizes):
+    x = torch.randn(B, T, 256, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(B * T))
+    st = mrf_weights(256, kernel_sizes)
+    n0 = mrf_stack_streamed.launches
+    got = mrf_stack_streamed(x, st, kernel_sizes)
+    torch.cuda.synchronize()
+    assert mrf_stack_streamed.launches == n0 + 1
+    assert_close(got, mrf_stack_plain(x, st, kernel_sizes))
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     """Non-contiguous or non-fp32 input raises; nothing is copied or
     computed another way."""
@@ -134,3 +152,6 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         mrf_stack(y.transpose(1, 2), st, (3,))
     with pytest.raises(ValueError, match="built for"):
         mrf_stack(torch.randn(1, 64, 48, device=cuda), mrf_weights(48, (3,)), (3,))
+    with pytest.raises(ValueError, match="built for 256"):
+        mrf_stack_streamed(torch.randn(1, 64, 128, device=cuda),
+                           mrf_weights(128, (3,)), (3,))

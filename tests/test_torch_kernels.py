@@ -7,7 +7,10 @@ package's Pallas kernels, which run here in interpret mode:
 - `ops.mrf.mrf_stack_plain` / `mrf_stack_folded` vs `mrf_stack` /
   `mrf_stack_folded` of `mixgantts_tpu.ops.pallas_vocoder` (rtol 1e-4,
   atol 1e-5, as test_pallas.py), with tile seams, one branch, the C = 128
-  boundary and prefolded input.
+  boundary and prefolded input;
+- `ops.mrf.mrf_stack_streamed` vs `mrf_stack_streamed` of
+  `mixgantts_tpu.ops.pallas_vocoder` at C = 256 (same tolerance), across
+  tile seams, with T not a multiple of the tile, and at B = 2.
 
 On CPU tensors the port's entry points take the plain versions, which
 the entry-point cases check too.
@@ -101,11 +104,27 @@ def test_mrf_stack_folded_plain_matches_pallas(fold, tile):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,T,tile", [
+    (2, 100, 48),    # two seams, a ragged last tile, two batch rows
+    (1, 40, None),   # one tile
+])
+def test_mrf_stack_streamed_matches_pallas(B, T, tile):
+    C, rks = 256, (3, 7, 11)
+    x, params = mrf_case(C, T, B, rks, seed=T)
+    st = jvoc.stack_mrf_params(params, 0, rks)
+    want = jvoc.mrf_stack_streamed(x, st, rks, tile=tile, interpret=True)
+    got = tmrf.mrf_stack_streamed(torch.as_tensor(np.asarray(x)), as_torch(st), rks)
+    assert tmrf.mrf_stack_streamed.launches == 0   # the CPU runs the plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
 def test_kernel_entry_points_reject_other_devices():
     """A tensor that is neither on the CPU nor on CUDA is refused, never
     computed somewhere else."""
     x = torch.zeros(1, 8, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tmrf.mrf_stack(x, {}, (3,))
+    with pytest.raises(ValueError, match="no kernel"):
+        tmrf.mrf_stack_streamed(x, {}, (3,))
     with pytest.raises(ValueError, match="no kernel"):
         tden.fused_residual_stack(x, x, x[:, 0], {})

@@ -213,7 +213,7 @@ def test_port_imports_no_jax():
 
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    pre, cfg = get_configs_of("LJSpeech")
+    pre, cfg, _ = get_configs_of("LJSpeech")
     stats = NormStats.default()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MixGANTTS.from_configs("shallow", pre, cfg, stats)
