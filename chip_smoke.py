@@ -8,13 +8,21 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 1. build the hand-written kernels (`mixgantts_tpu_torch/csrc/*.cu`, one nvcc
    per source, all started together) and print ptxas's registers, shared
-   memory and spills per kernel;
+   memory and spills per kernel; count the tensor-core instructions
+   (`HGMMA`) in each MRF kernel's SASS (`cuobjdump -sass`): the bf16 MRF
+   kernel must hold them and spill nothing;
 2. turn TF32 off for cuDNN convolutions and matmuls (matmul precision
    "highest"), so every plain version runs in full fp32, and seed;
 3. hold each kernel against its plain PyTorch version at the main path's
-   shapes, with the weights of the model in use.  Tolerance:
-   max|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (fp32 sums in another
-   order; the denoiser kernel also adds across blocks with atomics);
+   shapes, with the weights of the model in use.  Tolerance for the fp32
+   kernels: max|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (fp32 sums in
+   another order; the denoiser kernel also adds across blocks with
+   atomics).  The MRF kernel (`mrf_stack`, `mrf_stack_folded`) computes
+   with bf16 operands, so its plain version gets the same bf16 weights and
+   rounds where the kernel rounds; tolerance 4e-3 * max|plain| + 1e-5, one
+   bf16 step of the largest value: the same products summed in another
+   order, plus bf16 rounding flips of the conv1 intermediate where the two
+   sums straddle a rounding boundary;
 4. build the full LJSpeech shallow model and HiFi-GAN V1 (random weights
    from a seed) on the GPU and serve requests through `TTSPipeline`:
    submit/collect of B=1 with 64 phone slots (frame bucket 1000), then
@@ -23,15 +31,20 @@ prints no result line):
    waves must be int16 of length mel_len * hop, the mels finite;
 5. hold a small request served on the GPU (kernels) against the same
    request served on the CPU (plain versions, same weights, same injected
-   noise): mel mean |diff| < 1e-3 and int16 samples within 16 LSB;
+   noise): mel mean |diff| < 1e-3; the waveform within 16 LSB of int16 of
+   the CPU's with its MRF weights also in bf16 (the same arithmetic), and
+   at an SNR above 30 dB against the CPU's fp32 path (the JAX package's bar
+   for its bf16 vocoder, tests/test_vocoder.py);
 6. time each kernel and its plain version with CUDA events, and a request's
    latency and real-time factor with the host clock around work that ends
-   in a synchronisation;
+   in a synchronisation; each bound is taken at the peak of the kernel's
+   operand type (bf16 tensor cores for the MRF kernel, fp32 CUDA cores for
+   the others), with the fp32 bound printed beside the bf16 one;
 7. drive the vocoder's C=256 MRF stage through the whole-stage kernel
-   (`mrf_stack_streamed`) at the shapes of a B=1 request at bucket 1000
-   and a B=4 request at bucket 512, hold it against its plain version
-   (same tolerance), and time it beside the branchwise route that
-   `fused_apply` takes (three one-branch `mrf_stack` calls);
+   (`mrf_stack_streamed`, fp32) at the shapes of a B=1 request at bucket
+   1000 and a B=4 request at bucket 512, hold it against its plain version
+   (fp32 tolerance), and time it beside the branchwise route that
+   `fused_apply` takes (three one-branch `mrf_stack` calls, bf16);
 8. synthesize from raw text through the CLI (`cli.synthesize`, single and
    batch mode) in a temporary working directory, from a checkpoint of the
    phase-4 weights; the wavs must be int16 at 22050 Hz and mel_len * hop
@@ -54,6 +67,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
+MRF_TOL = 4e-3              # the bf16 MRF kernel against its bf16 plain version
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 DURATION_FRAMES = 8.0       # frames per phone the random duration predictor is biased to
 
@@ -62,14 +77,14 @@ def log(*args):
     print(*args, flush=True)
 
 
-def check_close(name, got, want):
-    """max|got - want| against 1e-4 * max|want| + 1e-5; returns the error."""
+def check_close(name, got, want, rel=1e-4):
+    """max|got - want| against rel * max|want| + 1e-5; returns the error."""
     import torch
     got, want = got.double(), want.double()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs().max().item()
-    bound = 1e-4 * want.abs().max().item() + 1e-5
+    bound = rel * want.abs().max().item() + 1e-5
     log(f"  {name}: max|kernel - plain| = {err:.3e} (allowed {bound:.3e})")
     if err > bound:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -91,8 +106,8 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes, peak=PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -108,11 +123,25 @@ def denoiser_work(B, T, C, Hc, L):
     return flops, nbytes
 
 
-def mrf_work(B, T, C, kernel_sizes, n_pair=3):
-    """FLOP and bytes of one MRF call: per branch and pair two k-tap convs."""
+def mrf_work(B, T, C, kernel_sizes, n_pair=3, weight_bytes=4):
+    """FLOP and bytes of one MRF call: per branch and pair two k-tap convs;
+    the signal read once and written once in fp32, the weights read once."""
     flops = sum(n_pair * 2 * (2 * k * C * C * B * T) for k in kernel_sizes)
-    weights = sum(n_pair * 2 * (k * C * C + C) for k in kernel_sizes)
-    return flops, 4 * (2 * B * T * C + weights)
+    weights = sum(n_pair * 2 * (weight_bytes * k * C * C + 4 * C) for k in kernel_sizes)
+    return flops, 4 * 2 * B * T * C + weights
+
+
+def mrf_design_bytes(B, T, C, kernel_sizes, n_pair=3):
+    """Bytes the one-launch-per-pair design moves through device memory in
+    one MRF call: each launch reads its fp32 input and writes its fp32
+    output once, the last pair of each later branch also reads the branch
+    sum, and each launch reads its bf16 weights once.  Halo re-reads and
+    the residual's second read of the tile are not counted (they come from
+    L2 when the tile was just read)."""
+    signal = 4 * B * T * C
+    launches = n_pair * len(kernel_sizes)
+    return (2 * launches + len(kernel_sizes) - 1) * signal + sum(
+        n_pair * 2 * (2 * k * C * C + 4 * C) for k in kernel_sizes)
 
 
 def text_batch(B, P, W, seed):
@@ -154,14 +183,27 @@ def build_kernels():
             report = f.read()
         kernel, usage = None, {}
         for line in report.splitlines():
-            m = re.search(r"(residual_layer|mrf_pair|mrf_stage_streamed)((?:I(?:Li\d+E)+E)?)", line)
+            m = re.search(r"(residual_layer|mrf_pair_mma|mrf_stage_streamed)((?:I(?:Li\d+E)+E)?)",
+                          line)
             if m and "entry function" in line:
                 args = re.findall(r"Li(\d+)E", m.group(2))
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             elif kernel and ("registers" in line or "spill" in line):
                 usage.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
+            if "wgmma" in line.lower():     # ptxas's notes on serialised wgmma
+                log(f"  ptxas: {line.strip()}")
         for kernel, lines in usage.items():
             log(f"  {kernel}: {'; '.join(lines)}")
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill", " ".join(lines))]
+            if kernel.startswith("mrf_pair_mma") and any(spills):
+                raise AssertionError(f"{kernel} spills registers: {lines}")
+        if name != "denoiser_stack":
+            hgmma = sass_hgmma(cuda_build.library_path(name))
+            for fn, n in hgmma.items():
+                log(f"  {fn}: {n} HGMMA instructions in its SASS")
+            mma = {fn: n for fn, n in hgmma.items() if fn.startswith("mrf_pair_mma")}
+            if name == "mrf_stack" and (not mma or not all(mma.values())):
+                raise AssertionError(f"the MRF kernel's SASS holds no HGMMA: {hgmma}")
         lib = cuda_build.library(name)
         smem = getattr(lib, f"{name}_smem_bytes")
         smem.restype = ctypes.c_int
@@ -174,10 +216,33 @@ def build_kernels():
             log(f"  mrf_stage_streamed shared memory per block (the largest pass, "
                 f"k=11 at dilation 5): {smem(256, 11, 5)} B")
         else:
+            from mixgantts_tpu_torch.ops import mrf
             smem.argtypes = [ctypes.c_int] * 3
             for c in (32, 64, 128, 256):
-                log(f"  mrf_pair<{c}, k> shared memory per block at dilation 5: "
-                    f"{', '.join(f'k={k}: {smem(c, k, 5)} B' for k in (3, 7, 11))}")
+                log(f"  mrf_pair_mma<{c}, k> shared memory per block at dilation 5, and "
+                    f"output frames per block: " + ", ".join(
+                        f"k={k}: {smem(c, k, 5)} B, {mrf.tile_frames(c, k)}" for k in (3, 7, 11)))
+
+
+def sass_hgmma(library):
+    """HGMMA (wgmma) instructions per kernel instantiation in a library's
+    SASS, from cuobjdump beside nvcc."""
+    import re
+    from mixgantts_tpu_torch.ops import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"(mrf_pair_mma|mrf_stage_streamed)((?:I(?:Li\d+E)+E)?)", m.group(1))
+            args = re.findall(r"Li(\d+)E", k.group(2)) if k else []
+            fn = (k.group(1) + (f"<{', '.join(args)}>" if args else "")) if k else m.group(1)
+            counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def build_serving(torch, device):
@@ -233,38 +298,39 @@ def kernel_checks(torch, model, vocoder, records):
             x = torch.randn(1, T, C, device=dev, generator=g)
             for name, st, ks, run in call:
                 got = run(x)
-                want = mrf.mrf_stack_plain(x, st, ks, dils)
+                want = mrf.mrf_stack_plain(x, st, ks, dils)   # bf16 weights: bf16 arithmetic
                 sync(torch)
                 rec = records[name]
                 rec["err"] = max(rec["err"], check_close(
-                    f"{name} stage {stage} C={C} T={T} k={ks}", got, want))
+                    f"{name} stage {stage} C={C} T={T} k={ks} (bf16)", got, want, MRF_TOL))
 
 
 def mrf_calls(gen, rks, dils, T_mel):
     """The MRF calls of one request at frame bucket T_mel, as
-    `models.hifigan.fused_apply` makes them: per stage (C, T, [(kernel
+    `models.hifigan.fused_apply` makes them on CUDA, with the stage weights
+    it stacks there (bf16, the kernel's layout): per stage (C, T, [(kernel
     name, stacked weights, kernel sizes, fn(x [1, T, C]))])."""
+    import torch
+    from mixgantts_tpu_torch.models.hifigan import stage_mode, stage_weights
     from mixgantts_tpu_torch.ops import mrf
     out, T, C = [], T_mel, gen.conv_pre.out_channels
     for stage, u in enumerate(gen.upsample_rates):
         T, C = T * u, C // 2
-        if C <= 64:
-            fold = 128 // C
-            st = mrf.stack_mrf_params_folded(gen, stage, fold, rks, dils)
-            call = [("mrf_stack_folded", st, rks,
-                     lambda x, st=st, fold=fold: mrf.mrf_stack_folded(
+        mode = stage_mode(C, T)
+        w = stage_weights(gen, stage, mode, C, torch.bfloat16)
+        if mode == "folded":
+            fold = w["fold"]
+            call = [("mrf_stack_folded", w, rks,
+                     lambda x, st=w, fold=fold: mrf.mrf_stack_folded(
                          x.reshape(x.shape[0], x.shape[1] // fold, -1), st, rks,
                          dils, prefolded=True))]
-        elif C <= 128:
-            st = mrf.stack_mrf_params(gen, stage, rks, dils)
-            call = [("mrf_stack", st, rks,
-                     lambda x, st=st: mrf.mrf_stack(x, st, rks, dils))]
+        elif mode == "whole":
+            call = [("mrf_stack", w, rks,
+                     lambda x, st=w: mrf.mrf_stack(x, st, rks, dils))]
         else:
-            call = []
-            for j, rk in enumerate(rks):
-                st = mrf.stack_mrf_params(gen, stage, (rk,), dils, branches=[(j, rk)])
-                call.append(("mrf_stack", st, (rk,),
-                             lambda x, st=st, rk=rk: mrf.mrf_stack(x, st, (rk,), dils)))
+            call = [("mrf_stack", st, (rk,),
+                     lambda x, st=st, rk=rk: mrf.mrf_stack(x, st, (rk,), dils))
+                    for st, rk in zip(w, rks)]
         out.append((C, T, call))
     return out
 
@@ -286,8 +352,10 @@ def kernel_timings(torch, model, vocoder, records):
             ms = time_ms(lambda: den.fused_residual_stack(x, cond, step, stacked), 20)
             plain = time_ms(lambda: den.fused_residual_stack_plain(x, cond, step, stacked), 20)
             b, by = bound_ms(*denoiser_work(B, T, C, Hc, L))
+            b16, by16 = bound_ms(*denoiser_work(B, T, C, Hc, L), PEAK_BF16_FLOPS)
             log(f"  fused_residual_stack B={B} T={T}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
+                f"{plain:.4f} ms, bound {b:.4f} ms ({by}); at bf16, the TPU kernel's "
+                f"operand type, {b16:.4f} ms ({by16})")
             if (B, T) == (1, 1000):
                 records["fused_residual_stack"].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
 
@@ -301,11 +369,17 @@ def kernel_timings(torch, model, vocoder, records):
             for name, st, ks, run in call:
                 ms = time_ms(lambda: run(x), 5)
                 plain = time_ms(lambda: mrf.mrf_stack_plain(x, st, ks, dils), 5)
-                flops, nbytes = mrf_work(1, T, C, ks)
-                b, by = bound_ms(flops, nbytes)
+                flops, nbytes = mrf_work(1, T, C, ks, weight_bytes=2)
+                b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+                b32, by32 = bound_ms(flops, nbytes)
+                moved = mrf_design_bytes(1, T, C, ks)
+                blocks = [-(-T // mrf.tile_frames(C, k)) for k in ks]
                 log(f"  {name} stage {stage} C={C} T={T} k={ks}: kernel {ms:.4f} ms, "
-                    f"plain {plain:.4f} ms, bound {b:.4f} ms ({by}), "
-                    f"{flops / ms / 1e9:.1f} TFLOP/s")
+                    f"plain (bf16) {plain:.4f} ms, bound {b:.4f} ms at bf16 ({by}), "
+                    f"{b32:.4f} ms at fp32 ({by32}); {flops / ms / 1e9:.1f} TFLOP/s "
+                    f"({100 * flops / ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1f}% of the bf16 "
+                    f"peak); design moves {moved / 1e6:.1f} MB ({moved / ms / 1e9:.2f} TB/s); "
+                    f"blocks per launch {blocks}")
                 rec = records[name]
                 rec["ms"] += ms
                 rec["plain_ms"] += plain
@@ -313,7 +387,10 @@ def kernel_timings(torch, model, vocoder, records):
                 rec["nbytes"] += nbytes
         for name in ("mrf_stack", "mrf_stack_folded"):
             rec = records[name]
-            rec["bound_ms"], rec["bound_by"] = bound_ms(rec.pop("flops"), rec.pop("nbytes"))
+            flops, nbytes = rec.pop("flops"), rec.pop("nbytes")
+            rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            log(f"  {name} per request: kernel {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+                f"ms at bf16, {bound_ms(flops, nbytes)[0]:.4f} ms at fp32")
 
 
 def c256_stage(torch, vocoder, records):
@@ -330,8 +407,9 @@ def c256_stage(torch, vocoder, records):
     dils = gen.resblock_dilation_sizes[0]
     C = gen.ups[0].out_channels
     whole = mrf.stack_mrf_params(gen, 0, rks, dils)
-    branches = [(mrf.stack_mrf_params(gen, 0, (rk,), dils, branches=[(j, rk)]), rk)
-                for j, rk in enumerate(rks)]
+    branches = [(mrf.kernel_weights(
+        mrf.stack_mrf_params(gen, 0, (rk,), dils, branches=[(j, rk)]), (rk,)), rk)
+        for j, rk in enumerate(rks)]
     g = torch.Generator("cuda").manual_seed(7)
     shapes = ((1, 1000 * gen.upsample_rates[0]), (4, 512 * gen.upsample_rates[0]))
     rec = records["mrf_stack_streamed"]
@@ -364,15 +442,21 @@ def c256_stage(torch, vocoder, records):
             plain = time_ms(lambda: mrf.mrf_stack_plain(x, whole, rks, dils), 5)
             flops, nbytes = mrf_work(B, T, C, rks)
             b, by = bound_ms(flops, nbytes)
+            b16, by16 = bound_ms(flops, mrf_work(B, T, C, rks, weight_bytes=2)[1],
+                                 PEAK_BF16_FLOPS)
             share = mrf.streamed_flops(B, T, rks, dils) / flops
             log(f"  C={C} stage B={B} T={T} (tile {mrf.streamed_tile(B, T, x.device)}): "
-                f"streamed {st1:.4f}/{st2:.4f} ms, branchwise {bw1:.4f}/{bw2:.4f} ms, "
-                f"plain {plain:.4f} ms, bound {b:.4f} ms ({by}); streamed "
-                f"{flops / ms / 1e9:.1f} TFLOP/s of needed work, recompute share {share:.3f}")
+                f"streamed (fp32) {st1:.4f}/{st2:.4f} ms, branchwise (bf16) {bw1:.4f}/"
+                f"{bw2:.4f} ms, plain (fp32) {plain:.4f} ms, bound {b:.4f} ms at fp32 ({by}), "
+                f"{b16:.4f} ms at bf16 ({by16}); "
+                f"streamed {flops / ms / 1e9:.1f} TFLOP/s of needed work, recompute share "
+                f"{share:.3f}")
             faster.append(ms < bw)
             if B == 1:
                 rec.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
-        log(f"[stage] streamed faster than branchwise at both shapes: {all(faster)}")
+        log(f"[stage] streamed faster than branchwise at both shapes: {all(faster)} (the two "
+            f"differ in operand type: the streamed kernel is fp32 on the CUDA cores, the "
+            f"branchwise route bf16 on the tensor cores)")
 
 
 def cli_phase(torch, pre, cfg, model):
@@ -498,7 +582,8 @@ def np_isfinite(a):
 
 def cpu_reference(torch, pre, cfg, model, vocoder):
     """Phase 5: one small request on the GPU (kernels) and on the CPU
-    (plain versions), same weights and injected noise."""
+    (plain versions), same weights and injected noise: the CPU vocoder once
+    with its MRF weights in bf16 (the GPU's arithmetic), once in fp32."""
     import numpy as np
     from mixgantts_tpu_torch.config import NormStats
     from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
@@ -515,18 +600,26 @@ def cpu_reference(torch, pre, cfg, model, vocoder):
     noise = {"start_noise": r.randn(1, T, M).astype(np.float32),
              "step_noises": r.randn(model.diffusion.num_timesteps, 1, T, M).astype(np.float32)}
     outs = []
-    for m, v in ((model, vocoder), (cpu_model, cpu_voc)):
+    for m, v, mrf_dtype in ((model, vocoder, None), (cpu_model, cpu_voc, torch.bfloat16),
+                            (cpu_model, cpu_voc, torch.float32)):
+        v.generator.mrf_dtype = mrf_dtype
         pipe = TTSPipeline(m, v, pre, cfg, mel_dtype=torch.float32)
         outs.append(pipe(batch, noise_override=noise))
-    (gw, gm, gl), (cw, cm, cl) = outs
-    if gm.shape != (1, T, M) or list(gl) != list(cl):
-        raise AssertionError(f"GPU/CPU shapes or lengths differ: {gm.shape} {gl} {cl}")
-    mae = float(np.abs(gm - cm).mean())
-    lsb = int(np.abs(gw[0].astype(np.int32) - cw[0].astype(np.int32)).max())
+    cpu_voc.generator.mrf_dtype = None
+    (gw, gm, gl), (bw, bm, bl), (fw, fm, fl) = outs
+    if gm.shape != (1, T, M) or not list(gl) == list(bl) == list(fl):
+        raise AssertionError(f"GPU/CPU shapes or lengths differ: {gm.shape} {gl} {bl} {fl}")
+    mae = float(np.abs(gm - bm).mean())
+    g, b, f = (w[0].astype(np.float64) for w in (gw, bw, fw))
+    lsb = int(np.abs(g - b).max())
+    snr = 10 * math.log10((f ** 2).mean() / max(((f - g) ** 2).mean(), 1e-12))
+    snr_bf16 = 10 * math.log10((b ** 2).mean() / max(((b - g) ** 2).mean(), 1e-12))
     log(f"[reference] GPU vs CPU, mel_len {int(gl[0])}: mel mean|diff| {mae:.3e} "
-        f"(max|mel| {float(np.abs(cm).max()):.3f}), int16 max|diff| {lsb} LSB "
-        f"over {len(cw[0])} samples")
-    if mae >= 1e-3 or lsb > 16:
+        f"(max|mel| {float(np.abs(bm).max()):.3f}); waveform against the CPU with bf16 MRF "
+        f"weights: int16 max|diff| {lsb} LSB, SNR {snr_bf16:.1f} dB; against the CPU's fp32 "
+        f"path: SNR {snr:.1f} dB (int16 max|diff| {int(np.abs(g - f).max())} LSB); "
+        f"{len(f)} samples, rms {math.sqrt((f ** 2).mean()):.1f}")
+    if mae >= 1e-3 or lsb > 16 or snr <= 30:
         raise AssertionError("GPU path disagrees with the CPU reference")
 
 
@@ -621,7 +714,8 @@ def main():
     latency(torch, pipe, pre, one, four)
     if args.profile:
         profile_request(torch, pipe, one, args.profile)
-    log("[stage] the C=256 MRF stage in one launch (TF32 off)")
+    log("[stage] the C=256 MRF stage in one launch, fp32 (TF32 off), beside the bf16 "
+        "branchwise route")
     c256_stage(torch, vocoder, records)                           # phase 7
     log("[cli] raw text -> wav files through the synthesis CLI")
     cli_phase(torch, pre, cfg, model)                             # phase 8

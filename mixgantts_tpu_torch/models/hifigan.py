@@ -7,7 +7,10 @@ HiFi-GAN key layout (`conv_pre`, `ups.{i}`, `resblocks.{i*n_k+j}.convs1.{c}`,
 when a checkpoint is loaded.
 
 The MRF stages run in `ops.mrf`: the hand-written CUDA kernel for CUDA
-tensors, the plain version for CPU tensors.  The upsample is
+tensors, the plain version for CPU tensors.  Their weights are stacked once
+per stage, in bf16 and the kernel's layout on CUDA (the kernel's operand
+type, and the TPU kernel's), in fp32 elsewhere (`HiFiGANGenerator.mrf_dtype`
+overrides).  The upsample is
 `F.conv_transpose1d(stride=u, padding=(k-u)//2)`, which is exactly the JAX
 package's sub-pixel upsample.
 """
@@ -18,7 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.mrf import (
-    LRELU_SLOPE, mrf_stack, mrf_stack_folded, stack_mrf_params,
+    LRELU_SLOPE, kernel_weights, mrf_stack, mrf_stack_folded, stack_mrf_params,
     stack_mrf_params_folded,
 )
 from ..utils.tools import resolve_device
@@ -62,6 +65,9 @@ class HiFiGANGenerator(nn.Module):
                 self.resblocks.append(ResBlock1(ch, rk, rd))
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
         self._stacked = None
+        # type of the MRF weights, and so of the MRF arithmetic: None is
+        # bf16 on CUDA (the only type the kernel takes) and fp32 elsewhere
+        self.mrf_dtype = None
         self.to(device)
 
     @classmethod
@@ -88,7 +94,7 @@ class HiFiGANGenerator(nn.Module):
         return fused_apply(self, mel)
 
 
-def _stage_mode(channels, frames):
+def stage_mode(channels, frames):
     """How a stage's MRF runs, as in the JAX `fused_apply`: time-folded for
     C <= 64 (F = 128 / C) when F divides the frames, whole-stage for
     C <= 128, one call per branch above."""
@@ -98,15 +104,22 @@ def _stage_mode(channels, frames):
     return "whole" if channels <= 128 else "branchwise"
 
 
-def _stage_weights(generator, stage, mode, channels):
+def stage_weights(generator, stage, mode, channels, dtype=torch.float32):
+    """The stacked MRF weights of one stage for `mode`: a dict, or one per
+    branch for "branchwise"; in bf16 with the kernel's layout
+    (`ops.mrf.kernel_weights`) when dtype is bf16."""
     rks = generator.resblock_kernel_sizes
     dils = generator.resblock_dilation_sizes[0]
+
+    def typed(st, kernel_sizes):
+        return kernel_weights(st, kernel_sizes) if dtype == torch.bfloat16 else st
+
+    if mode == "branchwise":
+        return [typed(stack_mrf_params(generator, stage, (rk,), dils, branches=[(j, rk)]), (rk,))
+                for j, rk in enumerate(rks)]
     if mode == "folded":
-        return stack_mrf_params_folded(generator, stage, 128 // channels, rks, dils)
-    if mode == "whole":
-        return stack_mrf_params(generator, stage, rks, dils)
-    return [stack_mrf_params(generator, stage, (rk,), dils, branches=[(j, rk)])
-            for j, rk in enumerate(rks)]
+        return typed(stack_mrf_params_folded(generator, stage, 128 // channels, rks, dils), rks)
+    return typed(stack_mrf_params(generator, stage, rks, dils), rks)
 
 
 def fused_apply(generator, mel):
@@ -123,14 +136,16 @@ def fused_apply(generator, mel):
     dils = dils[0]
     if generator._stacked is None:
         generator._stacked = {}
+    dtype = generator.mrf_dtype or (
+        torch.bfloat16 if mel.device.type == "cuda" else torch.float32)
     x = generator.conv_pre(mel.transpose(1, 2))                  # [B, C, T]
     for i, up in enumerate(generator.ups):
         x = up(F.leaky_relu(x, LRELU_SLOPE))
         B, C, T = x.shape
-        mode = _stage_mode(C, T)
-        if (i, mode) not in generator._stacked:
-            generator._stacked[i, mode] = _stage_weights(generator, i, mode, C)
-        stacked = generator._stacked[i, mode]
+        mode = stage_mode(C, T)
+        if (i, mode, dtype) not in generator._stacked:
+            generator._stacked[i, mode, dtype] = stage_weights(generator, i, mode, C, dtype)
+        stacked = generator._stacked[i, mode, dtype]
         x = x.transpose(1, 2).contiguous()                       # [B, T, C]
         if mode == "folded":
             fold = stacked["fold"]

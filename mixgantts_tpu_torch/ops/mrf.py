@@ -15,8 +15,17 @@ bytes as a contiguous [B, T, C] tensor, so `mrf_stack_folded` views it as
 such and runs the same CUDA kernel (`csrc/mrf_stack.cu`, one launch per
 branch and pair).  `mrf_stack_streamed` runs a whole C = 256 stage in one
 launch (`csrc/mrf_stack_streamed.cu`).
+
+Arithmetic follows the weights' type, as the TPU kernels' operand type
+does (`op_dtype = w1_ref.dtype`): fp32 weights compute in fp32; bf16
+weights round the stage input and every conv input to bf16, accumulate in
+fp32 and keep biases, residual and branch mean in fp32.  On the TPU the
+JAX package always casts the weights to bf16, and so does `mrf_stack` /
+`mrf_stack_folded` on CUDA: `csrc/mrf_stack.cu` is a bf16 tensor-core
+kernel, fed by `kernel_weights`.  `mrf_stack_streamed` stays fp32.
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -65,7 +74,10 @@ def stack_mrf_params_folded(generator, stage, fold, kernel_sizes=(3, 7, 11),
 
 def mrf_stack_plain(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     """The MRF stage in plain PyTorch (F.conv1d), any device.
-    x [B, T, C] -> [B, T, C]."""
+    x [B, T, C] -> [B, T, C], in the arithmetic of the weights' type (bf16
+    weights: `_mrf_stack_plain_bf16`)."""
+    if stacked["w1"].dtype == torch.bfloat16:
+        return _mrf_stack_plain_bf16(x, stacked, kernel_sizes, dilations)
     xt = x.transpose(1, 2)
     acc = None
     for br, rk in enumerate(kernel_sizes):
@@ -84,9 +96,79 @@ def mrf_stack_plain(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     return (acc / len(kernel_sizes)).transpose(1, 2)
 
 
-def _check(name, x, stacked, kernel_sizes, dilations, widths):
-    """Raise unless a CUDA kernel takes x [B, T, C] and the stacked weights
-    as they are."""
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN convolutions in full fp32 (PyTorch lets them use TF32 by
+    default on the card)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _mrf_stack_plain_bf16(x, stacked, kernel_sizes, dilations):
+    """The TPU kernel's arithmetic with bf16 operands
+    (`pallas_vocoder.py::_kernel`): the stage input and each conv input
+    lrelu(.) * mask rounded to bf16, products of bf16-exact values summed in
+    fp32 (TF32 off), biases, residual and branch mean added in fp32."""
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    xt = bf16(x).transpose(1, 2)
+    acc = None
+    with _no_tf32():
+        for br, rk in enumerate(kernel_sizes):
+            pad = (TAPS - rk) // 2
+            y = xt
+            for p, d in enumerate(dilations):
+                w1 = stacked["w1"][br, p, pad:TAPS - pad].float().permute(2, 1, 0)
+                w2 = stacked["w2"][br, p, pad:TAPS - pad].float().permute(2, 1, 0)
+                t = F.conv1d(bf16(F.leaky_relu(y, LRELU_SLOPE)), w1, dilation=d,
+                             padding=d * (rk - 1) // 2)
+                t = t + stacked["b1"][br, p].float()[:, None]
+                t = F.conv1d(bf16(F.leaky_relu(t, LRELU_SLOPE)), w2,
+                             padding=(rk - 1) // 2)
+                y = y + (t + stacked["b2"][br, p].float()[:, None])
+            acc = y if acc is None else acc + y
+    return (acc / len(kernel_sizes)).transpose(1, 2)
+
+
+def _pack_taps(w, kernel_sizes):
+    """[n_br, n_pair, 11, C, C] -> bf16 [n_br, n_pair, 11 * C * C]: each
+    (branch, pair) holds its k real taps first, flattened to K = tap * C +
+    input channel and laid out in the order `csrc/mrf_mma.cuh` reads it: per
+    16-deep K slab s, per group g of 8 output channels, per half h of the
+    slab, an 8 x 8 core matrix [output channel % 8][K % 8]."""
+    n_br, n_pair, _, C, _ = w.shape
+    out = torch.zeros(n_br, n_pair, TAPS * C * C, dtype=torch.bfloat16, device=w.device)
+    for br, rk in enumerate(kernel_sizes):
+        pad = (TAPS - rk) // 2
+        t = w[br, :, pad:pad + rk].to(torch.bfloat16)          # [p, tap, c_in, c_out]
+        t = t.reshape(n_pair, rk * C // 16, 2, 8, C // 8, 8)   # [p, s, h, e, g, r]
+        out[br, :, :rk * C * C] = t.permute(0, 1, 4, 2, 5, 3).reshape(n_pair, -1)
+    return out
+
+
+def kernel_weights(stacked, kernel_sizes=(3, 7, 11)):
+    """Stacked weights as the CUDA kernel of `mrf_stack` takes them: w1/w2
+    in bf16 (the TPU kernel's operand type, `pallas_vocoder.py:535-539`),
+    b1/b2 in fp32, and the bf16 copies `w1_mma`/`w2_mma` in the kernel's
+    order for `kernel_sizes`.  `models.hifigan.fused_apply` makes them once
+    per stage; `mrf_stack` makes them per call for weights that lack them."""
+    w1 = stacked["w1"].to(torch.bfloat16).contiguous()
+    w2 = stacked["w2"].to(torch.bfloat16).contiguous()
+    return dict(stacked, w1=w1, w2=w2,
+                b1=stacked["b1"].float().contiguous(), b2=stacked["b2"].float().contiguous(),
+                w1_mma=_pack_taps(w1, kernel_sizes), w2_mma=_pack_taps(w2, kernel_sizes),
+                mma_kernel_sizes=tuple(kernel_sizes))
+
+
+def _check(name, x, stacked, kernel_sizes, dilations, widths,
+           weight_dtypes=(torch.float32,)):
+    """Raise unless a CUDA kernel takes x [B, T, C] (fp32) and the stacked
+    weights (w1/w2 in one of `weight_dtypes`, b1/b2 fp32) as they are."""
     B, T, C = x.shape
     n_br, n_pair = len(kernel_sizes), len(dilations)
     if C not in widths:
@@ -102,9 +184,11 @@ def _check(name, x, stacked, kernel_sizes, dilations, widths):
             "b1": (n_br, n_pair, C), "b2": (n_br, n_pair, C)}
     for key in ("x", *want):
         t = x if key == "x" else stacked[key]
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} kernel: {key} must be contiguous float32 "
-                             f"on {x.device}, got {t.dtype} on {t.device}")
+        dtypes = weight_dtypes if key in ("w1", "w2") else (torch.float32,)
+        if t.device != x.device or t.dtype not in dtypes or not t.is_contiguous():
+            raise ValueError(f"{name} kernel: {key} must be contiguous "
+                             f"{' or '.join(map(str, dtypes))} on {x.device}, "
+                             f"got {t.dtype} on {t.device}")
         if key != "x" and tuple(t.shape) != want[key]:
             raise ValueError(f"{name} kernel: {key} has shape "
                              f"{tuple(t.shape)}, want {want[key]}")
@@ -116,12 +200,24 @@ def _int_array(values):
 
 
 def _launch(x, stacked, kernel_sizes, dilations):
-    """Run csrc/mrf_stack.cu on a CUDA x [B, T, C]; returns (out, launches)."""
+    """Run csrc/mrf_stack.cu on a CUDA x [B, T, C] (fp32) with bf16
+    operands; fp32 weights are cast (`kernel_weights`) for this call.
+    Returns (out, launches)."""
     B, T, C = x.shape
     n_br, n_pair = len(kernel_sizes), len(dilations)
-    _check("mrf_stack", x, stacked, kernel_sizes, dilations, (32, 64, 128, 256))
+    _check("mrf_stack", x, stacked, kernel_sizes, dilations, (32, 64, 128, 256),
+           weight_dtypes=(torch.bfloat16, torch.float32))
+    if "w1_mma" not in stacked:
+        stacked = kernel_weights(stacked, kernel_sizes)
+    packed = (n_br, n_pair, TAPS * C * C)
+    if (stacked["mma_kernel_sizes"] != kernel_sizes
+            or any(stacked[k].shape != packed or stacked[k].dtype != torch.bfloat16
+                   or stacked[k].device != x.device for k in ("w1_mma", "w2_mma"))):
+        raise ValueError(f"mrf_stack kernel: w1_mma/w2_mma must be bf16 {packed} on "
+                         f"{x.device}, laid out for kernel sizes {kernel_sizes}; "
+                         "make them with kernel_weights")
     lib = cuda_build.library("mrf_stack")
-    fn = lib.mrf_stack_f32
+    fn = lib.mrf_stack_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3)
@@ -131,20 +227,30 @@ def _launch(x, stacked, kernel_sizes, dilations):
         buf0 = torch.empty_like(x)
         buf1 = torch.empty_like(x)
         err = fn(x.data_ptr(), out.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-                 stacked["w1"].data_ptr(), stacked["b1"].data_ptr(),
-                 stacked["w2"].data_ptr(), stacked["b2"].data_ptr(), B, T, C, n_br, n_pair,
+                 stacked["w1_mma"].data_ptr(), stacked["b1"].data_ptr(),
+                 stacked["w2_mma"].data_ptr(), stacked["b2"].data_ptr(), B, T, C, n_br, n_pair,
                  ks, ds, torch.cuda.current_stream().cuda_stream)
         cuda_build.check(lib, "mrf_stack", err)
     return out, n_br * n_pair
+
+
+def tile_frames(C, k):
+    """Output frames one block of the CUDA kernel owns at width C and
+    kernel size k (blocks per launch = B * ceil(T / frames))."""
+    lib = cuda_build.library("mrf_stack")
+    lib.mrf_stack_tile_frames.restype = ctypes.c_int
+    lib.mrf_stack_tile_frames.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib.mrf_stack_tile_frames(C, k)
 
 
 def mrf_stack(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     """x [B, T, C], stacked from `stack_mrf_params` -> the averaged MRF
     output [B, T, C].
 
-    CUDA tensors run the hand-written kernel (one launch per branch and
-    pair, counted in `mrf_stack.launches`); CPU tensors run the plain
-    version."""
+    CUDA tensors run the hand-written bf16 tensor-core kernel (one launch
+    per branch and pair, counted in `mrf_stack.launches`) on the weights of
+    `kernel_weights` (fp32 weights are cast per call); CPU tensors run the
+    plain version in the weights' type."""
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
     if x.device.type != "cuda":
@@ -164,8 +270,9 @@ def mrf_stack_folded(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
     prefolded=True takes x in the TPU kernel's folded layout [B, T/F, F*C]
     (x_folded[b, i, f*C + c] == x[b, F*i + f, c]), which is a view of the
     contiguous [B, T, C] signal; otherwise x is [B, T, C].  Returns
-    [B, T, C].  CUDA tensors run the same kernel as `mrf_stack`, counted in
-    `mrf_stack_folded.launches`; CPU tensors run the plain version."""
+    [B, T, C].  CUDA tensors run the same bf16 kernel as `mrf_stack`,
+    counted in `mrf_stack_folded.launches`; CPU tensors run the plain
+    version."""
     if prefolded:
         fold = stacked["fold"]
         B, R, Cf = x.shape

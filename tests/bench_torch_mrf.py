@@ -1,0 +1,217 @@
+"""Where the MRF kernel's time goes, and what its per-width configuration
+buys, on one CUDA device (it needs the card and nvcc; no JAX).
+
+    python3 tests/bench_torch_mrf.py variants NAME=SPEC [NAME=SPEC ...]
+    python3 tests/bench_torch_mrf.py phases
+
+`variants` builds copies of `csrc/mrf_stack.cu` whose `Cfg` table is
+patched by SPEC and times the MRF calls of one B=1 request at frame bucket
+1000 through each (CUDA events, mean of 10 calls, two rounds in turns),
+beside the kernel as it is (`as-built`).  SPEC is `;`-separated
+`C:WG,MT,KCH,S,NB,MIN_BLOCKS` entries (the fields of `Cfg<C>`), and
+`batch:N` for the loads in flight per thread (`kBatch`); each variant's
+ptxas registers and spills are printed, and its error against the bf16
+plain version.
+
+`phases` builds the kernel as it is with `clock64()` stamps at the phase
+boundaries of each block (thread 0: the input tile's loads, conv1, conv1's
+epilogue, conv2, conv2's epilogue) and prints the mean cycles of each phase
+per block, for one k = 3 and one k = 11 pair launch (dilation 5) at each
+width of the request, with the launch's span and the blocks resident at
+once (sum of block times over span x SMs).
+
+Builds go to `mixgantts_tpu_torch/_build/bench/`.
+"""
+
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from mixgantts_tpu_torch.ops import cuda_build, mrf  # noqa: E402
+
+CSRC = os.path.join(REPO, "mixgantts_tpu_torch", "csrc")
+OUT = os.path.join(cuda_build.BUILD_DIR, "bench")
+REQUEST = [(256, 8000, (3,)), (256, 8000, (7,)), (256, 8000, (11,)),
+           (128, 64000, (3, 7, 11)), (64, 128000, (3, 7, 11)), (32, 256000, (3, 7, 11))]
+
+
+def patched(spec):
+    src = open(os.path.join(CSRC, "mrf_stack.cu")).read()
+    for part in filter(None, spec.split(";")):
+        key, vals = part.split(":")
+        if key == "batch":
+            src, n = re.subn(r"constexpr int kBatch = \d+;", f"constexpr int kBatch = {vals};", src)
+        else:
+            wg, mt, kch, s, nb, mb = vals.split(",")
+            src, n = re.subn(
+                r"struct Cfg<%s> \{\n  static constexpr int [^;]*;" % key,
+                f"struct Cfg<{key}> {{\n  static constexpr int kWG = {wg}, kMT = {mt}, "
+                f"kKCH = {kch}, kS = {s}, kNB = {nb}, kMinBlocks = {mb};", src)
+        if n != 1:
+            raise ValueError(f"cannot apply {part!r}")
+    return src
+
+
+def build(named_sources):
+    """{name: source} -> {name: (ctypes library, ptxas report)}, one nvcc
+    each, all started together."""
+    jobs = {}
+    for name, src in named_sources.items():
+        d = os.path.join(OUT, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(CSRC, "mrf_mma.cuh")) as f, \
+                open(os.path.join(d, "mrf_mma.cuh"), "w") as g:
+            g.write(f.read())
+        with open(os.path.join(d, "mrf_stack.cu"), "w") as f:
+            f.write(src)
+        so = os.path.join(d, "libmrf_stack.so")
+        cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, os.path.join(d, "mrf_stack.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), so)
+    libs = {}
+    for name, (proc, so) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{out[-4000:]}")
+        report, kernel = [], None
+        for line in out.splitlines():
+            m = re.search(r"mrf_pair_mmaILi(\d+)ELi(\d+)E", line)
+            if m and "entry function" in line:
+                kernel = f"<{m.group(1)}, {m.group(2)}>"
+            elif kernel and ("Used" in line or "spill" in line):
+                report.append(f"{kernel} {line.split(':', 1)[-1].strip()}")
+        libs[name] = (ctypes.CDLL(so), report)
+    return libs
+
+
+def weights(C, kernel_sizes):
+    g = torch.Generator().manual_seed(C)
+    w = torch.zeros(2, len(kernel_sizes), 3, mrf.TAPS, C, C)
+    for i, k in enumerate(kernel_sizes):
+        pad = (mrf.TAPS - k) // 2
+        w[:, i, :, pad:pad + k] = torch.randn(2, 3, k, C, C, generator=g) * (k * C) ** -0.5
+    b = torch.randn(2, len(kernel_sizes), 3, C, generator=g) * 0.1
+    st = {"w1": w[0], "w2": w[1], "b1": b[0], "b2": b[1]}
+    return mrf.kernel_weights({k: v.contiguous().cuda() for k, v in st.items()}, kernel_sizes)
+
+
+def time_ms(fn, iters=10):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def variants(specs):
+    libs = build({"as-built": patched(""), **{n: patched(s) for n, s in specs.items()}})
+    for name, (_, report) in libs.items():
+        spills = [r for r in report if "spill" in r and not r.endswith(" 0 bytes spill loads")]
+        regs = sorted({r.split("Used ")[1].split(" registers")[0] for r in report if "Used" in r})
+        print(f"[{name}] {specs.get(name, 'the Cfg table as built')}: registers {regs}; "
+              f"{'spills: ' + '; '.join(spills) if spills else 'no spills'}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    calls = []
+    for C, T, ks in REQUEST:
+        st = weights(C, ks)
+        x = torch.randn(1, T, C, device="cuda", generator=torch.Generator("cuda").manual_seed(T))
+        calls.append((C, ks, st, x, mrf.mrf_stack_plain(x, st, ks)))
+    for rnd in range(2):
+        for name, (lib, _) in (libs.items() if rnd == 0 else reversed(libs.items())):
+            cuda_build._loaded["mrf_stack"] = lib
+            parts, total = [], 0.0
+            for C, ks, st, x, want in calls:
+                got = mrf.mrf_stack(x, st, ks)
+                err = ((got - want).abs().max() / want.abs().max()).item()
+                ms = time_ms(lambda: mrf.mrf_stack(x, st, ks))
+                total += ms
+                parts.append(f"C={C} k={ks} {ms:.4f} ms (err {err:.1e})")
+            print(f"round {rnd} [{name}] {total:.4f} ms: " + "; ".join(parts), flush=True)
+    cuda_build._loaded.pop("mrf_stack")
+
+
+def phases():
+    src = patched("")
+    src = src.replace('#include "mrf_mma.cuh"\n', '''#include "mrf_mma.cuh"
+__device__ long long g_stamps[1 << 17][8];
+#define STAMP(i)                                                                        \\
+  if (threadIdx.x == 0) {                                                               \\
+    long long* s_ = g_stamps[(blockIdx.y * gridDim.x + blockIdx.x) & ((1 << 17) - 1)];  \\
+    s_[i] = clock64();                                                                  \\
+    if (i == 0 || i == 5) {                                                             \\
+      unsigned long long g_;                                                            \\
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));                            \\
+      s_[6 + (i == 5)] = (long long)g_;                                                 \\
+    }                                                                                   \\
+  }
+''', 1)
+    # (anchor, stamp): the stamp goes at the anchor's blank line, or after it
+    marks = [("  const int tid = threadIdx.x;\n\n  // the input tile", 0),
+             ("  consumer_sync<P::kConsumers>();\n\n  const int wg", 1),
+             ("full, empty, 0, leader);\n", 2),
+             ("  consumer_sync<P::kConsumers>();\n\n  // conv2", 3),
+             ("full, empty, Q::kQ, leader);\n", 4)]
+    for anchor, i in marks:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"anchor not found once: {anchor!r}")
+        head, blank, rest = anchor.partition("\n\n")
+        stamped = f"{head}\n  STAMP({i})\n\n{rest}" if blank else f"{anchor}  STAMP({i})\n"
+        src = src.replace(anchor, stamped)
+    end = src.index("// One residual pair: out = [out +]")
+    close = src.rindex("}\n", 0, end)
+    src = src[:close] + "  STAMP(5)\n" + src[close:]
+    src = src.replace('extern "C" {\n', 'extern "C" {\nint mrf_stack_stamps(long long* h, int n) '
+                      '{ return (int)cudaMemcpyFromSymbol(h, g_stamps, (size_t)n * 64); }\n', 1)
+    lib, _ = build({"phases": src})["phases"]
+    cuda_build._loaded["mrf_stack"] = lib
+    names = ("tile loads", "conv1", "conv1 epilogue", "conv2", "conv2 epilogue")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for C, T, _ in REQUEST[2:]:
+        for k in (3, 11):
+            st = weights(C, (k,))
+            x = torch.randn(1, T, C, device="cuda")
+            mrf.mrf_stack(x, st, (k,))      # three pair launches; the last (d = 5) stays
+            torch.cuda.synchronize()
+            n = -(-T // mrf.tile_frames(C, k))
+            h = np.zeros((n, 8), np.int64)
+            if lib.mrf_stack_stamps(h.ctypes.data_as(ctypes.c_void_p), n):
+                raise RuntimeError("reading the stamps failed")
+            per = np.diff(h[:, :6], axis=1).mean(axis=0)
+            span = h[:, 7].max() - h[:, 6].min()
+            resident = (h[:, 7] - h[:, 6]).sum() / span / n_sm
+            print(f"C={C} T={T} k={k} d=5: {n} blocks; cycles per block: " +
+                  ", ".join(f"{nm} {c:.0f}" for nm, c in zip(names, per)) +
+                  f"; total {per.sum():.0f}; launch span {span / 1e3:.1f} us; "
+                  f"blocks resident per SM {resident:.2f}", flush=True)
+    cuda_build._loaded.pop("mrf_stack")
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("bench_torch_mrf: needs a CUDA device")
+    mode, *rest = sys.argv[1:] or ["phases"]
+    if mode == "variants":
+        variants(dict(a.split("=", 1) for a in rest))
+    elif mode == "phases":
+        phases()
+    else:
+        sys.exit(__doc__)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(out.stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

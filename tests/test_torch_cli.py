@@ -157,8 +157,8 @@ def test_restore_is_strict_and_equals_the_bridge(workspace, mode):
     want = generator_state_dict(variables["params"], variables.get("batch_stats", {}))
     got = port.state_dict()
     assert set(got) == set(want)
-    for k in want:
-        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+    for k in want:   # exact (torch.equal: no lazy imports that other files' stubs can break)
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
     G = {k: torch.from_numpy(np.array(v)) for k, v in G.items()}
     with pytest.raises(RuntimeError, match="Unexpected key"):
         load_reference_generator(port, dict(G, extra=torch.zeros(1)))

@@ -7,9 +7,15 @@ fixture).  This file imports no JAX, so it also runs where JAX is absent:
         tests/test_torch_gpu_kernels.py
 
 TF32 is off for cuDNN convolutions and matmuls, so the plain versions run
-in full fp32.  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| + 1e-5
-(fp32 sums taken in another order; the denoiser's cross-block atomics add
-run-to-run order changes).
+in full fp32.  Tolerance for the fp32 kernels (denoiser, streamed MRF):
+max|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (fp32 sums taken in another
+order; the denoiser's cross-block atomics add run-to-run order changes).
+The MRF kernel behind `mrf_stack` / `mrf_stack_folded` computes with bf16
+operands and fp32 accumulation, as the TPU kernel does; it is held against
+the plain version with the same bf16 weights (which rounds where it
+rounds) at 4e-3 * max|plain| + 1e-5, one bf16 step of the largest value:
+the same products summed in another order, plus bf16 rounding flips of the
+conv1 intermediate where the two sums straddle a rounding boundary.
 """
 
 import numpy as np
@@ -19,8 +25,10 @@ import torch
 from mixgantts_tpu_torch.ops.denoiser_stack import (
     fused_residual_stack, fused_residual_stack_plain,
 )
+from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from mixgantts_tpu_torch.ops.mrf import (
-    TAPS, mrf_stack, mrf_stack_folded, mrf_stack_plain, mrf_stack_streamed,
+    TAPS, kernel_weights, mrf_stack, mrf_stack_folded, mrf_stack_plain, mrf_stack_streamed,
+    tile_frames,
 )
 
 pytestmark = pytest.mark.gpu
@@ -36,10 +44,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def assert_close(got, want):
+BF16_TOL = 4e-3   # the bf16 MRF kernel against its bf16 plain version
+
+
+def assert_close(got, want, rel=1e-4):
     got, want = got.double(), want.double()
     err = (got - want).abs().max().item()
-    bound = 1e-4 * want.abs().max().item() + 1e-5
+    bound = rel * want.abs().max().item() + 1e-5
     assert torch.isfinite(got).all()
     assert err <= bound, f"max|diff|={err:.3g} > {bound:.3g}"
 
@@ -96,12 +107,37 @@ def mrf_weights(C, kernel_sizes, n_pair=3, seed=0, device="cuda"):
 def test_mrf_stack_kernel_matches_plain(cuda, C, T, kernel_sizes):
     x = torch.randn(1, T, C, device=cuda, generator=torch.Generator(
         cuda).manual_seed(C + T))
-    st = mrf_weights(C, kernel_sizes)
+    st = kernel_weights(mrf_weights(C, kernel_sizes), kernel_sizes)
     n0 = mrf_stack.launches
     got = mrf_stack(x, st, kernel_sizes)
     torch.cuda.synchronize()
     assert mrf_stack.launches == n0 + 3 * len(kernel_sizes)
-    assert_close(got, mrf_stack_plain(x, st, kernel_sizes))
+    assert_close(got, mrf_stack_plain(x, st, kernel_sizes), BF16_TOL)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", ["shorter than one tile", "ragged last tile at k=11"])
+def test_mrf_stack_kernel_tile_edges(cuda, C, case):
+    """T shorter than one block's frames, and a k = 11 branch (dilations up
+    to 5) whose last block is ragged, at every width."""
+    frames = tile_frames(C, 11)
+    T = frames // 2 if case.startswith("shorter") else 3 * frames + 5
+    kernel_sizes = (3, 7, 11) if case.startswith("shorter") else (11,)
+    x = torch.randn(2, T, C, device=cuda, generator=torch.Generator(cuda).manual_seed(T))
+    st = kernel_weights(mrf_weights(C, kernel_sizes), kernel_sizes)
+    got = mrf_stack(x, st, kernel_sizes)
+    torch.cuda.synchronize()
+    assert_close(got, mrf_stack_plain(x, st, kernel_sizes), BF16_TOL)
+
+
+def test_fp32_weights_are_cast_to_bf16(cuda):
+    """fp32 stacked weights run the same bf16 kernel (cast per call, as the
+    JAX package casts them on the TPU)."""
+    x = torch.randn(1, 500, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    st = mrf_weights(64, (3, 7, 11))
+    got = mrf_stack(x, st)
+    assert torch.equal(got, mrf_stack(x, kernel_weights(st)))
+    assert_close(got, mrf_stack_plain(x, kernel_weights(st)), BF16_TOL)
 
 
 @pytest.mark.parametrize("C,T", [(64, 128000), (32, 256000), (32, 1000),
@@ -110,14 +146,14 @@ def test_mrf_stack_folded_kernel_matches_plain(cuda, C, T):
     fold = 128 // C
     x = torch.randn(2, T, C, device=cuda, generator=torch.Generator(
         cuda).manual_seed(T))
-    st = dict(mrf_weights(C, (3, 7, 11)), fold=fold)
+    st = dict(kernel_weights(mrf_weights(C, (3, 7, 11))), fold=fold)
     n0 = mrf_stack_folded.launches
     got = mrf_stack_folded(x.reshape(2, T // fold, fold * C), st,
                            prefolded=True)
     torch.cuda.synchronize()
     assert mrf_stack_folded.launches == n0 + 9
     assert got.shape == x.shape
-    assert_close(got, mrf_stack_plain(x, st))
+    assert_close(got, mrf_stack_plain(x, st), BF16_TOL)
 
 
 @pytest.mark.parametrize("B,T,kernel_sizes", [
@@ -155,3 +191,26 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="built for 256"):
         mrf_stack_streamed(torch.randn(1, 64, 128, device=cuda),
                            mrf_weights(128, (3,)), (3,))
+    y = torch.randn(1, 64, 32, device=cuda)
+    for dtype in (torch.float16, torch.float64):   # the MRF kernel takes bf16 (or casts fp32)
+        with pytest.raises(ValueError, match="bfloat16"):
+            mrf_stack(y, dict(st, w1=st["w1"].to(dtype), w2=st["w2"].to(dtype)), (3,))
+    with pytest.raises(ValueError, match="float32"):   # the streamed kernel takes fp32 only
+        mrf_stack_streamed(torch.randn(1, 64, 256, device=cuda),
+                           kernel_weights(mrf_weights(256, (3,)), (3,)), (3,))
+    with pytest.raises(ValueError, match="laid out for kernel sizes"):
+        mrf_stack(y, kernel_weights(st, (3,)), (7,))
+
+
+def test_fused_apply_stacks_bf16_on_cuda(cuda):
+    """On CUDA the vocoder stacks each stage's MRF weights once, in bf16 and
+    the kernel's layout, and serving converts nothing per call."""
+    torch.manual_seed(0)
+    gen = HiFiGANGenerator(n_mels=20, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+                           upsample_initial_channel=128, device=cuda)
+    mel = torch.randn(1, 40, 20, device=cuda)
+    with torch.no_grad():
+        gen(mel)
+    assert gen._stacked and all(
+        key[2] == torch.bfloat16 and st["w1"].dtype == torch.bfloat16 and "w1_mma" in st
+        for key, st in gen._stacked.items())

@@ -10,7 +10,23 @@ package's Pallas kernels, which run here in interpret mode:
   boundary and prefolded input;
 - `ops.mrf.mrf_stack_streamed` vs `mrf_stack_streamed` of
   `mixgantts_tpu.ops.pallas_vocoder` at C = 256 (same tolerance), across
-  tile seams, with T not a multiple of the tile, and at B = 2.
+  tile seams, with T not a multiple of the tile, and at B = 2;
+- the bf16 arithmetic of the MRF stage (what the TPU kernels compute on
+  their chip, and the CUDA kernel on the card): `mrf_stack_plain`,
+  `mrf_stack` and `mrf_stack_folded` with bf16 stacked weights vs the
+  Pallas kernels in interpret mode with bf16 weights on a bf16-exact input.
+  Tolerance: max|diff| <= 1e-3 * max|want| + 1e-5 and mean|diff| <= 5e-5 *
+  max|want|.  Both sum the same bf16-exact products in fp32, in another
+  order; where the two fp32 sums of a conv1 output straddle a bf16 rounding
+  boundary its rounded value differs by one bf16 step (2^-8 relative), which
+  conv2 spreads to a few outputs: measured up to 3.5e-4 (max) and 1.2e-5
+  (mean) of max|want|, the folded layout summing in the most different
+  order.  fp32 weights measure at least 1.5e-3 (max) and 3.2e-4 (mean), so
+  the cases tell the two arithmetics apart;
+- `ops.mrf.kernel_weights`: the bf16 copies in wgmma order that the CUDA
+  kernel reads, element for element;
+- `models.hifigan.fused_apply` stacks its MRF weights in fp32 on the CPU,
+  and in bf16 with the kernel's layout where asked (on CUDA by default).
 
 On CPU tensors the port's entry points take the plain versions, which
 the entry-point cases check too.
@@ -26,6 +42,7 @@ from mixgantts_tpu.models.blocks import Conv1d, StepEmbeddingMLP
 from mixgantts_tpu.models.denoiser import Denoiser
 from mixgantts_tpu.ops import pallas as jpallas
 from mixgantts_tpu.ops import pallas_vocoder as jvoc
+from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from mixgantts_tpu_torch.ops import denoiser_stack as tden
 from mixgantts_tpu_torch.ops import mrf as tmrf
 from test_pallas import _mrf_stage
@@ -128,3 +145,135 @@ def test_kernel_entry_points_reject_other_devices():
         tmrf.mrf_stack_streamed(x, {}, (3,))
     with pytest.raises(ValueError, match="no kernel"):
         tden.fused_residual_stack(x, x, x[:, 0], {})
+
+
+def bf16_exact(x):
+    """x rounded to bf16 and back: an input the bf16 and fp32 paths read
+    alike (the TPU kernel rounds its x tiles to bf16; interpret mode does
+    not)."""
+    return jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32)
+
+
+def with_bf16_weights(st):
+    return dict(st, w1=st["w1"].astype(jnp.bfloat16), w2=st["w2"].astype(jnp.bfloat16))
+
+
+def assert_bf16_close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.abs(want).max()
+    err = np.abs(got - want)
+    assert err.max() <= 1e-3 * scale + 1e-5, f"max|diff| {err.max():.3g}, max|want| {scale:.3g}"
+    assert err.mean() <= 5e-5 * scale, f"mean|diff| {err.mean():.3g}, max|want| {scale:.3g}"
+
+
+@pytest.mark.parametrize("C,T,B,rks,tile", [
+    (16, 103, 2, (3, 7, 11), 56),   # tile seams and a ragged last tile
+    (16, 40, 1, (11,), None),       # one branch, as the C = 256 stage runs
+    (128, 40, 1, (3,), None),       # the C = 128 boundary
+])
+def test_mrf_stack_bf16_matches_pallas_bf16(C, T, B, rks, tile):
+    x, params = mrf_case(C, T, B, rks, seed=C + T)
+    x = bf16_exact(x)
+    st = jvoc.stack_mrf_params(params, 0, rks)
+    want = jvoc.mrf_stack(x, with_bf16_weights(st), rks, tile=tile, interpret=True)
+    weights = tmrf.kernel_weights(as_torch(st), rks)
+    xt = torch.as_tensor(np.asarray(x))
+    for fn in (tmrf.mrf_stack_plain, tmrf.mrf_stack):
+        assert_bf16_close(fn(xt, weights, rks), want)
+    with pytest.raises(AssertionError):   # the fp32 arithmetic is another result
+        assert_bf16_close(tmrf.mrf_stack_plain(xt, as_torch(st), rks), want)
+
+
+@pytest.mark.parametrize("fold,tile", [(2, None), (4, 32)])
+def test_mrf_stack_folded_bf16_matches_pallas_bf16(fold, tile):
+    C, T, B = 16, 96, 2
+    x, params = mrf_case(C, T, B, (3, 7, 11), seed=fold)
+    xf = bf16_exact(x).reshape(B, T // fold, fold * C)
+    want = jvoc.mrf_stack_folded(
+        xf, with_bf16_weights(jvoc.stack_mrf_params_folded(params, 0, fold)), tile=tile,
+        interpret=True, prefolded=True)
+    st = dict(tmrf.kernel_weights(as_torch(jvoc.stack_mrf_params(params, 0))), fold=fold)
+    got = tmrf.mrf_stack_folded(torch.as_tensor(np.asarray(xf)), st, prefolded=True)
+    assert got.shape == (B, T, C)
+    assert_bf16_close(got, want)
+
+
+def _mrf_stack_plain_fp32_reference(x, stacked, kernel_sizes, dilations):
+    """The fp32 plain version as it stood before the bf16 kernel (kept
+    here verbatim: fp32 weights must keep giving exactly this)."""
+    import torch.nn.functional as F
+    xt = x.transpose(1, 2)
+    acc = None
+    for br, rk in enumerate(kernel_sizes):
+        pad = (tmrf.TAPS - rk) // 2
+        y = xt
+        for p, d in enumerate(dilations):
+            w1 = stacked["w1"][br, p, pad:tmrf.TAPS - pad].permute(2, 1, 0)
+            w2 = stacked["w2"][br, p, pad:tmrf.TAPS - pad].permute(2, 1, 0)
+            t = F.leaky_relu(y, tmrf.LRELU_SLOPE)
+            t = F.conv1d(t, w1, stacked["b1"][br, p], dilation=d,
+                         padding=d * (rk - 1) // 2)
+            t = F.leaky_relu(t, tmrf.LRELU_SLOPE)
+            t = F.conv1d(t, w2, stacked["b2"][br, p], padding=(rk - 1) // 2)
+            y = y + t
+        acc = y if acc is None else acc + y
+    return (acc / len(kernel_sizes)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("rks", [(3, 7, 11), (7,)])
+def test_mrf_stack_plain_fp32_is_unchanged(rks):
+    x, params = mrf_case(16, 70, 2, rks, seed=5)
+    st = as_torch(jvoc.stack_mrf_params(params, 0, rks))
+    xt = torch.as_tensor(np.asarray(x))
+    want = _mrf_stack_plain_fp32_reference(xt, st, rks, (1, 3, 5))
+    assert torch.equal(tmrf.mrf_stack_plain(xt, st, rks), want)
+
+
+@pytest.mark.parametrize("C,rks", [(32, (3, 7, 11)), (64, (11,))])
+def test_kernel_weights_are_in_wgmma_order(C, rks):
+    """Element (K = tap * C + c_in, c_out) of each (branch, pair) sits where
+    the kernel's descriptor reads it: 16-deep slab s, 8-channel group g,
+    K half h, core-matrix row c_out % 8, column K % 8."""
+    r = np.random.RandomState(C)
+    n_br = len(rks)
+    w = np.zeros((n_br, 3, tmrf.TAPS, C, C), np.float32)
+    for br, k in enumerate(rks):
+        pad = (tmrf.TAPS - k) // 2
+        w[br, :, pad:pad + k] = r.randn(3, k, C, C)
+    st = {"w1": torch.tensor(w), "w2": torch.tensor(-w),
+          "b1": torch.zeros(n_br, 3, C), "b2": torch.zeros(n_br, 3, C)}
+    kw = tmrf.kernel_weights(st, rks)
+    assert kw["w1"].dtype == kw["w2"].dtype == torch.bfloat16
+    assert kw["w1_mma"].shape == (n_br, 3, tmrf.TAPS * C * C)
+    for br, k in enumerate(rks):
+        pad = (tmrf.TAPS - k) // 2
+        kk, n = np.meshgrid(np.arange(k * C), np.arange(C), indexing="ij")
+        at = (((kk // 16) * (C // 8) + n // 8) * 2 + (kk % 16) // 8) * 64 + (n % 8) * 8 + kk % 8
+        for key in ("w1", "w2"):
+            dense = kw[key][br, :, pad:pad + k].reshape(3, k * C, C)
+            assert torch.equal(kw[key + "_mma"][br][:, torch.as_tensor(at)], dense)
+
+
+def test_fused_apply_stacks_fp32_on_the_cpu_and_bf16_where_asked():
+    """On the CPU the MRF weights stay fp32 (the plain fp32 path); with
+    mrf_dtype = bf16 (the default on CUDA) they are stacked once per stage
+    in bf16 with the kernel's layout, and the waveform stays within the JAX
+    package's bar for its bf16 vocoder (SNR > 30 dB against fp32)."""
+    torch.manual_seed(0)
+    gen = HiFiGANGenerator(n_mels=20, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+                           upsample_initial_channel=64, device="cpu")
+    mel = torch.tensor(np.random.RandomState(0).randn(1, 12, 20), dtype=torch.float32)
+    with torch.no_grad():
+        ref = gen(mel)
+        assert {key[2] for key in gen._stacked} == {torch.float32}
+        assert all(st["w1"].dtype == torch.float32 and "w1_mma" not in st
+                   for st in gen._stacked.values())
+        gen.mrf_dtype = torch.bfloat16
+        low = gen(mel)
+        assert gen(mel).equal(low)
+    bf16 = [st for key, st in gen._stacked.items() if key[2] == torch.bfloat16]
+    assert len(bf16) == 2 and all(
+        st["w1"].dtype == torch.bfloat16 and st["w1_mma"].dtype == torch.bfloat16
+        for st in bf16)
+    snr = 10 * np.log10((ref ** 2).mean().item() / ((ref - low) ** 2).mean().item())
+    assert 30 < snr < 120, f"bf16 MRF SNR {snr:.1f} dB"
