@@ -1,6 +1,6 @@
-// The register-tiled dilated convolution shared by the HiFi-GAN MRF kernels
-// (mrf_stack.cu, one launch per residual pair, and mrf_stack_streamed.cu,
-// one launch per stage), fp32 in, fp32 accumulation.
+// The register-tiled dilated convolution of the whole-stage HiFi-GAN MRF
+// kernel (mrf_stack_streamed.cu, one launch per stage), fp32 in, fp32
+// accumulation.  (mrf_stack.cu runs on the tensor cores, mrf_mma.cuh.)
 //
 // A block of kThreads threads computes rows of a [rows, C] output from a
 // [rows + halo, C] input held in shared memory: each thread owns 8 output

@@ -28,6 +28,11 @@
 //   "full" mbarrier; the consumers release the stage on its "empty"
 //   mbarrier once the wgmmas that read it have completed.
 //
+// The denoiser kernel (denoiser_stack.cu) takes from it the mbarriers,
+// bulk_copy, pack_bf16, smem_addr, kmajor_desc and the wgmma fence, commit,
+// wait and fence_reg calls, with a pass of its own (both operands from
+// shared memory).
+//
 // Each library includes this header from one translation unit, so its
 // definitions have internal linkage.
 
@@ -51,6 +56,11 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // --- mbarriers and the bulk copy -------------------------------------------
@@ -130,13 +140,17 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
 
-// Shared-memory descriptor of one 16 x N K-major slab without swizzle:
-// leading byte offset 128 (the two 8-deep K halves), stride byte offset 256
-// (groups of 8 rows of N).
-__device__ __forceinline__ uint64_t slab_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
+// Shared-memory descriptor of a K-major operand without swizzle: core
+// matrices of 8 rows x 16 bytes, `lbo` bytes apart along K and `sbo` bytes
+// apart along M (or N).
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
+
+// One 16 x N slab of the weights: leading byte offset 128 (the two 8-deep K
+// halves), stride byte offset 256 (groups of 8 rows of N).
+__device__ __forceinline__ uint64_t slab_desc(uint32_t addr) { return kmajor_desc(addr, 128, 256); }
 
 // d[64 x N] (+)= a[64 x 16] (registers, bf16) * B[16 x N] (shared, bf16),
 // fp32 accumulators; scale_d = 0 overwrites d.  Fragment layouts: a as

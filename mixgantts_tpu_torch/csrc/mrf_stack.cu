@@ -105,11 +105,6 @@ struct Pair {
 
 constexpr int kBatch = 8;   // global loads in flight per thread in the memory phases
 
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // The consumer warpgroups' part of one residual pair (see mrf_pair_mma).
 template <int C, int K>
 __device__ __forceinline__ void pair_consumers(const float* __restrict__ yb,

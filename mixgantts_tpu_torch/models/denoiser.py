@@ -2,18 +2,24 @@
 channel-last.
 
 The 20 gated residual blocks run as one call of
-`ops.denoiser_stack.fused_residual_stack`: the hand-written CUDA kernel for
-CUDA tensors, its plain PyTorch version for CPU tensors.  (The JAX package
-takes its TPU kernel only at batch >= 2; that rule was measured on a TPU
-and is not carried over.)
+`ops.denoiser_stack.fused_residual_stack`: the hand-written bf16
+tensor-core kernel for CUDA tensors, its plain PyTorch version for CPU
+tensors.  Their weights are stacked once, in bf16 with the kernel's layout
+on CUDA (the kernel's operand type, and the TPU kernel's), in the
+parameters' own type elsewhere (`Denoiser.stack_dtype` overrides).  (The
+JAX package takes its TPU kernel only at batch >= 2; that rule was
+measured on a TPU and is not carried over.)
 """
 
 import math
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.denoiser_stack import fused_residual_stack, stack_denoiser_params
+from ..ops.denoiser_stack import (
+    denoiser_kernel_weights, fused_residual_stack, stack_denoiser_params,
+)
 from .blocks import ConvNorm, LinearNorm, Mish, diffusion_embedding
 
 
@@ -44,13 +50,25 @@ class Denoiser(nn.Module):
         self.output_projection = ConvNorm(C, n_mels, 1)
         nn.init.zeros_(self.output_projection.conv.weight)  # as the reference
         self._stacked = None
+        # type of the stack's conv and output weights, and so of its
+        # arithmetic: None is bf16 on CUDA (the only type the kernel takes)
+        # and the parameters' type elsewhere
+        self.stack_dtype = None
 
     def stacked(self):
-        """The residual blocks' weights stacked for the kernel, built once
-        and rebuilt after `load_state_dict` or a move to another device."""
-        if self._stacked is None:
-            self._stacked = stack_denoiser_params(self)
-        return self._stacked
+        """The residual blocks' weights stacked for `fused_residual_stack`
+        in the type `stack_dtype` resolves to (bf16: with the kernel's
+        layout, `denoiser_kernel_weights`), built once and rebuilt after
+        `load_state_dict`, a move to another device or another type."""
+        w = self.input_projection[0].conv.weight
+        dtype = self.stack_dtype or (torch.bfloat16 if w.device.type == "cuda" else w.dtype)
+        if dtype not in (torch.bfloat16, w.dtype):
+            raise ValueError(f"Denoiser.stack_dtype {dtype}: bf16 or the parameters' "
+                             f"{w.dtype}")
+        if self._stacked is None or self._stacked[0] != dtype:
+            st = stack_denoiser_params(self)
+            self._stacked = (dtype, denoiser_kernel_weights(st) if dtype == torch.bfloat16 else st)
+        return self._stacked[1]
 
     def _apply(self, fn, *args, **kwargs):
         self._stacked = None

@@ -97,15 +97,16 @@ def mrf_stack_plain(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    """cuDNN convolutions in full fp32 (PyTorch lets them use TF32 by
-    default on the card)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def no_tf32():
+    """cuDNN convolutions and matmuls in full fp32 (PyTorch lets cuDNN use
+    TF32 by default on the card): the plain bf16 versions sum their
+    products of bf16-exact values as fp32."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _mrf_stack_plain_bf16(x, stacked, kernel_sizes, dilations):
@@ -118,7 +119,7 @@ def _mrf_stack_plain_bf16(x, stacked, kernel_sizes, dilations):
 
     xt = bf16(x).transpose(1, 2)
     acc = None
-    with _no_tf32():
+    with no_tf32():
         for br, rk in enumerate(kernel_sizes):
             pad = (TAPS - rk) // 2
             y = xt

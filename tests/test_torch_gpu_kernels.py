@@ -7,23 +7,25 @@ fixture).  This file imports no JAX, so it also runs where JAX is absent:
         tests/test_torch_gpu_kernels.py
 
 TF32 is off for cuDNN convolutions and matmuls, so the plain versions run
-in full fp32.  Tolerance for the fp32 kernels (denoiser, streamed MRF):
-max|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (fp32 sums taken in another
-order; the denoiser's cross-block atomics add run-to-run order changes).
-The MRF kernel behind `mrf_stack` / `mrf_stack_folded` computes with bf16
-operands and fp32 accumulation, as the TPU kernel does; it is held against
-the plain version with the same bf16 weights (which rounds where it
-rounds) at 4e-3 * max|plain| + 1e-5, one bf16 step of the largest value:
-the same products summed in another order, plus bf16 rounding flips of the
-conv1 intermediate where the two sums straddle a rounding boundary.
+in full fp32.  Tolerance for the fp32 kernel (streamed MRF): max|kernel -
+plain| <= 1e-4 * max|plain| + 1e-5 (fp32 sums taken in another order).  The
+MRF kernel behind `mrf_stack` / `mrf_stack_folded` and the denoiser kernel
+compute with bf16 operands and fp32 accumulation, as the TPU kernels do;
+each is held against its plain version with the same bf16 weights (which
+rounds where it rounds) at 4e-3 * max|plain| + 1e-5, one bf16 step of the
+largest value: the same products summed in another order, plus bf16
+rounding flips of an intermediate (the MRF's conv1 output, the denoiser's y
+and g) where the two sums straddle a rounding boundary.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mixgantts_tpu_torch.models.denoiser import Denoiser
+from mixgantts_tpu_torch.ops import denoiser_stack
 from mixgantts_tpu_torch.ops.denoiser_stack import (
-    fused_residual_stack, fused_residual_stack_plain,
+    denoiser_kernel_weights, fused_residual_stack, fused_residual_stack_plain,
 )
 from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from mixgantts_tpu_torch.ops.mrf import (
@@ -44,7 +46,7 @@ def cuda():
     return torch.device("cuda")
 
 
-BF16_TOL = 4e-3   # the bf16 MRF kernel against its bf16 plain version
+BF16_TOL = 4e-3   # the bf16 kernels against their bf16 plain versions
 
 
 def assert_close(got, want, rel=1e-4):
@@ -74,16 +76,57 @@ def denoiser_inputs(B, T, C=256, Hc=256, L=20, seed=0, device="cuda"):
     return t(B, T, C), t(B, T, Hc), t(B, C), stacked
 
 
-@pytest.mark.parametrize("B,T", [(1, 256), (1, 1000), (4, 1000), (2, 37)])
-def test_denoiser_stack_kernel_matches_plain(cuda, B, T):
-    x, cond, step, stacked = denoiser_inputs(B, T)
+@pytest.mark.parametrize("B,T,C", [
+    (1, 256, 256), (1, 1000, 256), (4, 1000, 256),
+    (2, 37, 256),     # shorter than one 64-frame tile
+    (1, 333, 256),    # a ragged last tile
+    (3, 200, 128),    # C = 128: clusters of 4
+    (1, 2500, 256),   # more tiles than the card holds clusters: one launch per layer
+])
+def test_denoiser_stack_kernel_matches_plain(cuda, B, T, C):
+    x, cond, step, stacked = denoiser_inputs(B, T, C=C)
+    stacked = denoiser_kernel_weights(stacked)
     n0 = fused_residual_stack.launches
     got_x, got_s = fused_residual_stack(x, cond, step, stacked)
     torch.cuda.synchronize()
-    assert fused_residual_stack.launches == n0 + 20
+    ctas, _, resident = denoiser_stack.launch_shape(B, T, C)
+    tiles = -(-T // 64)
+    fit = resident // tiles   # batch rows per launch of all the layers
+    assert fused_residual_stack.launches - n0 == (-(-B // fit) if fit else 20)
     want_x, want_s = fused_residual_stack_plain(x, cond, step, stacked)
-    assert_close(got_x, want_x)
-    assert_close(got_s, want_s)
+    assert_close(got_x, want_x, BF16_TOL)
+    assert_close(got_s, want_s, BF16_TOL)
+
+
+@pytest.mark.parametrize("B,T", [
+    (2, 300),    # all layers in one launch
+    (1, 2500),   # one launch per layer
+])
+def test_denoiser_fp32_weights_are_cast_and_runs_repeat(cuda, B, T):
+    """fp32 stacked weights run the same bf16 kernel (cast per call, as the
+    JAX package casts them on the TPU); each CTA owns its outputs, with no
+    atomics, so every run gives the same bits, in either launch scheme."""
+    x, cond, step, stacked = denoiser_inputs(B, T)
+    kw = denoiser_kernel_weights(stacked)
+    got = fused_residual_stack(x, cond, step, stacked)
+    for _ in range(2):
+        again = fused_residual_stack(x, cond, step, kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in zip(got, fused_residual_stack_plain(x, cond, step, kw)):
+        assert_close(a, b, BF16_TOL)
+
+
+def test_denoiser_stacks_bf16_on_cuda(cuda):
+    """On CUDA the denoiser stacks its weights once, in bf16 with the
+    kernel's layout; `stack_dtype` = fp32 keeps fp32 weights (cast per
+    call)."""
+    torch.manual_seed(0)
+    den = Denoiser(n_mels=20, d_encoder=32, residual_channels=128, residual_layers=2).to(cuda)
+    st = den.stacked()
+    assert st["conv_w"].dtype == torch.bfloat16 and "conv_w_mma" in st
+    assert den.stacked() is st
+    den.stack_dtype = torch.float32
+    assert den.stacked()["conv_w"].dtype == torch.float32
 
 
 def mrf_weights(C, kernel_sizes, n_pair=3, seed=0, device="cuda"):
@@ -182,6 +225,15 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_residual_stack(torch.cat([x, x], 1)[:, ::2], cond, step, stacked)
     with pytest.raises(ValueError, match="float32"):
         fused_residual_stack(x.double(), cond, step, stacked)
+    with pytest.raises(ValueError, match="bfloat16"):   # the denoiser takes bf16 (or casts fp32)
+        fused_residual_stack(x, cond, step, dict(stacked, conv_w=stacked["conv_w"].half()))
+    with pytest.raises(ValueError, match="on cuda"):
+        fused_residual_stack(x, cond.cpu(), step, stacked)
+    with pytest.raises(ValueError, match="built for"):
+        fused_residual_stack(*denoiser_inputs(1, 64, C=64, Hc=64, L=2))
+    kw = denoiser_kernel_weights(stacked)
+    with pytest.raises(ValueError, match="denoiser_kernel_weights"):
+        fused_residual_stack(x, cond, step, dict(kw, out_w_mma=kw["out_w_mma"].float()))
     st = mrf_weights(32, (3,))
     y = torch.randn(1, 32, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):

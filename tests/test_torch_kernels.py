@@ -26,7 +26,17 @@ package's Pallas kernels, which run here in interpret mode:
 - `ops.mrf.kernel_weights`: the bf16 copies in wgmma order that the CUDA
   kernel reads, element for element;
 - `models.hifigan.fused_apply` stacks its MRF weights in fp32 on the CPU,
-  and in bf16 with the kernel's layout where asked (on CUDA by default).
+  and in bf16 with the kernel's layout where asked (on CUDA by default);
+- the bf16 arithmetic of the denoiser stack: `fused_residual_stack_plain`
+  (and the entry point) with bf16 conv_w/out_w vs the Pallas kernel in
+  interpret mode with the same weights cast to bf16 and x in fp32, at the
+  MRF's bar (max 1e-3, mean 5e-5 of max|want|).  Both round y and g to bf16
+  and sum the same bf16-exact products in fp32, in another order; the fp32
+  plain version fails the same bar, so the cases tell the arithmetics
+  apart.  fp32 weights give exactly what the fp32 plain version gave before
+  the bf16 kernel; `denoiser_kernel_weights` lays out each CTA's columns in
+  wgmma's order, element for element; `models.denoiser.Denoiser` stacks
+  fp32 on the CPU and bf16 where `stack_dtype` asks.
 
 On CPU tensors the port's entry points take the plain versions, which
 the entry-point cases check too.
@@ -42,6 +52,7 @@ from mixgantts_tpu.models.blocks import Conv1d, StepEmbeddingMLP
 from mixgantts_tpu.models.denoiser import Denoiser
 from mixgantts_tpu.ops import pallas as jpallas
 from mixgantts_tpu.ops import pallas_vocoder as jvoc
+from mixgantts_tpu_torch.models.denoiser import Denoiser as TDenoiser
 from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from mixgantts_tpu_torch.ops import denoiser_stack as tden
 from mixgantts_tpu_torch.ops import mrf as tmrf
@@ -67,11 +78,14 @@ def denoiser_case(B, T, L, C, Hc, seed):
     return x, jnp.asarray(cond), step, jpallas.stack_denoiser_params(params)
 
 
-@pytest.mark.parametrize("B,T,L,C,Hc,tile", [
+DENOISER_CASES = [
     (1, 70, 3, 16, 24, 32),    # three tiles, the last one short
     (2, 9, 2, 8, 8, None),     # one short tile
     (2, 50, 4, 32, 48, None),  # one tile
-])
+]
+
+
+@pytest.mark.parametrize("B,T,L,C,Hc,tile", DENOISER_CASES)
 def test_denoiser_stack_plain_matches_pallas(B, T, L, C, Hc, tile):
     x, cond, step, stacked = denoiser_case(B, T, L, C, Hc, seed=T)
     want_x, want_s = jpallas.fused_residual_stack(
@@ -277,3 +291,119 @@ def test_fused_apply_stacks_fp32_on_the_cpu_and_bf16_where_asked():
         for st in bf16)
     snr = 10 * np.log10((ref ** 2).mean().item() / ((ref - low) ** 2).mean().item())
     assert 30 < snr < 120, f"bf16 MRF SNR {snr:.1f} dB"
+
+
+def _torch_args(x, cond, step):
+    return (torch.as_tensor(np.asarray(x)), torch.as_tensor(np.asarray(cond)),
+            torch.as_tensor(np.asarray(step)))
+
+
+@pytest.mark.parametrize("B,T,L,C,Hc,tile", DENOISER_CASES)
+def test_denoiser_stack_bf16_matches_pallas_bf16(B, T, L, C, Hc, tile):
+    x, cond, step, stacked = denoiser_case(B, T, L, C, Hc, seed=T)
+    low = dict(stacked, conv_w=stacked["conv_w"].astype(jnp.bfloat16),
+               out_w=stacked["out_w"].astype(jnp.bfloat16))
+    want = jpallas.fused_residual_stack(x, cond, step, low, tile=tile, interpret=True)
+    args = _torch_args(x, cond, step)
+    weights = tden.denoiser_kernel_weights(as_torch(stacked))
+    for fn in (tden.fused_residual_stack_plain, tden.fused_residual_stack):
+        for got, w in zip(fn(*args, weights), want):
+            assert_bf16_close(got, w)
+    with pytest.raises(AssertionError):   # the fp32 arithmetic is another result
+        for got, w in zip(tden.fused_residual_stack_plain(*args, as_torch(stacked)), want):
+            assert_bf16_close(got, w)
+
+
+def _fused_residual_stack_plain_fp32_reference(x, cond, step_emb, stacked):
+    """The fp32 plain version as it stood before the bf16 kernel (kept here
+    verbatim: fp32 weights must keep giving exactly this)."""
+    import math
+    import torch.nn.functional as F
+    step_proj = torch.einsum("bc,lcd->lbd", step_emb, stacked["step_w"]).contiguous()
+    condp = torch.einsum("bth,lhc->lbtc", cond, stacked["cond_w"])
+    condp = (condp + stacked["cond_b"][:, None, None, :]).contiguous()
+    C = x.shape[-1]
+    skip = torch.zeros_like(x)
+    for l in range(stacked["conv_w"].shape[0]):
+        y0 = x + step_proj[l][:, None, :]
+        y = y0 + condp[l]
+        z = F.conv1d(y.transpose(1, 2), stacked["conv_w"][l].permute(2, 1, 0),
+                     stacked["conv_b"][l], padding=1).transpose(1, 2)
+        g = torch.sigmoid(z[..., :C]) * torch.tanh(z[..., C:])
+        o = g @ stacked["out_w"][l] + stacked["out_b"][l]
+        x = (o[..., :C] + y0) * (1.0 / math.sqrt(2.0))
+        skip = skip + o[..., C:]
+    return x, skip
+
+
+@pytest.mark.parametrize("B,T,L,C,Hc,tile", DENOISER_CASES)
+def test_denoiser_stack_plain_fp32_is_unchanged(B, T, L, C, Hc, tile):
+    x, cond, step, stacked = denoiser_case(B, T, L, C, Hc, seed=T + 1)
+    args = _torch_args(x, cond, step)
+    got = tden.fused_residual_stack_plain(*args, as_torch(stacked))
+    want = _fused_residual_stack_plain_fp32_reference(*args, as_torch(stacked))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("C", [64, 128])
+def test_denoiser_kernel_weights_are_in_wgmma_order(C):
+    """Column n of CTA `rank`'s B operand is gate (or x') column 32 rank + n
+    for n < 32 and filter (or skip) column C + 32 rank + n - 32 above; its
+    element (K, n) sits where the kernel's descriptor reads it: 16-deep slab
+    s, 8-column group g, K half h, core-matrix row n % 8, column K % 8.  The
+    conditioner projection's weights lie side by side, layer after layer."""
+    r = np.random.RandomState(C)
+    L, Hc = 2, 24
+    st = {"conv_w": torch.tensor(r.randn(L, 3, C, 2 * C), dtype=torch.float32),
+          "out_w": torch.tensor(r.randn(L, C, 2 * C), dtype=torch.float32),
+          "cond_w": torch.tensor(r.randn(L, Hc, C), dtype=torch.float32),
+          "cond_b": torch.tensor(r.randn(L, C), dtype=torch.float32),
+          "conv_b": torch.zeros(L, 2 * C), "out_b": torch.zeros(L, 2 * C)}
+    kw = tden.denoiser_kernel_weights(st)
+    assert kw["conv_w"].dtype == kw["out_w"].dtype == torch.bfloat16
+    # the conditioner projection side by side: condp[b, t, l, c] in one product
+    assert torch.equal(kw["cond_w_cat"].reshape(Hc, L, C), st["cond_w"].permute(1, 0, 2))
+    assert torch.equal(kw["cond_b_cat"].reshape(L, C), st["cond_b"])
+    ranks = C // tden.GROUP
+    for key, K in (("conv_w", 3 * C), ("out_w", C)):
+        packed = kw[key + "_mma"]
+        assert packed.dtype == torch.bfloat16 and packed.shape == (L, ranks, K * 64)
+        dense = kw[key].reshape(L, K, 2 * C)
+        kk, n = np.meshgrid(np.arange(K), np.arange(64), indexing="ij")
+        at = (((kk // 16) * 8 + n // 8) * 2 + (kk % 16) // 8) * 64 + (n % 8) * 8 + kk % 8
+        for rank in range(ranks):
+            col = np.where(n < 32, 32 * rank + n, C + 32 * rank + n - 32)
+            assert torch.equal(packed[:, rank][:, torch.as_tensor(at)],
+                               dense[:, torch.as_tensor(kk), torch.as_tensor(col)])
+
+
+def test_denoiser_stacks_fp32_on_the_cpu_and_bf16_where_asked():
+    """On the CPU the denoiser stacks fp32 weights (the plain fp32 path);
+    with stack_dtype = bf16 (the default on CUDA) it stacks them once in
+    bf16 with the kernel's layout, computes the bf16 arithmetic, and stays
+    within the JAX package's bar for its bf16 denoiser (mean |diff| < 2% of
+    max|fp32|, tests/test_pallas.py)."""
+    torch.manual_seed(0)
+    den = TDenoiser(n_mels=20, d_encoder=24, residual_channels=32, residual_layers=3)
+    with torch.no_grad():
+        den.output_projection.conv.weight.normal_(0, 0.1)
+    r = np.random.RandomState(0)
+    x_t = torch.tensor(r.randn(2, 30, 20), dtype=torch.float32)
+    t = torch.tensor([0, 3])
+    cond = torch.tensor(r.randn(2, 30, 24), dtype=torch.float32)
+    with torch.no_grad():
+        ref = den(x_t, t, cond)
+        st = den.stacked()
+        assert st["conv_w"].dtype == torch.float32 and "conv_w_mma" not in st
+        den.stack_dtype = torch.bfloat16
+        low = den(x_t, t, cond)
+        st16 = den.stacked()
+        assert st16["conv_w"].dtype == torch.bfloat16 and "conv_w_mma" in st16
+        assert den.stacked() is st16 and den(x_t, t, cond).equal(low)
+        den.stack_dtype = None
+        assert den.stacked()["conv_w"].dtype == torch.float32
+    err = (low - ref).abs().mean().item() / ref.abs().max().item()
+    assert 0 < err < 0.02, f"bf16 denoiser mean|diff| {err:.3g} of max|fp32|"
+    with pytest.raises(ValueError, match="stack_dtype"):
+        den.stack_dtype = torch.float16
+        den.stacked()
