@@ -9,22 +9,21 @@ prints no result line):
 1. build the hand-written kernels (`mixgantts_tpu_torch/csrc/*.cu`, one nvcc
    per source, all started together) and print ptxas's registers, shared
    memory and spills per kernel; count the tensor-core instructions
-   (`HGMMA`) in each kernel's SASS (`cuobjdump -sass`): the bf16 MRF and
-   denoiser kernels must hold them and spill nothing;
+   (`HGMMA`) in each kernel's SASS (`cuobjdump -sass`): every kernel (the
+   denoiser's, the MRF's and the whole-stage MRF kernel's) must hold them
+   and spill nothing; print the clusters each cluster kernel holds
+   resident at once, and the whole-stage kernel's plan at phase 7's shapes;
 2. turn TF32 off for cuDNN convolutions and matmuls (matmul precision
-   "highest"), so every plain version runs in full fp32, and seed;
+   "highest"), so the plain versions run without TF32, and seed;
 3. hold each kernel against its plain PyTorch version at the main path's
-   shapes, with the weights of the model in use.  Tolerance for the fp32
-   kernel (`mrf_stack_streamed`): max|kernel - plain| <= 1e-4 * max|plain| +
-   1e-5 (fp32 sums in another order).  The MRF kernel (`mrf_stack`,
-   `mrf_stack_folded`) and the denoiser kernel (`fused_residual_stack`)
-   compute with bf16 operands, so their plain versions get the same bf16
-   weights and round where the kernels round; tolerance 4e-3 * max|plain| +
-   1e-5, one bf16 step of the largest value: the same products summed in
-   another order, plus bf16 rounding flips of an intermediate (the MRF's
-   conv1 output, the denoiser's y and g) where the two sums straddle a
-   rounding boundary.  The denoiser runs at B in {1, 4} and T in {256,
-   1000}, and at T = 333 (a ragged last tile);
+   shapes, with the weights of the model in use.  The kernels compute with
+   bf16 operands, so their plain versions get the same bf16 weights and
+   round where the kernels round; tolerance 4e-3 * max|plain| + 1e-5, one
+   bf16 step of the largest value: the same products summed in another
+   order, plus bf16 rounding flips of an intermediate (the MRF's conv1
+   output, the denoiser's y and g) where the two sums straddle a rounding
+   boundary.  The denoiser runs at B in {1, 4} and T in {256, 1000}, and at
+   T = 333 (a ragged last tile);
 4. build the full LJSpeech shallow model and HiFi-GAN V1 (random weights
    from a seed) on the GPU and serve requests through `TTSPipeline`:
    submit/collect of B=1 with 64 phone slots (frame bucket 1000), then
@@ -41,15 +40,16 @@ prints no result line):
    tests/test_vocoder.py);
 6. time each kernel and its plain version with CUDA events, and a request's
    latency and real-time factor with the host clock around work that ends
-   in a synchronisation; each bound is taken at the peak of the kernel's
-   operand type (bf16 tensor cores for the MRF and denoiser kernels, fp32
-   CUDA cores for the streamed MRF kernel), with the fp32 bound printed
-   beside the bf16 one;
+   in a synchronisation; each bound is taken at the bf16 tensor-core peak
+   (the kernels' operand type), with the fp32 bound printed beside it;
 7. drive the vocoder's C=256 MRF stage through the whole-stage kernel
-   (`mrf_stack_streamed`, fp32) at the shapes of a B=1 request at bucket
-   1000 and a B=4 request at bucket 512, hold it against its plain version
-   (fp32 tolerance), and time it beside the branchwise route that
-   `fused_apply` takes (three one-branch `mrf_stack` calls, bf16);
+   (`mrf_stack_streamed`, bf16, clusters of 4 CTAs) at the shapes of a B=1
+   request at bucket 1000 and a B=4 request at bucket 512, hold it against
+   its bf16 plain version (the bf16 tolerance), time it in turns beside the
+   branchwise route that `fused_apply` takes (three one-branch `mrf_stack`
+   calls: branchwise, streamed, streamed, branchwise), print its tile,
+   cluster and recompute share, and say which route is faster at both
+   shapes beyond the spread of the readings;
 8. synthesize from raw text through the CLI (`cli.synthesize`, single and
    batch mode) in a temporary working directory, from a checkpoint of the
    phase-4 weights; the wavs must be int16 at 22050 Hz and mel_len * hop
@@ -76,6 +76,8 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
 BF16_TOL = 4e-3             # the bf16 kernels against their bf16 plain versions
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 DURATION_FRAMES = 8.0       # frames per phone the random duration predictor is biased to
+KERNELS = ("residual_stack_mma", "mrf_pair_mma", "mrf_stage_streamed")   # __global__ names
+STAGE_SHAPES = ((1, 8000), (4, 4096))   # V1's C=256 stage in a B=1 request at bucket 1000, B=4 at 512
 
 
 def log(*args):
@@ -202,8 +204,7 @@ def build_kernels():
             report = f.read()
         kernel, usage = None, {}
         for line in report.splitlines():
-            m = re.search(r"(residual_stack_mma|mrf_pair_mma|mrf_stage_streamed)"
-                          r"((?:I(?:Li\d+E)+E)?)", line)
+            m = re.search(r"(%s)((?:I(?:Li\d+E)+E)?)" % "|".join(KERNELS), line)
             if m and "entry function" in line:
                 args = re.findall(r"Li(\d+)E", m.group(2))
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -214,15 +215,23 @@ def build_kernels():
         for kernel, lines in usage.items():
             log(f"  {kernel}: {'; '.join(lines)}")
             spills = [int(n) for n in re.findall(r"(\d+) bytes spill", " ".join(lines))]
-            if kernel.startswith(("mrf_pair_mma", "residual_stack_mma")) and any(spills):
+            if any(spills):
                 raise AssertionError(f"{kernel} spills registers: {lines}")
         hgmma = sass_hgmma(cuda_build.library_path(name))
         for fn, n in hgmma.items():
             log(f"  {fn}: {n} HGMMA instructions in its SASS")
-        mma = {fn: n for fn, n in hgmma.items()
-               if fn.startswith(("mrf_pair_mma", "residual_stack_mma"))}
-        if name != "mrf_stack_streamed" and (not mma or not all(mma.values())):
+        mma = {fn: n for fn, n in hgmma.items() if fn.startswith(KERNELS)}
+        if not mma or not all(mma.values()):
             raise AssertionError(f"the tensor-core kernel's SASS holds no HGMMA: {hgmma}")
+        if name == "mrf_stack_streamed":
+            from mixgantts_tpu_torch.ops import mrf
+            for B, T in STAGE_SHAPES:
+                plan = mrf.streamed_plan(B, T)
+                log(f"  mrf_stage_streamed at B={B} T={T}: clusters of {plan['cluster']} "
+                    f"CTAs, {plan['resident']} clusters resident at once, tile "
+                    f"{plan['tile']} frames, {plan['smem']} B of shared memory per CTA, y "
+                    f"in a slab of {4 * plan['slab'] / 1e6:.1f} MB")
+            continue
         lib = cuda_build.library(name)
         smem = getattr(lib, f"{name}_smem_bytes")
         smem.restype = ctypes.c_int
@@ -234,10 +243,6 @@ def build_kernels():
                 log(f"  residual_stack_mma<{c}>: {smem(c)} B of shared memory per CTA, "
                     f"clusters of {cluster} CTAs, {resident} clusters resident at once; "
                     f"{ctas} CTAs per launch at B=1, T=1000")
-        elif name == "mrf_stack_streamed":
-            smem.argtypes = [ctypes.c_int] * 3
-            log(f"  mrf_stage_streamed shared memory per block (the largest pass, "
-                f"k=11 at dilation 5): {smem(256, 11, 5)} B")
         else:
             from mixgantts_tpu_torch.ops import mrf
             smem.argtypes = [ctypes.c_int] * 3
@@ -259,8 +264,7 @@ def sass_hgmma(library):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"(residual_stack_mma|mrf_pair_mma|mrf_stage_streamed)"
-                          r"((?:I(?:Li\d+E)+E)?)", m.group(1))
+            k = re.search(r"(%s)((?:I(?:Li\d+E)+E)?)" % "|".join(KERNELS), m.group(1))
             args = re.findall(r"Li(\d+)E", k.group(2)) if k else []
             fn = (k.group(1) + (f"<{', '.join(args)}>" if args else "")) if k else m.group(1)
             counts[fn] = 0
@@ -430,41 +434,46 @@ def kernel_timings(torch, model, vocoder, records):
 def c256_stage(torch, vocoder, records):
     """Phase 7: the C=256 MRF stage (stage 0) of the vocoder in use, at the
     shapes of a B=1 request at frame bucket 1000 and a B=4 request at
-    bucket 512, through the whole-stage kernel (`mrf_stack_streamed`; its
-    launch count is read around this drive), held against the plain
-    version, then timed beside the branchwise route that
-    `models.hifigan.fused_apply` takes (three one-branch `mrf_stack` calls)
-    and the plain version."""
+    bucket 512, through the whole-stage kernel (`mrf_stack_streamed` on the
+    stage's bf16 weights in the kernel's layout; its launch count is read
+    around this drive), held against the bf16 plain version, then timed in
+    turns beside the branchwise route (three one-branch `mrf_stack` calls)
+    and the plain version, and says whether the whole-stage kernel was
+    faster at both shapes beyond the spread of its two readings and the
+    branchwise route's two."""
     from mixgantts_tpu_torch.ops import mrf
     gen = vocoder.generator
     rks = gen.resblock_kernel_sizes
     dils = gen.resblock_dilation_sizes[0]
     C = gen.ups[0].out_channels
-    whole = mrf.stack_mrf_params(gen, 0, rks, dils)
+    whole = mrf.kernel_weights(mrf.stack_mrf_params(gen, 0, rks, dils), rks)
     branches = [(mrf.kernel_weights(
         mrf.stack_mrf_params(gen, 0, (rk,), dils, branches=[(j, rk)]), (rk,)), rk)
         for j, rk in enumerate(rks)]
     g = torch.Generator("cuda").manual_seed(7)
-    shapes = ((1, 1000 * gen.upsample_rates[0]), (4, 512 * gen.upsample_rates[0]))
+    u = gen.upsample_rates[0]
+    shapes = [(B, T_mel * u) for B, T_mel in ((1, 1000), (4, 512))]
     rec = records["mrf_stack_streamed"]
     with torch.no_grad():
         xs = [torch.randn(B, T, C, device="cuda", generator=g) for B, T in shapes]
         mrf.mrf_stack_streamed.launches = 0
         outs = [mrf.mrf_stack_streamed(x, whole, rks, dils) for x in xs]
         sync(torch)
-        rec["launches"] = mrf.mrf_stack_streamed.launches
-        log(f"[stage] mrf_stack_streamed launches during the C={C} stage drive: "
-            f"{rec['launches']}")
-        if rec["launches"] == 0:
+        launches = mrf.mrf_stack_streamed.launches
+        log(f"[stage] mrf_stack_streamed launches during the C={C} stage drive: {launches}")
+        if launches == 0:
             raise AssertionError("mrf_stack_streamed was not launched on the stage path")
+        if not rec["launches"]:
+            rec["launches"] = launches
         for (B, T), x, got in zip(shapes, xs, outs):
             rec["err"] = max(rec["err"], check_close(
-                f"mrf_stack_streamed B={B} T={T} C={C}", got,
-                mrf.mrf_stack_plain(x, whole, rks, dils)))
+                f"mrf_stack_streamed B={B} T={T} C={C} (bf16)", got,
+                mrf.mrf_stack_plain(x, whole, rks, dils), BF16_TOL))
 
         def branchwise(x):
             return sum(mrf.mrf_stack(x, st, (rk,), dils) for st, rk in branches) / len(rks)
 
+        warm_up(lambda: branchwise(xs[0]))
         faster = []
         for (B, T), x in zip(shapes, xs):
             # in turns: branchwise, streamed, streamed, branchwise
@@ -472,25 +481,27 @@ def c256_stage(torch, vocoder, records):
             st1 = time_ms(lambda: mrf.mrf_stack_streamed(x, whole, rks, dils), 10)
             st2 = time_ms(lambda: mrf.mrf_stack_streamed(x, whole, rks, dils), 10)
             bw2 = time_ms(lambda: branchwise(x), 10)
-            ms, bw = (st1 + st2) / 2, (bw1 + bw2) / 2
+            ms = (st1 + st2) / 2
             plain = time_ms(lambda: mrf.mrf_stack_plain(x, whole, rks, dils), 5)
-            flops, nbytes = mrf_work(B, T, C, rks)
-            b, by = bound_ms(flops, nbytes)
-            b16, by16 = bound_ms(flops, mrf_work(B, T, C, rks, weight_bytes=2)[1],
-                                 PEAK_BF16_FLOPS)
+            flops, nbytes = mrf_work(B, T, C, rks, weight_bytes=2)
+            b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            b32, by32 = bound_ms(*mrf_work(B, T, C, rks))
+            plan = mrf.streamed_plan(B, T, rks, dils)
             share = mrf.streamed_flops(B, T, rks, dils) / flops
-            log(f"  C={C} stage B={B} T={T} (tile {mrf.streamed_tile(B, T, x.device)}): "
-                f"streamed (fp32) {st1:.4f}/{st2:.4f} ms, branchwise (bf16) {bw1:.4f}/"
-                f"{bw2:.4f} ms, plain (fp32) {plain:.4f} ms, bound {b:.4f} ms at fp32 ({by}), "
-                f"{b16:.4f} ms at bf16 ({by16}); "
-                f"streamed {flops / ms / 1e9:.1f} TFLOP/s of needed work, recompute share "
-                f"{share:.3f}")
-            faster.append(ms < bw)
+            log(f"  C={C} stage B={B} T={T}: streamed (bf16) {st1:.4f}/{st2:.4f} ms, "
+                f"branchwise (bf16) {bw1:.4f}/{bw2:.4f} ms, plain (bf16) {plain:.4f} ms; bound "
+                f"{b:.4f} ms at bf16 ({by}), {b32:.4f} ms at fp32 ({by32}); tile "
+                f"{plan['tile']} frames per cluster of {plan['cluster']} CTAs "
+                f"({-(-T // plan['tile']) * B} clusters, {plan['resident']} resident); "
+                f"recompute share "
+                f"{share:.3f}; streamed {flops / ms / 1e9:.1f} TFLOP/s of needed work "
+                f"({100 * flops / ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1f}% of the bf16 peak)")
+            faster.append(max(st1, st2) < min(bw1, bw2))
             if B == 1:
                 rec.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
-        log(f"[stage] streamed faster than branchwise at both shapes: {all(faster)} (the two "
-            f"differ in operand type: the streamed kernel is fp32 on the CUDA cores, the "
-            f"branchwise route bf16 on the tensor cores)")
+        log(f"[stage] streamed faster than branchwise beyond the spread of the readings: "
+            f"B=1 {faster[0]}, B=4 {faster[1]}; route for C > 128 on CUDA: "
+            f"{'streamed' if all(faster) else 'branchwise'}")
 
 
 def cli_phase(torch, pre, cfg, model):
@@ -753,7 +764,7 @@ def main():
     latency(torch, pipe, pre, one, four)
     if args.profile:
         profile_request(torch, pipe, one, args.profile)
-    log("[stage] the C=256 MRF stage in one launch, fp32 (TF32 off), beside the bf16 "
+    log("[stage] the C=256 MRF stage in one launch (bf16, TF32 off), beside the "
         "branchwise route")
     c256_stage(torch, vocoder, records)                           # phase 7
     log("[cli] raw text -> wav files through the synthesis CLI")

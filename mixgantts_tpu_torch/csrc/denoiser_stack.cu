@@ -27,7 +27,8 @@
 // of y and g between the CTAs that share a frame tile, and the wait for the
 // neighbour tiles (the k = 3 halo).
 //
-// Design (mbarriers, bulk copies and the B layout come from mrf_mma.cuh):
+// Design (mbarriers, bulk copies and the B layout come from mrf_mma.cuh, the
+// cluster's copies and barriers from cluster.cuh):
 // - A thread-block cluster of C / 32 CTAs owns a 64-frame tile of one
 //   batch row; CTA `rank` owns gate channels [32 rank, 32 rank + 32) with
 //   the matching filter channels, and the same 32 channels of x' and of
@@ -76,6 +77,7 @@
 // - Every wait that could fail to complete traps (mbar_wait, get_halo)
 //   instead of holding the card.
 
+#include "cluster.cuh"
 #include "mrf_mma.cuh"
 
 // Phase stamps, empty here; tests/bench_torch_denoiser.py defines them to
@@ -123,43 +125,7 @@ __device__ __forceinline__ float sigmoid(float v) { return __fdividef(1.f, 1.f +
 
 __device__ __forceinline__ float tanh_f(float v) { return __fdividef(2.f, 1.f + __expf(-2.f * v)) - 1.f; }
 
-// --- clusters and programmatic dependent launch ----------------------------
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The address of the same shared-memory byte in CTA `rank` of the cluster.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-// `bytes` of this CTA's shared memory at src to dst in another CTA of the
-// cluster, completing on that CTA's mbarrier bar (both mapped addresses).
-__device__ __forceinline__ void bulk_copy_peer(uint32_t dst, uint32_t src, uint32_t bytes,
-                                               uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// This thread's shared-memory writes (generic proxy) made visible to the
-// async proxy: wgmma's reads and the bulk copies to the other CTAs.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
+// --- programmatic dependent launch -----------------------------------------
 
 // Wait until the grid before this one in the stream has completed and its
 // writes are visible (a no-op for a launch without the PDL attribute).
@@ -191,29 +157,6 @@ __device__ __forceinline__ float get_halo(const unsigned long long* at, int tag)
 }
 
 // --- the weight ring and the two products ----------------------------------
-
-// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], both from shared memory, bf16,
-// fp32 accumulators (layout as Wgmma<N> in mrf_mma.cuh); scale_d = 0
-// overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // The weights a CTA reads are one sequence of 16-deep K slabs: per layer
 // from l_begin, the conv's 3C / 16 (tap-major), then the output

@@ -28,10 +28,11 @@
 //   "full" mbarrier; the consumers release the stage on its "empty"
 //   mbarrier once the wgmmas that read it have completed.
 //
-// The denoiser kernel (denoiser_stack.cu) takes from it the mbarriers,
-// bulk_copy, pack_bf16, smem_addr, kmajor_desc and the wgmma fence, commit,
-// wait and fence_reg calls, with a pass of its own (both operands from
-// shared memory).
+// The denoiser kernel (denoiser_stack.cu) and the whole-stage MRF kernel
+// (mrf_stack_streamed.cu) take from it the mbarriers, bulk_copy, pack_bf16,
+// smem_addr, kmajor_desc, slab_desc, the producer (produce_chunks) and the
+// wgmma calls, with a pass of their own that reads both operands from
+// shared memory (wgmma_ss).
 //
 // Each library includes this header from one translation unit, so its
 // definitions have internal linkage.
@@ -280,6 +281,28 @@ struct Wgmma<256> {
   }
 };
 
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], both from shared memory, bf16,
+// fp32 accumulators (layout as Wgmma<N>); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // --- one convolution over the ring -----------------------------------------
 
 // Geometry of the pass at width C: WG consumer warpgroups of MT 64-row
@@ -376,18 +399,29 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MT][C / 2], uint32_t a_lan
 }
 
 // The producer (lane 0 of the producer warp): chunks 0 .. n_chunks - 1 of
-// the ring in order, chunk q from src(q) with bytes(q), each into stage
-// q % S once the consumers have released that stage's previous chunk.
-template <int S, class Src, class Bytes>
-__device__ __forceinline__ void produce(int n_chunks, uint32_t ring, int stage_bytes,
-                                        uint32_t full, uint32_t empty, Src src, Bytes bytes) {
+// the ring in order, each into stage q % S once the consumers have released
+// that stage's previous chunk: copy(q, dst, bar) sets bar's expected bytes
+// and issues chunk q's bulk copies to shared address dst, completing on bar.
+template <int S, class Copy>
+__device__ __forceinline__ void produce_chunks(int n_chunks, uint32_t ring, int stage_bytes,
+                                               uint32_t full, uint32_t empty, Copy copy) {
   for (int q = 0; q < n_chunks; ++q) {
     const uint32_t s = q % S;
     if (q >= S) mbar_wait(empty + 8 * s, (uint32_t)((q / S - 1) & 1));
-    const uint32_t n = bytes(q);
-    mbar_expect_tx(full + 8 * s, n);
-    bulk_copy(ring + s * stage_bytes, src(q), n, full + 8 * s);
+    copy(q, ring + s * stage_bytes, full + 8 * s);
   }
+}
+
+// produce_chunks with one bulk copy per chunk: chunk q from src(q), bytes(q).
+template <int S, class Src, class Bytes>
+__device__ __forceinline__ void produce(int n_chunks, uint32_t ring, int stage_bytes,
+                                        uint32_t full, uint32_t empty, Src src, Bytes bytes) {
+  produce_chunks<S>(n_chunks, ring, stage_bytes, full, empty,
+                    [&](int q, uint32_t dst, uint32_t bar) {
+                      const uint32_t n = bytes(q);
+                      mbar_expect_tx(bar, n);
+                      bulk_copy(dst, src(q), n, bar);
+                    });
 }
 
 }  // namespace

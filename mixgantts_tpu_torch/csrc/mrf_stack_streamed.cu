@@ -1,65 +1,114 @@
 // A whole HiFi-GAN MRF stage at C = 256 in one launch, written by hand for
-// Hopper (sm_90a), fp32 in, fp32 accumulation, fp32 out.
+// Hopper (sm_90a) on the tensor cores: bf16 operands, fp32 accumulation,
+// fp32 residual state and output.
 //
 // Replaces the Pallas TPU kernel mixgantts_tpu/ops/pallas_vocoder.py::
 // mrf_stack_streamed (body _kernel_streamed).  That kernel's grid is
 // (B, tiles, 9): its inner axis walks the 9 (branch, pair) steps in order,
 // streaming one step's weights at a time while the signal tile and the
 // residual and branch-sum state stay in VMEM scratch.  Here the 9 steps are
-// a loop inside the block, and every step's [k, C, C] weights stream through
-// shared memory chunk by chunk (conv_rows in mrf_conv.cuh: the next chunk's
-// loads are in flight, in registers, while the current one is used).  A
-// second shared stage for cp.async would not fit beside the k = 11, d = 5
-// pass (223 KB of 227 KB), and the loads left unhidden, each pass's first
-// chunk, are 16 per block per stage at 64-frame tiles and 25 at 128.
+// a loop inside a thread-block cluster, and so is everything else.
 //
-// Math (as mrf_stack.cu): for each branch (kernel k), three residual pairs
-// (dilation d)  y = y + conv_k(lrelu(conv_{k,d}(lrelu(y)) + b1)) + b2, each
-// branch starting from x, SAME zero padding of [0, T) before every conv, and
-// the output is the mean of the branch outputs.
+// Math (as mrf_stack.cu and the TPU kernel with op_dtype = bf16): for each
+// branch (kernel k), three residual pairs (dilation d)
+//   y = y + (conv_k(bf16(lrelu(conv_{k,d}(bf16(lrelu(y) * mask)) + b1) * mask)) + b2)
+// with y starting from bf16(x) (the TPU rounds its x tiles), mask = [0, T)
+// (SAME zero padding), products summed in fp32; the output is the sum of
+// the branch outputs, in branch order, divided by the number of branches.
 //
 // What bounds it on an H100: operations.  The stage does 252 C^2 FLOP per
-// frame (132 GFLOP at B = 1, T = 8000: 1.97 ms at 67 TFLOP/s of fp32 on the
-// CUDA cores); x in and the output out are 16 MB (5 us at 3.35 TB/s).
+// frame: 132 GFLOP at B = 1, T = 8000, 0.134 ms at 989 TFLOP/s of bf16; x in
+// and the output out are 16 MB (5 us at 3.35 TB/s).
 //
-// Two problems, and what the design does about them:
-// - The state does not fit in shared memory.  The TPU kept y and the branch
-//   sum for a tile plus a 2 x 64-frame halo in VMEM; at C = 256 that is 2 KB
-//   a frame, and 227 KB of shared memory holds ~110 frames.  So each block
-//   keeps y in two slabs of device memory of its own (ping-pong between
-//   pairs; 24.6 MB each at B = 1, T = 8000 and 33.6 MB at B = 4, T = 4096,
-//   so not all of it stays in the 50 MB L2, but a pass moves at most
-//   0.26 MB of slab against up to 5.8 MB of weight chunks), and the branch
-//   sum in the output rows, which only this block writes.  Shared memory
-//   holds only what one pass of pair_pass (the same code as mrf_stack.cu's
-//   kernel) needs: lrelu(y) for 64 output frames plus the pair's halo, the
-//   conv1 output, and the staged weight chunk.
-// - Halo against parallelism.  One block per SM (the k = 11, d = 5 pass
-//   takes 223 KB), so a tile has to be small enough for B * T / tile blocks
-//   to fill the 132 SMs, and a small tile repeats a larger share of halo.
-//   Two things cut the halo: each branch restarts from x, so it carries only
-//   its own creep, sum of k/2 (d + 1) over its pairs (12, 36 and 60 frames
-//   per side for k = 3, 7, 11, not the TPU's 64 for all); and after each
-//   pair only the frames the remaining pairs still need are computed, so the
-//   window shrinks pair by pair to the tile itself.  The caller picks the
-//   tile (a multiple of 64) as the smallest that gives at most one block per
-//   SM: 64 frames at B = 1, T = 8000 (125 blocks) and 128 at B = 4, T = 4096
-//   (128 blocks).  Rounding each pair's window up to 64-frame passes, the
-//   FLOPs executed over the FLOPs needed (recompute share) are 2.02 at tile
-//   64 and 1.56 at 128, against 1.10 for the one-pair-per-launch kernel.
+// Design (mbarriers, bulk copies, the weights' layout and the wgmma calls
+// come from mrf_mma.cuh, the cluster's copies and barriers from
+// cluster.cuh):
+// - A cluster of kRanks = 4 CTAs owns a tile of `tile` output frames of one
+//   batch row; CTA `rank` owns output channels [64 rank, 64 rank + 64) of
+//   every conv (wgmma m64n64k16) and the fp32 y of those channels.  Tiles
+//   recompute their halo, so clusters never wait on each other, and the
+//   host picks the tile so that the B * ceil(T / tile) clusters are all
+//   resident at once (an H100 holds 30 clusters of 4 at one CTA an SM: B = 1,
+//   T = 8000 runs 30 clusters of 267 frames, B = 4, T = 4096 28 of 586).
+// - The window of each pair shrinks to the tile: a branch starts from x
+//   over the tile plus its whole creep, sum of k/2 (d + 1) over its pairs
+//   (12, 36, 60 frames a side for k = 3, 7, 11), and pair p computes y only
+//   where the pairs after it still read it (creep_after).  A window runs as
+//   passes of up to 192 rows (three consumer warpgroups of 64; the last
+//   pass takes as few warpgroups as it needs): conv1 computes the pass's
+//   rows, conv2 keeps all but the last 2 (k/2), as in mrf_stack.cu.  FLOPs
+//   executed over FLOPs needed (plan_of): 1.345 at B = 1, 1.163 at B = 4.
+// - Both convs read a bf16 tile of all 256 input channels, K-major without
+//   swizzle ([32 channel groups][rows][8 channels]): A comes from shared
+//   memory by descriptor, and a tap is a 16-byte row step of it.  Each CTA
+//   writes its own channels (lrelu(y) for conv1, conv1's output for conv2;
+//   one contiguous run) and sends them to the other three with one bulk
+//   copy each, completing on their mbarriers (a_bar, h_bar).  Both tiles use
+//   one buffer (X); the free_bar mbarrier takes one arrival from every other
+//   CTA when it is done reading X (after its conv1, after its conv2), and a
+//   CTA writes into the cluster's X only once that phase has completed.
+// - The weights are the whole stage's kernel_weights (ops/mrf.py, wgmma
+//   order); a producer warp streams this CTA's 64 columns of each 16-deep K
+//   slab (2 KB, one bulk copy each) through a ring of kS stages of kKCH K
+//   rows, ahead across passes, pairs and branches.  A stage's wgmmas issue
+//   back to back as one group, kFly groups in flight.
+// - Shared memory per CTA: mbarriers 128 B, ring 4 x 16 KB = 65,536 B, X
+//   32 x 242 rows x 16 B = 123,904 B (192 rows + the k = 11, d = 5 halo
+//   2 x 25), a stash of 30 rows of y (8,160 B): 197,728 B, one CTA an SM.
+//   y itself, (tile + 2 x 60) rows x 272 B a CTA (68 floats: 64 + 4 against
+//   bank conflicts), lives in a slab of device memory of its own (12.6 MB
+//   at B = 1, T = 8000; 21.5 MB at B = 4, T = 4096; both fit L2): at these tiles
+//   it needs 105-192 KB, which the 192-row pass and its ring took.  Loads
+//   from it are batched (kBatch rows, kGroups column groups) to hide L2
+//   latency.
+// - y is updated in place.  The last h (d + 1) rows a pass keeps are the
+//   old rows the next pass of the pair still reads: they wait in the stash
+//   until that pass has built its tile.  The last pair of a branch adds its
+//   rows of the tile into the output, which only this CTA writes: no
+//   atomics, the same bits every run.
+// - Every wait traps after a bounded number of polls (mbar_wait,
+//   mbar_wait_cluster) instead of holding the card.
 //
-// Slabs hold frames from t0 - lead on, where t0 is the tile's first frame
-// and lead the widest creep after a branch's first pair.  A pass's last
-// rows may read slab rows that the previous pair did not write; those feed
-// only output frames beyond what later pairs use, never the tile.
+// Measured on an H100 (tests/bench_torch_mrf.py streamed; PERF.md): the
+// pass with A from registers (mrf_mma.cuh's conv_mma, ldmatrix) took ~207
+// cycles a 16-deep step for two warpgroups of m64n64 (31% of the tensor
+// rate) whatever the ring's depth; A from shared memory with one wgmma
+// group per chunk and a third warpgroup cut the stage from 0.93 to 0.68 ms
+// at B = 1.  It stays slower than three one-branch mrf_stack calls.
 
-#include "mrf_conv.cuh"
+#include "cluster.cuh"
+#include "mrf_mma.cuh"
+
+// Phase stamps, empty here; tests/bench_torch_mrf.py defines them to time
+// each phase of a pass.
+#ifndef STAMP
+#define STAMP(i)
+#endif
 
 namespace {
 
-constexpr int kC = 256;               // the stage width this kernel is built for
-constexpr int kSub = Shape<kC, 3>::kTile;   // output frames of one pass: 64
-constexpr int kMaxSteps = 4;          // branches, and pairs per branch, a launch takes
+constexpr int kC = 256;                    // the stage width this kernel is built for
+constexpr int kRanks = 4;                  // CTAs per cluster
+constexpr int kN = kC / kRanks;            // output channels per CTA
+constexpr int kWG = 3, kMT = 1;            // consumer warpgroups, 64-row tiles each
+constexpr int kKCH = 128, kS = 4;          // K rows per ring stage, stages
+constexpr int kFly = 2;                    // wgmma groups (ring stages) in flight
+constexpr int kMaxSteps = 4;               // branches, and pairs per branch, a launch takes
+constexpr int kMaxHalf = 5, kMaxDil = 5;   // k <= 11, d <= 5
+constexpr int kTapsMax = 11;               // stacked weights reserve 11 taps per pair
+
+using P = MmaPass<kN, kMT, kKCH, kS, kWG>;
+static_assert(kN == 64, "wgmma_ss is m64n64k16: clusters of 4 CTAs at C = 256");
+constexpr int kM = P::kRows;                               // rows of a full pass
+constexpr int kXRows = kM + 2 * kMaxHalf * kMaxDil;        // rows of the X buffer
+constexpr int kYld = kN + 4;                               // floats per y row
+constexpr int kBarBytes = (2 * kS + 3 + 15) / 16 * 128;      // full[kS], empty[kS], 3 more
+constexpr int kX = kBarBytes + P::kRingBytes;              // byte offset of X
+constexpr int kStash = kX + kC / 8 * kXRows * 16;          // of the stash: rows y takes later
+constexpr int kSmem = kStash + kMaxHalf * (kMaxDil + 1) * kYld * 4;   // bytes per CTA
+static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
+constexpr int kBatch = 2;   // rows of y a thread loads at once building a tile
+constexpr int kGroups = 2;  // groups of 8 columns whose y it loads at once in the epilogue
 
 struct Steps {
   int n_br, n_pair;
@@ -68,114 +117,411 @@ struct Steps {
 };
 
 // Frames per side that the pairs after pair p of a kernel-k branch still
-// widen the window by.
+// widen the window by (p = -1: the branch's whole creep).
 __host__ __device__ inline int creep_after(const Steps& s, int k, int p) {
   int c = 0;
   for (int q = p + 1; q < s.n_pair; ++q) c += (k / 2) * (s.d[q] + 1);
   return c;
 }
 
-__host__ __device__ inline int passes(int tile, int creep) {
-  return (tile + 2 * creep + kSub - 1) / kSub;
+struct Win {
+  int lo, hi;
+};
+
+// The frames pair p of a kernel-k branch computes y on (p = -1: y = x at
+// the branch start), for the tile at t0, within [0, T).
+__host__ __device__ inline Win window(const Steps& s, int k, int p, int t0, int tile, int T) {
+  const int c = creep_after(s, k, p);
+  const int lo = t0 - c, hi = (t0 + tile < T ? t0 + tile : T) + c;
+  return {lo > 0 ? lo : 0, hi < T ? hi : T};
 }
 
-int mid_rows(int k) {
-  switch (k) {
-    case 3: return Shape<kC, 3>::kMid;
-    case 7: return Shape<kC, 7>::kMid;
-    default: return Shape<kC, 11>::kMid;
-  }
+// Rows of a pass with `rem` frames of its window left: the fewest whole
+// warpgroups whose conv2 keeps them all, else every warpgroup.
+__host__ __device__ inline int pass_rows(int rem, int h) {
+  for (int w = 1; w < kWG; ++w)
+    if (64 * kMT * w - 2 * h >= rem) return 64 * kMT * w;
+  return kM;
 }
 
-size_t pass_smem(int k, int dil) {
-  switch (k) {
-    case 3: return Shape<kC, 3>::bytes(dil);
-    case 7: return Shape<kC, 7>::bytes(dil);
-    default: return Shape<kC, 11>::bytes(dil);
-  }
-}
+__host__ __device__ inline int chunks(int k) { return k * kC / kKCH; }   // ring chunks per conv
 
 int lead_of(const Steps& s) {
   int lead = 0;
   for (int br = 0; br < s.n_br; ++br) {
-    const int c = creep_after(s, s.k[br], 0);
+    const int c = creep_after(s, s.k[br], -1);
     lead = c > lead ? c : lead;
   }
   return lead;
 }
 
-// Slab rows a block reads or writes, counted from frame t0 - lead.
-int slab_rows_of(const Steps& s, int tile) {
-  const int lead = lead_of(s);
-  int rows = 0;
+// Ring chunks a CTA of the tile at t0 streams, and (flops != nullptr) the
+// FLOPs its cluster executes, halo recompute included.
+__host__ __device__ inline int plan_of(const Steps& s, int t0, int tile, int T, double* flops) {
+  int n = 0;
   for (int br = 0; br < s.n_br; ++br) {
     const int k = s.k[br], h = k / 2;
     for (int p = 0; p < s.n_pair; ++p) {
-      const int creep = creep_after(s, k, p), n = passes(tile, creep);
-      const int first = lead - creep;            // the pair's first output row
-      if (p + 1 < s.n_pair && first + n * kSub > rows) rows = first + n * kSub;
-      const int read_end = first + (n - 1) * kSub - h + mid_rows(k) + h * s.d[p];
-      if (p > 0 && read_end > rows) rows = read_end;
+      const Win w = window(s, k, p, t0, tile, T);
+      for (int u = w.lo; u < w.hi;) {
+        const int m = pass_rows(w.hi - u, h);
+        n += 2 * chunks(k);
+        if (flops) *flops += 2.0 * 2.0 * m * k * kC * kC;
+        u += m - 2 * h;
+      }
     }
   }
-  return rows;
+  return n;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-mrf_stage_streamed(const float* __restrict__ x,   // [B, T, C]
-                   float* __restrict__ out,       // [B, T, C]
-                   float* __restrict__ slab0,     // [blocks, slab_rows, C]
-                   float* __restrict__ slab1,
-                   const float* __restrict__ w1,  // [n_br, n_pair, 11, C, C]
-                   const float* __restrict__ b1,  // [n_br, n_pair, C]
-                   const float* __restrict__ w2,
-                   const float* __restrict__ b2,
-                   int T, int tile, int lead, int slab_rows, Steps s) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int t0 = blockIdx.x * tile;
-  const size_t row = (size_t)blockIdx.y * T * kC;
-  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  float* slabs[2] = {slab0 + blk * slab_rows * kC, slab1 + blk * slab_rows * kC};
-  const int s0 = t0 - lead;   // frame of slab row 0
+// acc[mt] (64 x kN, fp32) = the conv of X rows [a0 / 16 + 64 mt, +64) (X
+// K-major, `stride` bytes from one group of 8 channels to the next): sum
+// over taps t < K and the kC input channels of A[r + t dil, c] W[t][c][n],
+// both operands from shared memory.  The weights are ring chunks q0 ..
+// q0 + chunks(K) - 1; each chunk's wgmmas issue back to back as one group,
+// kFly groups in flight, and `leader` releases a chunk's stage once its
+// group has completed.
+template <int K>
+__device__ __forceinline__ void conv_ss(float (&acc)[kMT][kN / 2], uint32_t a0, uint32_t stride,
+                                        int dil, uint32_t ring, uint32_t full, uint32_t empty,
+                                        int q0, bool leader) {
+  constexpr int kSPC = kKCH / 16, kChunks = K * kC / kKCH, kPerTap = kC / 16;
+  static_assert(kChunks >= kFly, "a conv fills the groups in flight");
+  auto release = [&](int q) {
+    if (leader) mbar_arrive(empty + 8 * (q % kS));
+  };
+#pragma unroll 1
+  for (int i = 0; i < kChunks; ++i) {
+    const int q = q0 + i;
+    mbar_wait(full + 8 * (q % kS), (uint32_t)((q / kS) & 1));
+    const uint32_t b = ring + (q % kS) * P::kStageBytes;
+    // a fence before every group: without it ptxas puts its own in the
+    // leader's divergent path and serializes the wgmmas (C7520)
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSPC; ++j) {
+      const int st = i * kSPC + j, tap = st / kPerTap, c0 = (st % kPerTap) * 16;
+      const uint32_t a = a0 + (uint32_t)(tap * dil) * 16 + (c0 / 8) * stride;
+      const uint64_t db = slab_desc(b + j * 32 * kN);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        wgmma_ss(acc[mt], kmajor_desc(a + mt * 64 * 16, stride, 128), db, st > 0);
+    }
+    wgmma_commit();
+    if (i >= kFly - 1) {
+      wgmma_wait<kFly - 1>();   // chunk q - kFly + 1 has been read
+      release(q - kFly + 1);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) fence_reg(acc[mt][j]);
+  for (int i = kChunks - kFly + 1; i < kChunks; ++i) release(q0 + i);
+}
 
-  for (int br = 0; br < s.n_br; ++br) {
-    const int k = s.k[br];
-    const int pad = (kTaps - k) / 2;
-    for (int p = 0; p < s.n_pair; ++p) {
-      const bool last = p == s.n_pair - 1;
-      const size_t step = (size_t)br * s.n_pair + p;
-      const float* w1p = w1 + (step * kTaps + pad) * kC * kC;
-      const float* w2p = w2 + (step * kTaps + pad) * kC * kC;
-      const float* b1p = b1 + step * kC;
-      const float* b2p = b2 + step * kC;
-      // pair 0 reads x; the last pair adds the branch into the output rows
-      const float* src = p == 0 ? x + row : slabs[(p - 1) & 1];
-      const int src0 = p == 0 ? 0 : s0;
-      float* dst = last ? out + row : slabs[p & 1];
-      const int dst0 = last ? 0 : s0;
-      const int accumulate = last && br > 0;
-      const float scale = last && br == s.n_br - 1 ? 1.f / (float)s.n_br : 1.f;
-      const int creep = creep_after(s, k, p);
-      const int n = passes(tile, creep);
-      for (int j = 0; j < n; ++j) {
-        const int u = t0 - creep + j * kSub;
-        switch (k) {
-          case 3:
-            pair_pass<kC, 3, false>(src, src0, dst, dst0, w1p, b1p, w2p, b2p, u, T,
-                                    s.d[p], accumulate, scale, smem);
-            break;
-          case 7:
-            pair_pass<kC, 7, false>(src, src0, dst, dst0, w1p, b1p, w2p, b2p, u, T,
-                                    s.d[p], accumulate, scale, smem);
-            break;
-          default:
-            pair_pass<kC, 11, false>(src, src0, dst, dst0, w1p, b1p, w2p, b2p, u, T,
-                                     s.d[p], accumulate, scale, smem);
+// The consumer warpgroup's conv of its rows at kernel size k.
+__device__ __forceinline__ void conv(int k, float (&acc)[kMT][kN / 2], uint32_t a0,
+                                     uint32_t stride, int dil, uint32_t ring, uint32_t full,
+                                     uint32_t empty, int q, bool leader) {
+  switch (k) {
+    case 3: conv_ss<3>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 7: conv_ss<7>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    default: conv_ss<11>(acc, a0, stride, dil, ring, full, empty, q, leader);
+  }
+}
+
+// A warpgroup with no rows in a short pass still releases each ring stage
+// of the conv (chunks q .. q + n - 1) once it has landed.
+__device__ __forceinline__ void drain(int q, int n, uint32_t full, uint32_t empty, bool leader) {
+  if (!leader) return;
+  for (int i = q; i < q + n; ++i) {
+    mbar_wait(full + 8 * (i % kS), (uint32_t)((i / kS) & 1));
+    mbar_arrive(empty + 8 * (i % kS));
+  }
+}
+
+// Grid (kRanks * ceil(T / tile), B), clusters of kRanks CTAs along x; each
+// CTA keeps y in its part of y_slab ([CTAs][tile + 2 lead][kYld] fp32).
+__global__ void __launch_bounds__(P::kThreads, 1)
+mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
+                   float* __restrict__ out,                    // [B, T, C]
+                   float* __restrict__ y_slab,
+                   const __nv_bfloat16* __restrict__ w1,       // [n_br, n_pair, 11 C C], wgmma order
+                   const float* __restrict__ b1,               // [n_br, n_pair, C]
+                   const __nv_bfloat16* __restrict__ w2,
+                   const float* __restrict__ b2,
+                   int T, int tile, int lead, Steps s) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  const uint32_t full = base, empty = base + 8 * kS;
+  const uint32_t a_bar = base + 16 * kS, h_bar = a_bar + 8, free_bar = a_bar + 16;
+  const uint32_t ring = base + kBarBytes, xt = base + kX;
+  const int tid = threadIdx.x;
+  const uint32_t rank = cluster_rank();
+  const int ch0 = rank * kN;
+  const int t0 = (blockIdx.x / kRanks) * tile, b = blockIdx.y;
+  const int s0 = t0 - lead;   // the frame of y's row 0
+  const size_t row = (size_t)b * T * kC;
+
+  if (tid == 0) {
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kWG);
+    }
+    mbar_init(a_bar, 1);
+    mbar_init(h_bar, 1);
+    mbar_init(free_bar, kRanks - 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  cluster_arrive();   // every CTA's mbarriers are ready before any copy or arrival
+  cluster_wait();
+
+  if (tid >= P::kConsumers) {
+    if (tid == P::kConsumers) {
+      // the producer: this CTA's columns of every conv of every pass, in the
+      // consumers' order
+      int br = 0, p = 0, u = 0, hi = 0, cv = 0, c = 0;
+      auto start_pair = [&]() {
+        const Win w = window(s, s.k[br], p, t0, tile, T);
+        u = w.lo;
+        hi = w.hi;
+      };
+      start_pair();
+      produce_chunks<kS>(
+          plan_of(s, t0, tile, T, nullptr), ring, P::kStageBytes, full, empty,
+          [&](int, uint32_t dst, uint32_t bar) {
+            const int k = s.k[br], h = k / 2;
+            const __nv_bfloat16* src = (cv ? w2 : w1) +
+                                       ((size_t)br * s.n_pair + p) * kTapsMax * kC * kC +
+                                       (size_t)c * kKCH * kC + ch0 * 16;
+            mbar_expect_tx(bar, kKCH * kN * 2);
+            for (int i = 0; i < kKCH / 16; ++i)
+              bulk_copy(dst + i * 32 * kN, src + (size_t)i * 16 * kC, 32 * kN, bar);
+            if (++c < chunks(k)) return;
+            c = 0;
+            if (++cv < 2) return;
+            cv = 0;
+            u += pass_rows(hi - u, h) - 2 * h;
+            if (u < hi) return;
+            if (++p == s.n_pair) {
+              p = 0;
+              ++br;
+            }
+            if (br < s.n_br) start_pair();
+          });
+    }
+  } else {
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const bool leader = tid % 128 == 0;
+    const int row0 = wg * kMT * 64 + warp * 16 + (lane >> 2);   // + 64 mt + 8 hh
+    const int col0 = 2 * (lane & 3);                             // + 8 g
+    const int wg_row = wg * kMT * 64;   // this warpgroup's first row of a pass
+    float* y = y_slab + ((size_t)b * gridDim.x + blockIdx.x) * (tile + 2 * lead) * kYld;
+    float* stash = reinterpret_cast<float*>(smem + kStash);
+    float acc[kMT][kN / 2];
+    int q = 0, pass = 0;
+
+    // this CTA's channels of the X tile (rows of `stride`) to the other CTAs,
+    // completing on their `bar` (one thread)
+    auto all_gather = [&](uint32_t bar, int stride) {
+      const uint32_t slice = xt + ch0 / 8 * stride * 16, bytes = kN / 8 * stride * 16;
+      mbar_expect_tx(bar, (kRanks - 1) * bytes);
+      for (int j = 1; j < kRanks; ++j) {
+        const uint32_t peer = (rank + j) % kRanks;
+        bulk_copy_peer(map_rank(slice, peer), slice, bytes, map_rank(bar, peer));
+      }
+    };
+    auto arrive_peers = [&]() {
+      for (int j = 1; j < kRanks; ++j) mbar_arrive_peer(free_bar, (rank + j) % kRanks);
+    };
+
+    for (int br = 0; br < s.n_br; ++br) {
+      const int k = s.k[br], h = k / 2;
+      // y = bf16(x) over the branch's window
+      const Win w0 = window(s, k, -1, t0, tile, T);
+      consumer_sync<P::kConsumers>();
+      for (int i = tid; i < (w0.hi - w0.lo) * (kN / 4); i += P::kConsumers) {
+        const int f = w0.lo + i / (kN / 4), c = (i % (kN / 4)) * 4;
+        const float4 v = __ldg(reinterpret_cast<const float4*>(x + row + (size_t)f * kC + ch0 + c));
+        *reinterpret_cast<float4*>(y + (f - s0) * kYld + c) =
+            make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
+      }
+      consumer_sync<P::kConsumers>();
+
+      for (int p = 0; p < s.n_pair; ++p) {
+        const int d = s.d[p];
+        const bool last = p == s.n_pair - 1;
+        const size_t step = (size_t)br * s.n_pair + p;
+        const Win w = window(s, k, p, t0, tile, T), w_in = window(s, k, p - 1, t0, tile, T);
+        int pend_f = 0, pend_n = 0;   // stashed rows of the last pass, not yet in y
+        for (int u = w.lo; u < w.hi;) {
+          const int m = pass_rows(w.hi - u, h), kept = m - 2 * h, sa = m + 2 * h * d;
+          const bool active = wg * kMT * 64 < m;
+          STAMP(0)
+          // the other CTAs are done reading X (their conv2 of the last pass)
+          if (pass > 0) mbar_wait_cluster(free_bar, 1);
+          STAMP(1)
+
+          // conv1's input, bf16(lrelu(y) * mask), this CTA's channels: tile
+          // row i is frame u - h - h d + i; frames outside the window of y
+          // (outside [0, T), or feeding only rows no pass keeps) are 0
+          for (int i0 = tid; i0 < sa * (kN / 8); i0 += kBatch * P::kConsumers) {
+            float4 lo4[kBatch], hi4[kBatch];   // kBatch rows' loads in flight
+#pragma unroll
+            for (int j = 0; j < kBatch; ++j) {
+              const int i = i0 + j * P::kConsumers, f = u - h - h * d + i % sa;
+              lo4[j] = hi4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+              if (i < sa * (kN / 8) && f >= w_in.lo && f < w_in.hi) {
+                const float* yr = y + (f - s0) * kYld + 8 * (i / sa);
+                lo4[j] = *reinterpret_cast<const float4*>(yr);
+                hi4[j] = *reinterpret_cast<const float4*>(yr + 4);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kBatch; ++j) {
+              const int i = i0 + j * P::kConsumers;
+              if (i >= sa * (kN / 8)) break;
+              *reinterpret_cast<uint4*>(smem + kX + ((ch0 / 8 + i / sa) * sa + i % sa) * 16) =
+                  make_uint4(pack_bf16(lrelu_f(lo4[j].x), lrelu_f(lo4[j].y)),
+                             pack_bf16(lrelu_f(lo4[j].z), lrelu_f(lo4[j].w)),
+                             pack_bf16(lrelu_f(hi4[j].x), lrelu_f(hi4[j].y)),
+                             pack_bf16(lrelu_f(hi4[j].z), lrelu_f(hi4[j].w)));
+            }
+          }
+          fence_proxy_async();
+          consumer_sync<P::kConsumers>();
+          if (tid == 0) all_gather(a_bar, sa);
+          // every thread has read the old rows this pass shares with the last
+          // one: the last one's stashed rows go into y
+          for (int i = tid; i < pend_n * (kN / 4); i += P::kConsumers) {
+            const int r = i / (kN / 4), c = (i % (kN / 4)) * 4, f = pend_f + r;
+            if (f >= w.lo && f < w.hi) {
+              float4* at = reinterpret_cast<float4*>(y + (f - s0) * kYld + c);
+              const float4 a = *at, v = *reinterpret_cast<const float4*>(stash + r * kYld + c);
+              *at = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+            }
+          }
+          mbar_wait(a_bar, (uint32_t)(pass & 1));
+          STAMP(2)
+
+          // conv1: output row r is frame u - h + r
+          if (active)
+            conv(k, acc, xt + wg_row * 16, sa * 16, d, ring, full, empty, q, leader);
+          else
+            drain(q, chunks(k), full, empty, leader);
+          q += chunks(k);
+          consumer_sync<P::kConsumers>();
+          if (tid == 0) arrive_peers();
+          STAMP(3)
+          mbar_wait_cluster(free_bar, 0);   // every CTA is done reading X
+          STAMP(4)
+
+          // h = bf16(lrelu(conv1 + b1) * mask), this CTA's channels, into X
+          if (active) {
+            const float* b1p = b1 + step * kC + ch0;
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+              for (int g = 0; g < kN / 8; ++g) {
+                const float2 bias = __ldg(reinterpret_cast<const float2*>(b1p + 8 * g + col0));
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                  const int r = row0 + 64 * mt + 8 * hh, f = u - h + r;
+                  const bool inside = f >= 0 && f < T;
+                  *reinterpret_cast<uint32_t*>(smem + kX + ((ch0 / 8 + g) * m + r) * 16 +
+                                               col0 * 2) =
+                      inside ? pack_bf16(lrelu_f(acc[mt][4 * g + 2 * hh] + bias.x),
+                                         lrelu_f(acc[mt][4 * g + 2 * hh + 1] + bias.y))
+                             : 0u;
+                }
+              }
+          }
+          fence_proxy_async();
+          consumer_sync<P::kConsumers>();
+          if (tid == 0) all_gather(h_bar, m);
+          mbar_wait(h_bar, (uint32_t)(pass & 1));
+          STAMP(5)
+
+          // conv2: output row r is frame u + r, kept for r < kept
+          if (active)
+            conv(k, acc, xt + wg_row * 16, m * 16, 1, ring, full, empty, q, leader);
+          else
+            drain(q, chunks(k), full, empty, leader);
+          q += chunks(k);
+          consumer_sync<P::kConsumers>();
+          if (tid == 0) arrive_peers();
+          STAMP(6)
+
+          // y += conv2 + b2 on the kept rows of the window; the last `ov` of
+          // them go to the stash while the next pass of the pair still reads
+          // their old values; the last pair adds y on the tile into the branch
+          // sum (this CTA's rows and channels of the output) instead
+          const int ov = last || u + kept >= w.hi ? 0 : h * (d + 1);
+          if (active) {
+            const float* b2p = b2 + step * kC + ch0;
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+              for (int g0 = 0; g0 < kN / 8; g0 += kGroups) {
+                // the loads of kGroups column groups first, then the stores
+                float2 yv[kGroups][2], prev[kGroups][2];
+#pragma unroll
+                for (int g = g0; g < g0 + kGroups; ++g)
+#pragma unroll
+                  for (int hh = 0; hh < 2; ++hh) {
+                    const int r = row0 + 64 * mt + 8 * hh, f = u + r;
+                    yv[g - g0][hh] = prev[g - g0][hh] = make_float2(0.f, 0.f);
+                    if (r < kept - ov && f >= w.lo && f < w.hi) {
+                      yv[g - g0][hh] = *reinterpret_cast<const float2*>(
+                          y + (f - s0) * kYld + 8 * g + col0);
+                      if (last && br > 0)
+                        prev[g - g0][hh] = *reinterpret_cast<const float2*>(
+                            out + row + (size_t)f * kC + ch0 + 8 * g + col0);
+                    }
+                  }
+#pragma unroll
+                for (int g = g0; g < g0 + kGroups; ++g) {
+                  const float2 bias = __ldg(reinterpret_cast<const float2*>(b2p + 8 * g + col0));
+#pragma unroll
+                  for (int hh = 0; hh < 2; ++hh) {
+                    const int r = row0 + 64 * mt + 8 * hh, f = u + r;
+                    if (r >= kept || f < w.lo || f >= w.hi) continue;
+                    const float2 v = make_float2(acc[mt][4 * g + 2 * hh] + bias.x,
+                                                 acc[mt][4 * g + 2 * hh + 1] + bias.y);
+                    const float2 a = yv[g - g0][hh];
+                    if (r >= kept - ov) {
+                      *reinterpret_cast<float2*>(stash + (r - (kept - ov)) * kYld + 8 * g + col0) = v;
+                    } else if (!last) {
+                      *reinterpret_cast<float2*>(y + (f - s0) * kYld + 8 * g + col0) =
+                          make_float2(a.x + v.x, a.y + v.y);
+                    } else {
+                      float2 o = make_float2(a.x + v.x, a.y + v.y);
+                      if (br > 0) o = make_float2(prev[g - g0][hh].x + o.x, prev[g - g0][hh].y + o.y);
+                      if (br == s.n_br - 1)
+                        o = make_float2(o.x / (float)s.n_br, o.y / (float)s.n_br);
+                      *reinterpret_cast<float2*>(out + row + (size_t)f * kC + ch0 + 8 * g + col0) = o;
+                    }
+                  }
+                }
+              }
+          }
+          pend_f = u + kept - ov;
+          pend_n = ov;
+          if (!ov) consumer_sync<P::kConsumers>();   // the next pass reads these rows
+          STAMP(7)
+          ++pass;
+          u += kept;
         }
       }
     }
   }
+  __syncwarp();
+  // no CTA leaves while a copy or an arrival may still target it
+  cluster_arrive();
+  cluster_wait();
 }
 
 // The launch's steps from host arrays, or false for a shape it is not built for.
@@ -191,77 +537,113 @@ bool steps_of(int n_br, int n_pair, const int* kernel_sizes, const int* dilation
     s->k[br] = k;
   }
   for (int p = 0; p < n_pair; ++p) {
-    if (dilations[p] < 1 || dilations[p] > 5) return false;   // shared-memory window
+    if (dilations[p] < 1 || dilations[p] > kMaxDil) return false;   // the X buffer's halo
     s->d[p] = dilations[p];
   }
   return true;
+}
+
+cudaLaunchConfig_t launch_config(int B, int T, int tile, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kRanks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kRanks * ((T + tile - 1) / tile), B, 1);
+  cfg.blockDim = dim3(P::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters the current device holds at once (one CTA an SM), worked out
+// once per device.
+int resident_clusters(int* out) {
+  constexpr int kDevices = 64;
+  static int known[kDevices];   // clusters + 1, 0 until worked out
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kDevices && known[dev] > 0) {
+    *out = known[dev] - 1;
+    return 0;
+  }
+  err = cudaFuncSetAttribute(mrf_stage_streamed, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(1, 1000, 1000, nullptr, &attr);
+  err = cudaOccupancyMaxActiveClusters(out, reinterpret_cast<const void*>(mrf_stage_streamed),
+                                       &cfg);
+  if (err == cudaSuccess && dev < kDevices) known[dev] = *out + 1;
+  return (int)err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of each of the two slabs per block, for tile frames per block, or -1
-// for a shape the kernel is not built for.  The caller allocates two slabs
-// of B * ceil(T / tile) * rows * 256 floats.
-int mrf_stack_streamed_slab_rows(int tile, int n_br, int n_pair, const int* kernel_sizes,
-                                 const int* dilations) {
+// The launch plan at B, T on the current device, into plan[0..4]: frames
+// per cluster (the fewest that put every cluster on the card at once),
+// clusters the device holds at once, floats of the y slab the caller
+// allocates, dynamic shared memory per CTA, CTAs per cluster.  Returns the
+// CUDA error, or cudaErrorInvalidValue for a shape the kernel is not built
+// for.
+int mrf_stack_streamed_plan(int B, int T, int n_br, int n_pair, const int* kernel_sizes,
+                            const int* dilations, int* plan) {
   Steps s;
-  if (tile <= 0 || tile % kSub || !steps_of(n_br, n_pair, kernel_sizes, dilations, &s))
-    return -1;
-  return slab_rows_of(s, tile);
+  if (B < 1 || T < 1 || !steps_of(n_br, n_pair, kernel_sizes, dilations, &s))
+    return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  const int err = resident_clusters(&resident);
+  if (err != 0) return err;
+  const int per_row = resident / B > 1 ? resident / B : 1;
+  const int tile = (T + per_row - 1) / per_row;
+  plan[0] = tile;
+  plan[1] = resident;
+  plan[2] = B * ((T + tile - 1) / tile) * kRanks * (tile + 2 * lead_of(s)) * kYld;
+  plan[3] = kSmem;
+  plan[4] = kRanks;
+  return 0;
 }
 
 // FLOPs the launch executes at B, T and tile, halo recompute included, or -1.
 double mrf_stack_streamed_flops(int B, int T, int tile, int n_br, int n_pair,
                                 const int* kernel_sizes, const int* dilations) {
   Steps s;
-  if (tile <= 0 || tile % kSub || !steps_of(n_br, n_pair, kernel_sizes, dilations, &s))
+  if (B < 1 || T < 1 || tile < 1 || !steps_of(n_br, n_pair, kernel_sizes, dilations, &s))
     return -1.0;
-  double per_block = 0.0;
-  for (int br = 0; br < n_br; ++br)
-    for (int p = 0; p < n_pair; ++p)
-      per_block += 2.0 * s.k[br] * kC * kC *
-                   (double)passes(tile, creep_after(s, s.k[br], p)) *
-                   (mid_rows(s.k[br]) + kSub);
-  return per_block * B * ((T + tile - 1) / tile);
+  double flops = 0.0;
+  for (int t0 = 0; t0 < T; t0 += tile) plan_of(s, t0, tile, T, &flops);
+  return flops * B;
 }
 
-// x, out [B, T, 256]; slab0, slab1 as mrf_stack_streamed_slab_rows says;
-// w1, w2 [n_br, n_pair, 11, 256, 256] (taps centred in the 11, input
-// channel, output channel); b1, b2 [n_br, n_pair, 256]; kernel_sizes [n_br]
-// and dilations [n_pair] are host arrays.  One launch on `stream`; returns
-// its CUDA error, or 0.
-int mrf_stack_streamed_f32(const float* x, float* out, float* slab0, float* slab1,
-                           const float* w1, const float* b1, const float* w2,
-                           const float* b2, int B, int T, int C, int tile, int n_br,
-                           int n_pair, const int* kernel_sizes, const int* dilations,
-                           void* stream) {
+// x, out [B, T, 256] fp32; y_slab as mrf_stack_streamed_plan says for this
+// tile; w1, w2 [n_br, n_pair, 11 C C] bf16 in wgmma order for kernel_sizes
+// (ops/mrf.py::kernel_weights); b1, b2 [n_br, n_pair, 256] fp32;
+// kernel_sizes [n_br] and dilations [n_pair] are host arrays.  One launch on
+// `stream`; returns its CUDA error, or 0.
+int mrf_stack_streamed_bf16(const float* x, float* out, float* y_slab, const __nv_bfloat16* w1,
+                            const float* b1, const __nv_bfloat16* w2, const float* b2, int B,
+                            int T, int C, int tile, int n_br, int n_pair,
+                            const int* kernel_sizes, const int* dilations, void* stream) {
   Steps s;
-  if (C != kC || B < 1 || T < 1 || tile <= 0 || tile % kSub ||
+  if (C != kC || B < 1 || T < 1 || tile < 1 || !y_slab ||
       !steps_of(n_br, n_pair, kernel_sizes, dilations, &s))
     return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  for (int br = 0; br < n_br; ++br)
-    for (int p = 0; p < n_pair; ++p) {
-      const size_t b = pass_smem(s.k[br], s.d[p]);
-      smem = b > smem ? b : smem;
-    }
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      mrf_stage_streamed, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mrf_stage_streamed, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + tile - 1) / tile, B);
-  mrf_stage_streamed<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, out, slab0, slab1, w1, b1, w2, b2, T, tile, lead_of(s), slab_rows_of(s, tile), s);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(B, T, tile, static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(&cfg, mrf_stage_streamed, x, out, y_slab, w1, b1, w2, b2, T, tile,
+                           lead_of(s), s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// Dynamic shared memory of one pass at width C, kernel size k and dilation
-// dil (a launch takes the largest over its steps), or -1.
-int mrf_stack_streamed_smem_bytes(int C, int k, int dil) {
-  if (C != kC || (k != 3 && k != 7 && k != 11)) return -1;
-  return (int)pass_smem(k, dil);
 }
 
 const char* mrf_stack_streamed_error_string(int err) {

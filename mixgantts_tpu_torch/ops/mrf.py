@@ -14,15 +14,16 @@ C] (taps centred in 11, then input channel, output channel), b1/b2
 bytes as a contiguous [B, T, C] tensor, so `mrf_stack_folded` views it as
 such and runs the same CUDA kernel (`csrc/mrf_stack.cu`, one launch per
 branch and pair).  `mrf_stack_streamed` runs a whole C = 256 stage in one
-launch (`csrc/mrf_stack_streamed.cu`).
+launch (`csrc/mrf_stack_streamed.cu`, a tile of frames per cluster of 4
+CTAs that split the output channels).
 
 Arithmetic follows the weights' type, as the TPU kernels' operand type
 does (`op_dtype = w1_ref.dtype`): fp32 weights compute in fp32; bf16
 weights round the stage input and every conv input to bf16, accumulate in
 fp32 and keep biases, residual and branch mean in fp32.  On the TPU the
-JAX package always casts the weights to bf16, and so does `mrf_stack` /
-`mrf_stack_folded` on CUDA: `csrc/mrf_stack.cu` is a bf16 tensor-core
-kernel, fed by `kernel_weights`.  `mrf_stack_streamed` stays fp32.
+JAX package always casts the weights to bf16, and so do the three entry
+points on CUDA: `csrc/mrf_stack.cu` and `csrc/mrf_stack_streamed.cu` are
+bf16 tensor-core kernels, fed by `kernel_weights`.
 """
 
 import contextlib
@@ -99,7 +100,7 @@ def mrf_stack_plain(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
 @contextlib.contextmanager
 def no_tf32():
     """cuDNN convolutions and matmuls in full fp32 (PyTorch lets cuDNN use
-    TF32 by default on the card): the plain bf16 versions sum their
+    TF32 by default on the card): the denoiser's plain bf16 version sums its
     products of bf16-exact values as fp32."""
     prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -112,27 +113,32 @@ def no_tf32():
 def _mrf_stack_plain_bf16(x, stacked, kernel_sizes, dilations):
     """The TPU kernel's arithmetic with bf16 operands
     (`pallas_vocoder.py::_kernel`): the stage input and each conv input
-    lrelu(.) * mask rounded to bf16, products of bf16-exact values summed in
-    fp32 (TF32 off), biases, residual and branch mean added in fp32."""
+    lrelu(.) * mask rounded to bf16, the products of bf16-exact values summed
+    and rounded to fp32, biases, residual and branch mean added in fp32.  The
+    convolutions run in float64, so each sum is the exactly rounded fp32 one
+    that any order of fp32 additions only approaches (PyTorch's fp32 CPU
+    convolution at C = 256, K = 11 * 256, drifts from it by 6e-5 of max|y|
+    on average after a stage, five times the Pallas kernel's drift)."""
     def bf16(t):
         return t.to(torch.bfloat16).float()
 
+    def conv(t, w, **kwargs):
+        return F.conv1d(t.double(), w.double(), **kwargs).float()
+
     xt = bf16(x).transpose(1, 2)
     acc = None
-    with no_tf32():
-        for br, rk in enumerate(kernel_sizes):
-            pad = (TAPS - rk) // 2
-            y = xt
-            for p, d in enumerate(dilations):
-                w1 = stacked["w1"][br, p, pad:TAPS - pad].float().permute(2, 1, 0)
-                w2 = stacked["w2"][br, p, pad:TAPS - pad].float().permute(2, 1, 0)
-                t = F.conv1d(bf16(F.leaky_relu(y, LRELU_SLOPE)), w1, dilation=d,
-                             padding=d * (rk - 1) // 2)
-                t = t + stacked["b1"][br, p].float()[:, None]
-                t = F.conv1d(bf16(F.leaky_relu(t, LRELU_SLOPE)), w2,
-                             padding=(rk - 1) // 2)
-                y = y + (t + stacked["b2"][br, p].float()[:, None])
-            acc = y if acc is None else acc + y
+    for br, rk in enumerate(kernel_sizes):
+        pad = (TAPS - rk) // 2
+        y = xt
+        for p, d in enumerate(dilations):
+            w1 = stacked["w1"][br, p, pad:TAPS - pad].permute(2, 1, 0)
+            w2 = stacked["w2"][br, p, pad:TAPS - pad].permute(2, 1, 0)
+            t = conv(bf16(F.leaky_relu(y, LRELU_SLOPE)), w1, dilation=d,
+                     padding=d * (rk - 1) // 2)
+            t = t + stacked["b1"][br, p].float()[:, None]
+            t = conv(bf16(F.leaky_relu(t, LRELU_SLOPE)), w2, padding=(rk - 1) // 2)
+            y = y + (t + stacked["b2"][br, p].float()[:, None])
+        acc = y if acc is None else acc + y
     return (acc / len(kernel_sizes)).transpose(1, 2)
 
 
@@ -153,11 +159,12 @@ def _pack_taps(w, kernel_sizes):
 
 
 def kernel_weights(stacked, kernel_sizes=(3, 7, 11)):
-    """Stacked weights as the CUDA kernel of `mrf_stack` takes them: w1/w2
+    """Stacked weights as the CUDA kernels take them: w1/w2
     in bf16 (the TPU kernel's operand type, `pallas_vocoder.py:535-539`),
     b1/b2 in fp32, and the bf16 copies `w1_mma`/`w2_mma` in the kernel's
     order for `kernel_sizes`.  `models.hifigan.fused_apply` makes them once
-    per stage; `mrf_stack` makes them per call for weights that lack them."""
+    per stage; the entry points make them per call for weights that lack
+    them."""
     w1 = stacked["w1"].to(torch.bfloat16).contiguous()
     w2 = stacked["w2"].to(torch.bfloat16).contiguous()
     return dict(stacked, w1=w1, w2=w2,
@@ -166,10 +173,9 @@ def kernel_weights(stacked, kernel_sizes=(3, 7, 11)):
                 mma_kernel_sizes=tuple(kernel_sizes))
 
 
-def _check(name, x, stacked, kernel_sizes, dilations, widths,
-           weight_dtypes=(torch.float32,)):
+def _check(name, x, stacked, kernel_sizes, dilations, widths):
     """Raise unless a CUDA kernel takes x [B, T, C] (fp32) and the stacked
-    weights (w1/w2 in one of `weight_dtypes`, b1/b2 fp32) as they are."""
+    weights (w1/w2 in bf16 or fp32, b1/b2 fp32) as they are."""
     B, T, C = x.shape
     n_br, n_pair = len(kernel_sizes), len(dilations)
     if C not in widths:
@@ -185,7 +191,7 @@ def _check(name, x, stacked, kernel_sizes, dilations, widths,
             "b1": (n_br, n_pair, C), "b2": (n_br, n_pair, C)}
     for key in ("x", *want):
         t = x if key == "x" else stacked[key]
-        dtypes = weight_dtypes if key in ("w1", "w2") else (torch.float32,)
+        dtypes = (torch.bfloat16, torch.float32) if key in ("w1", "w2") else (torch.float32,)
         if t.device != x.device or t.dtype not in dtypes or not t.is_contiguous():
             raise ValueError(f"{name} kernel: {key} must be contiguous "
                              f"{' or '.join(map(str, dtypes))} on {x.device}, "
@@ -200,23 +206,33 @@ def _int_array(values):
     return ctypes.cast((ctypes.c_int * len(values))(*values), ctypes.c_void_p)
 
 
+def _mma_weights(name, x, stacked, kernel_sizes, dilations, widths):
+    """Check x and the stacked weights for a bf16 CUDA kernel and return
+    them with their wgmma-ordered copies (`kernel_weights`, made for this
+    call where fp32 weights lack them); raise on what the kernel does not
+    take."""
+    C = x.shape[-1]
+    _check(name, x, stacked, kernel_sizes, dilations, widths)
+    if "w1_mma" not in stacked:
+        stacked = kernel_weights(stacked, kernel_sizes)
+    packed = (len(kernel_sizes), len(dilations), TAPS * C * C)
+    if (stacked["mma_kernel_sizes"] != kernel_sizes
+            or any(stacked[k].shape != packed or stacked[k].dtype != torch.bfloat16
+                   or stacked[k].device != x.device for k in ("w1_mma", "w2_mma"))):
+        raise ValueError(f"{name} kernel: w1_mma/w2_mma must be bf16 {packed} on "
+                         f"{x.device}, laid out for kernel sizes {kernel_sizes}; "
+                         "make them with kernel_weights")
+    return stacked
+
+
 def _launch(x, stacked, kernel_sizes, dilations):
     """Run csrc/mrf_stack.cu on a CUDA x [B, T, C] (fp32) with bf16
     operands; fp32 weights are cast (`kernel_weights`) for this call.
     Returns (out, launches)."""
     B, T, C = x.shape
     n_br, n_pair = len(kernel_sizes), len(dilations)
-    _check("mrf_stack", x, stacked, kernel_sizes, dilations, (32, 64, 128, 256),
-           weight_dtypes=(torch.bfloat16, torch.float32))
-    if "w1_mma" not in stacked:
-        stacked = kernel_weights(stacked, kernel_sizes)
-    packed = (n_br, n_pair, TAPS * C * C)
-    if (stacked["mma_kernel_sizes"] != kernel_sizes
-            or any(stacked[k].shape != packed or stacked[k].dtype != torch.bfloat16
-                   or stacked[k].device != x.device for k in ("w1_mma", "w2_mma"))):
-        raise ValueError(f"mrf_stack kernel: w1_mma/w2_mma must be bf16 {packed} on "
-                         f"{x.device}, laid out for kernel sizes {kernel_sizes}; "
-                         "make them with kernel_weights")
+    stacked = _mma_weights("mrf_stack", x, stacked, kernel_sizes, dilations,
+                           (32, 64, 128, 256))
     lib = cuda_build.library("mrf_stack")
     fn = lib.mrf_stack_bf16
     fn.restype = ctypes.c_int
@@ -293,36 +309,41 @@ def mrf_stack_folded(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
 mrf_stack_folded.launches = 0
 
 
-STREAMED_PASS = 64   # output frames of one pass of the whole-stage kernel
-
-
-def streamed_tile(B, T, device):
-    """Frames per block of the whole-stage kernel: the smallest multiple of
-    STREAMED_PASS that gives at most one block per SM (a block takes a whole
-    SM's shared memory), so the card is filled with the least halo."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    passes = -(-T // STREAMED_PASS)
-    return STREAMED_PASS * -(-(B * passes) // n_sm)
-
-
 def _streamed_lib():
     lib = cuda_build.library("mrf_stack_streamed")
-    lib.mrf_stack_streamed_f32.restype = ctypes.c_int
-    lib.mrf_stack_streamed_f32.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                                           + [ctypes.c_void_p] * 3)
-    lib.mrf_stack_streamed_slab_rows.restype = ctypes.c_int
-    lib.mrf_stack_streamed_slab_rows.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.mrf_stack_streamed_bf16.restype = ctypes.c_int
+    lib.mrf_stack_streamed_bf16.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                                            + [ctypes.c_void_p] * 3)
+    lib.mrf_stack_streamed_plan.restype = ctypes.c_int
+    lib.mrf_stack_streamed_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     lib.mrf_stack_streamed_flops.restype = ctypes.c_double
     lib.mrf_stack_streamed_flops.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     return lib
 
 
+def streamed_plan(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cuda"):
+    """The whole-stage kernel's launch plan at B, T on `device`: `tile`
+    (frames per cluster, the fewest that put every cluster on the card at
+    once), `resident` (clusters the card holds at once), `slab` (floats of
+    device memory for the CTAs' y), `smem` (bytes of shared memory per CTA)
+    and `cluster` (CTAs per cluster)."""
+    plan = (ctypes.c_int * 5)()
+    lib = _streamed_lib()
+    with torch.cuda.device(device):
+        err = lib.mrf_stack_streamed_plan(B, T, len(kernel_sizes), len(dilations),
+                                          _int_array(kernel_sizes), _int_array(dilations),
+                                          ctypes.cast(plan, ctypes.c_void_p))
+    cuda_build.check(lib, "mrf_stack_streamed", err)
+    return dict(zip(("tile", "resident", "slab", "smem", "cluster"), plan))
+
+
 def streamed_flops(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cuda"):
     """FLOPs the whole-stage kernel executes at B, T on `device`, halo
-    recompute included (the kernel's own count)."""
-    ks, ds = _int_array(kernel_sizes), _int_array(dilations)
+    recompute included (the kernel's own count of its passes)."""
+    tile = streamed_plan(B, T, kernel_sizes, dilations, device)["tile"]
     return _streamed_lib().mrf_stack_streamed_flops(
-        B, T, streamed_tile(B, T, device), len(kernel_sizes), len(dilations), ks, ds)
+        B, T, tile, len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
+        _int_array(dilations))
 
 
 def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
@@ -330,32 +351,28 @@ def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5))
     from `stack_mrf_params` with every branch -> the averaged MRF output
     [B, T, C], as `mrf_stack`.
 
-    CUDA tensors run `csrc/mrf_stack_streamed.cu` (counted in
-    `mrf_stack_streamed.launches`); CPU tensors run the plain version."""
+    CUDA tensors run `csrc/mrf_stack_streamed.cu`, a bf16 tensor-core kernel
+    in clusters of 4 CTAs that split the output channels (counted in `mrf_stack_streamed.launches`), on the
+    weights of `kernel_weights` for the whole stage (fp32 weights are cast
+    per call); CPU tensors run the plain version in the weights' type."""
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stack_streamed: no kernel for device {x.device}")
     kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
-    _check("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, (256,))
+    stacked = _mma_weights("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, (256,))
     B, T, C = x.shape
+    plan = streamed_plan(B, T, kernel_sizes, dilations, x.device)
     lib = _streamed_lib()
-    ks, ds = _int_array(kernel_sizes), _int_array(dilations)
-    tile = streamed_tile(B, T, x.device)
-    rows = lib.mrf_stack_streamed_slab_rows(tile, len(kernel_sizes), len(dilations), ks, ds)
-    if rows < 0:
-        raise ValueError(f"mrf_stack_streamed kernel: no plan for tile {tile}, "
-                         f"kernel sizes {kernel_sizes}, dilations {dilations}")
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
-        slab = torch.empty(2, B * -(-T // tile) * rows * C, dtype=torch.float32,
-                           device=x.device)
-        err = lib.mrf_stack_streamed_f32(
-            x.data_ptr(), out.data_ptr(), slab[0].data_ptr(), slab[1].data_ptr(),
-            stacked["w1"].data_ptr(), stacked["b1"].data_ptr(),
-            stacked["w2"].data_ptr(), stacked["b2"].data_ptr(), B, T, C, tile,
-            len(kernel_sizes), len(dilations), ks, ds,
-            torch.cuda.current_stream().cuda_stream)
+        slab = torch.empty(plan["slab"], dtype=torch.float32, device=x.device)
+        err = lib.mrf_stack_streamed_bf16(
+            x.data_ptr(), out.data_ptr(), slab.data_ptr(),
+            stacked["w1_mma"].data_ptr(), stacked["b1"].data_ptr(),
+            stacked["w2_mma"].data_ptr(), stacked["b2"].data_ptr(), B, T, C, plan["tile"],
+            len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
+            _int_array(dilations), torch.cuda.current_stream().cuda_stream)
         cuda_build.check(lib, "mrf_stack_streamed", err)
     mrf_stack_streamed.launches += 1
     return out

@@ -81,15 +81,15 @@ STAMPS = '''__device__ long long g_stamps[1 << 14][12];
 
 def build(named_sources):
     """{name: source (a variant of denoiser_stack.cu)} -> {name: ctypes
-    library}, one nvcc each beside a copy of the shared header, all started
+    library}, one nvcc each beside copies of the shared headers, all started
     together; nvcc's report goes to nvcc.log beside each library."""
     jobs = {}
     for name, src in named_sources.items():
         d = os.path.join(OUT, name)
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(CSRC, "mrf_mma.cuh")) as f, \
-                open(os.path.join(d, "mrf_mma.cuh"), "w") as g:
-            g.write(f.read())
+        for header in (n for n in os.listdir(CSRC) if n.endswith(".cuh")):
+            with open(os.path.join(CSRC, header)) as f, open(os.path.join(d, header), "w") as g:
+                g.write(f.read())
         with open(os.path.join(d, "denoiser_stack.cu"), "w") as f:
             f.write(src)
         so = os.path.join(d, "libdenoiser_stack.so")

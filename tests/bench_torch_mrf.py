@@ -1,8 +1,9 @@
-"""Where the MRF kernel's time goes, and what its per-width configuration
-buys, on one CUDA device (it needs the card and nvcc; no JAX).
+"""Where the MRF kernels' time goes, and what their configuration buys, on
+one CUDA device (it needs the card and nvcc; no JAX).
 
     python3 tests/bench_torch_mrf.py variants NAME=SPEC [NAME=SPEC ...]
     python3 tests/bench_torch_mrf.py phases
+    python3 tests/bench_torch_mrf.py streamed [NAME=SPEC ...]
 
 `variants` builds copies of `csrc/mrf_stack.cu` whose `Cfg` table is
 patched by SPEC and times the MRF calls of one B=1 request at frame bucket
@@ -19,6 +20,17 @@ epilogue, conv2, conv2's epilogue) and prints the mean cycles of each phase
 per block, for one k = 3 and one k = 11 pair launch (dilation 5) at each
 width of the request, with the launch's span and the blocks resident at
 once (sum of block times over span x SMs).
+
+`streamed` does the same for the whole-stage kernel
+(`csrc/mrf_stack_streamed.cu`) at V1's C=256 stage in a B=1 request at
+bucket 1000 (T=8000) and a B=4 request at bucket 512 (T=4096): the cycles
+thread 0 of each CTA spends per k=11 pass in each phase (the wait for the
+other CTAs' conv2 with the branch start, the tile's build and all-gather,
+conv1, the wait for the other CTAs' conv1, conv1's epilogue and its
+all-gather, conv2, the epilogue), the launch's span and the CTAs busy per
+SM, beside the time as built and stamped; then each NAME=SPEC variant (see
+`streamed_source`) timed in two rounds in turns, with its ptxas report, its
+plan, recompute share and error against the bf16 plain version.
 
 Builds go to `mixgantts_tpu_torch/_build/bench/`.
 """
@@ -60,20 +72,21 @@ def patched(spec):
     return src
 
 
-def build(named_sources):
-    """{name: source} -> {name: (ctypes library, ptxas report)}, one nvcc
-    each, all started together."""
+def build(named_sources, source="mrf_stack"):
+    """{name: source text (a variant of csrc/<source>.cu)} -> {name: (ctypes
+    library, ptxas report)}, one nvcc each beside copies of the shared
+    headers, all started together."""
     jobs = {}
     for name, src in named_sources.items():
         d = os.path.join(OUT, name)
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(CSRC, "mrf_mma.cuh")) as f, \
-                open(os.path.join(d, "mrf_mma.cuh"), "w") as g:
-            g.write(f.read())
-        with open(os.path.join(d, "mrf_stack.cu"), "w") as f:
+        for header in (n for n in os.listdir(CSRC) if n.endswith(".cuh")):
+            with open(os.path.join(CSRC, header)) as f, open(os.path.join(d, header), "w") as g:
+                g.write(f.read())
+        with open(os.path.join(d, source + ".cu"), "w") as f:
             f.write(src)
-        so = os.path.join(d, "libmrf_stack.so")
-        cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, os.path.join(d, "mrf_stack.cu")]
+        so = os.path.join(d, f"lib{source}.so")
+        cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, os.path.join(d, source + ".cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), so)
     libs = {}
@@ -83,11 +96,13 @@ def build(named_sources):
             raise RuntimeError(f"{name}: nvcc failed\n{out[-4000:]}")
         report, kernel = [], None
         for line in out.splitlines():
-            m = re.search(r"mrf_pair_mmaILi(\d+)ELi(\d+)E", line)
+            m = re.search(r"mrf_pair_mmaILi(\d+)ELi(\d+)E|mrf_stage_streamed", line)
             if m and "entry function" in line:
-                kernel = f"<{m.group(1)}, {m.group(2)}>"
+                kernel = f"<{m.group(1)}, {m.group(2)}>" if m.group(1) else "streamed"
             elif kernel and ("Used" in line or "spill" in line):
                 report.append(f"{kernel} {line.split(':', 1)[-1].strip()}")
+            if "C7520" in line:   # ptxas serialized the wgmmas
+                report.append("wgmma serialized (C7520)")
         libs[name] = (ctypes.CDLL(so), report)
     return libs
 
@@ -198,14 +213,143 @@ __device__ long long g_stamps[1 << 17][8];
     cuda_build._loaded.pop("mrf_stack")
 
 
+STAGE = [(1, 8000), (4, 4096)]   # V1's C=256 stage in a B=1 request at bucket 1000, B=4 at 512
+STREAMED_PHASES = ("branch start and wait for the peers' conv2", "A build and all-gather",
+                   "conv1", "wait for the peers' conv1", "h epilogue and all-gather", "conv2",
+                   "epilogue")
+# per CTA: 0..6 the cycles of each phase summed over its k = 11 passes, 7 those passes, 8 and
+# 9 %globaltimer at its start and at its last pass's end, 10 the last clock
+STREAMED_STAMPS = """__device__ long long g_stamps[1 << 13][11];
+#define STAMP(i)                                                                    \\
+  if (threadIdx.x == 0) {                                                           \\
+    long long* s_ = g_stamps[(blockIdx.y * gridDim.x + blockIdx.x) & ((1 << 13) - 1)]; \\
+    const long long now_ = clock64();                                              \\
+    unsigned long long g_;                                                          \\
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));                          \\
+    if (i == 0 && pass == 0) {                                                      \\
+      for (int z_ = 0; z_ < 8; ++z_) s_[z_] = 0;                                    \\
+      s_[8] = (long long)g_;                                                        \\
+    } else if (k == 11) {                                                           \\
+      s_[i == 0 ? 0 : i - 1] += now_ - s_[10];                                      \\
+    }                                                                               \\
+    if (i == 7) {                                                                   \\
+      s_[7] += k == 11;                                                             \\
+      s_[9] = (long long)g_;                                                        \\
+    }                                                                               \\
+    s_[10] = now_;                                                                  \\
+  }
+"""
+STREAMED_PATCHES = {"batch": r"\bkBatch = \d+", "groups": r"\bkGroups = \d+", "wg": r"\bkWG = \d+", "mt": r"\bkMT = \d+", "kch": r"\bkKCH = \d+",
+                    "s": r"\bkS = \d+", "fly": r"\bkFly = \d+"}
+PER_ROW = "const int per_row = resident / B > 1 ? resident / B : 1;"
+
+
+def streamed_source(spec="", stamps=False):
+    """csrc/mrf_stack_streamed.cu patched by SPEC (`;`-separated): `wg:N`,
+    `mt:N` (consumer warpgroups and their 64-row tiles: rows per pass),
+    `kch:N`, `s:N` (the ring's K rows per stage and stages), `fly:N` (wgmma
+    groups in flight), `groups:N` (column groups per epilogue batch), `batch:N` (rows of y per
+    load batch building a tile),
+    `tiles:N` (N times the clusters of one wave, smaller tiles); with the
+    STAMP hooks defined where `stamps` is set."""
+    with open(os.path.join(CSRC, "mrf_stack_streamed.cu")) as f:
+        src = f.read()
+    for part in filter(None, spec.split(";")):
+        key, _, val = part.partition(":")
+        if key == "tiles":
+            n = src.count(PER_ROW)
+            src = src.replace(PER_ROW, f"const int per_row = {int(val)} * "
+                                       "(resident / B > 1 ? resident / B : 1);")
+        else:
+            pattern = STREAMED_PATCHES[key]
+            src, n = re.subn(pattern, pattern.replace(r"\d+", val).replace(r"\b", ""), src)
+        if n != 1:
+            raise ValueError(f"cannot apply {part!r}")
+    if stamps:
+        src = src.replace('#include "mrf_mma.cuh"\n', '#include "mrf_mma.cuh"\n' + STREAMED_STAMPS, 1)
+        src = src.replace('extern "C" {\n', 'extern "C" {\nint mrf_stack_streamed_stamps(long long* h, '
+                          'int n) { return (int)cudaMemcpyFromSymbol(h, g_stamps, (size_t)n * 88); }\n',
+                          1)
+    return src
+
+
+def stage_cases():
+    st = weights(256, (3, 7, 11))
+    cases = []
+    for B, T in STAGE:
+        x = torch.randn(B, T, 256, device="cuda", generator=torch.Generator("cuda").manual_seed(T))
+        cases.append((B, T, x, mrf.mrf_stack_plain(x, st)))
+    return st, cases
+
+
+def streamed_phases():
+    libs = build({"streamed": streamed_source(), "streamed-stamped": streamed_source(stamps=True)},
+                 "mrf_stack_streamed")
+    st, cases = stage_cases()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        for B, T, x, _ in cases:
+            cuda_build._loaded["mrf_stack_streamed"] = libs["streamed"][0]
+            ms = time_ms(lambda: mrf.mrf_stack_streamed(x, st))
+            lib = cuda_build._loaded["mrf_stack_streamed"] = libs["streamed-stamped"][0]
+            ms_stamped = time_ms(lambda: mrf.mrf_stack_streamed(x, st))
+            plan = mrf.streamed_plan(B, T)
+            n = B * plan["cluster"] * -(-T // plan["tile"])
+            h = np.zeros((n, 11), np.int64)
+            if lib.mrf_stack_streamed_stamps(h.ctypes.data_as(ctypes.c_void_p), n):
+                raise RuntimeError("reading the stamps failed")
+            per = h[:, :7].sum(axis=0) / h[:, 7].sum()
+            span = h[:, 9].max() - h[:, 8].min()
+            busy = (h[:, 9] - h[:, 8]).sum() / span / n_sm
+            print(f"B={B} T={T} (tile {plan['tile']}, {n} CTAs): {ms:.4f} ms as built, "
+                  f"{ms_stamped:.4f} ms stamped; cycles per CTA and k=11 pass "
+                  f"({h[:, 7].mean():.2f} passes a CTA): "
+                  + ", ".join(f"{nm} {c:.0f}" for nm, c in zip(STREAMED_PHASES, per))
+                  + f"; total {per.sum():.0f}; launch span {span / 1e3:.1f} us, CTAs busy per "
+                  f"SM {busy:.2f}", flush=True)
+    finally:
+        cuda_build._loaded.pop("mrf_stack_streamed", None)
+
+
+def streamed_variants(specs):
+    libs = build({name: streamed_source(spec) for name, spec in {"as-built": "", **specs}.items()},
+                 "mrf_stack_streamed")
+    for name, (_, report) in libs.items():
+        print(f"[{name}] {specs.get(name, 'as the source is')}: {'; '.join(report)}", flush=True)
+    st, cases = stage_cases()
+    try:
+        for rnd in range(2):
+            for name, (lib, _) in (libs.items() if rnd == 0 else reversed(libs.items())):
+                cuda_build._loaded["mrf_stack_streamed"] = lib
+                parts = []
+                for B, T, x, want in cases:
+                    got = mrf.mrf_stack_streamed(x, st)
+                    err = ((got - want).abs().max() / want.abs().max()).item()
+                    ms = time_ms(lambda: mrf.mrf_stack_streamed(x, st))
+                    plan = mrf.streamed_plan(B, T)
+                    share = mrf.streamed_flops(B, T) / (2 * 3 * 2 * 21 * 256 * 256 * B * T)
+                    parts.append(f"B={B} T={T} {ms:.4f} ms (tile {plan['tile']}, clusters of "
+                                 f"{plan['cluster']}, {plan['resident']} resident, recompute "
+                                 f"{share:.3f}, "
+                                 f"err {err:.1e})")
+                print(f"round {rnd} [{name}] " + "; ".join(parts), flush=True)
+    finally:
+        cuda_build._loaded.pop("mrf_stack_streamed", None)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("bench_torch_mrf: needs a CUDA device")
     mode, *rest = sys.argv[1:] or ["phases"]
+    torch.backends.cudnn.allow_tf32 = False
     if mode == "variants":
         variants(dict(a.split("=", 1) for a in rest))
     elif mode == "phases":
         phases()
+    elif mode == "streamed":
+        streamed_phases()
+        if rest:
+            streamed_variants(dict(a.split("=", 1) for a in rest))
     else:
         sys.exit(__doc__)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,11 +7,10 @@ fixture).  This file imports no JAX, so it also runs where JAX is absent:
         tests/test_torch_gpu_kernels.py
 
 TF32 is off for cuDNN convolutions and matmuls, so the plain versions run
-in full fp32.  Tolerance for the fp32 kernel (streamed MRF): max|kernel -
-plain| <= 1e-4 * max|plain| + 1e-5 (fp32 sums taken in another order).  The
-MRF kernel behind `mrf_stack` / `mrf_stack_folded` and the denoiser kernel
-compute with bf16 operands and fp32 accumulation, as the TPU kernels do;
-each is held against its plain version with the same bf16 weights (which
+in full fp32.  The MRF kernels (behind `mrf_stack` / `mrf_stack_folded`,
+and the whole-stage `mrf_stack_streamed`) and the denoiser kernel compute
+with bf16 operands and fp32 accumulation, as the TPU kernels do; each is
+held against its plain version with the same bf16 weights (which
 rounds where it rounds) at 4e-3 * max|plain| + 1e-5, one bf16 step of the
 largest value: the same products summed in another order, plus bf16
 rounding flips of an intermediate (the MRF's conv1 output, the denoiser's y
@@ -30,7 +29,7 @@ from mixgantts_tpu_torch.ops.denoiser_stack import (
 from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from mixgantts_tpu_torch.ops.mrf import (
     TAPS, kernel_weights, mrf_stack, mrf_stack_folded, mrf_stack_plain, mrf_stack_streamed,
-    tile_frames,
+    streamed_plan, tile_frames,
 )
 
 pytestmark = pytest.mark.gpu
@@ -203,18 +202,33 @@ def test_mrf_stack_folded_kernel_matches_plain(cuda, C, T):
     (2, 1000, (3, 7, 11)),   # ragged last tile, two batch rows
     (1, 37, (3, 7, 11)),     # shorter than one pass
     (1, 300, (11,)),         # one branch
-    (1, 8000, (3, 7, 11)),   # the main path's shapes: 64-frame tiles
-    (4, 4096, (3, 7, 11)),   # and 128-frame tiles
+    (1, 8000, (3, 7, 11)),   # the main path's shapes: 30 clusters of 267 frames
+    (4, 4096, (3, 7, 11)),   # and 28 of 586
 ])
 def test_mrf_stack_streamed_kernel_matches_plain(cuda, B, T, kernel_sizes):
     x = torch.randn(B, T, 256, device=cuda, generator=torch.Generator(
         cuda).manual_seed(B * T))
-    st = mrf_weights(256, kernel_sizes)
+    st = kernel_weights(mrf_weights(256, kernel_sizes), kernel_sizes)
     n0 = mrf_stack_streamed.launches
     got = mrf_stack_streamed(x, st, kernel_sizes)
     torch.cuda.synchronize()
     assert mrf_stack_streamed.launches == n0 + 1
-    assert_close(got, mrf_stack_plain(x, st, kernel_sizes))
+    assert_close(got, mrf_stack_plain(x, st, kernel_sizes), BF16_TOL)
+
+
+@pytest.mark.parametrize("B,T", [(1, 8000), (4, 4096)])
+def test_mrf_stack_streamed_fp32_weights_are_cast_and_runs_repeat(cuda, B, T):
+    """fp32 stacked weights run the same bf16 kernel (cast per call); each
+    CTA owns its rows and channels of the output and of the y slab, with no
+    atomics, so every run gives the same bits."""
+    x = torch.randn(B, T, 256, device=cuda, generator=torch.Generator(cuda).manual_seed(T))
+    st = mrf_weights(256, (3, 7, 11))
+    got = mrf_stack_streamed(x, st)
+    kw = kernel_weights(st)
+    for _ in range(2):
+        assert torch.equal(got, mrf_stack_streamed(x, kw))
+    plan = streamed_plan(B, T)   # every cluster resident at once
+    assert B * -(-T // plan["tile"]) <= plan["resident"]
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -244,12 +258,18 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         mrf_stack_streamed(torch.randn(1, 64, 128, device=cuda),
                            mrf_weights(128, (3,)), (3,))
     y = torch.randn(1, 64, 32, device=cuda)
-    for dtype in (torch.float16, torch.float64):   # the MRF kernel takes bf16 (or casts fp32)
+    wide = mrf_weights(256, (3,))
+    y256 = torch.randn(1, 64, 256, device=cuda)
+    for dtype in (torch.float16, torch.float64):   # the MRF kernels take bf16 (or cast fp32)
         with pytest.raises(ValueError, match="bfloat16"):
             mrf_stack(y, dict(st, w1=st["w1"].to(dtype), w2=st["w2"].to(dtype)), (3,))
-    with pytest.raises(ValueError, match="float32"):   # the streamed kernel takes fp32 only
-        mrf_stack_streamed(torch.randn(1, 64, 256, device=cuda),
-                           kernel_weights(mrf_weights(256, (3,)), (3,)), (3,))
+        with pytest.raises(ValueError, match="bfloat16"):
+            mrf_stack_streamed(y256, dict(wide, w1=wide["w1"].to(dtype),
+                                          w2=wide["w2"].to(dtype)), (3,))
+    for w in (wide, kernel_weights(wide, (3,))):
+        mrf_stack_streamed(y256, w, (3,))
+    with pytest.raises(ValueError, match="laid out for kernel sizes"):
+        mrf_stack_streamed(y256, kernel_weights(mrf_weights(256, (7,)), (7,)), (3,))
     with pytest.raises(ValueError, match="laid out for kernel sizes"):
         mrf_stack(y, kernel_weights(st, (3,)), (7,))
 

@@ -12,9 +12,10 @@ package's Pallas kernels, which run here in interpret mode:
   `mixgantts_tpu.ops.pallas_vocoder` at C = 256 (same tolerance), across
   tile seams, with T not a multiple of the tile, and at B = 2;
 - the bf16 arithmetic of the MRF stage (what the TPU kernels compute on
-  their chip, and the CUDA kernel on the card): `mrf_stack_plain`,
-  `mrf_stack` and `mrf_stack_folded` with bf16 stacked weights vs the
-  Pallas kernels in interpret mode with bf16 weights on a bf16-exact input.
+  their chip, and the CUDA kernels on the card): `mrf_stack_plain`,
+  `mrf_stack`, `mrf_stack_folded` and `mrf_stack_streamed` with bf16
+  stacked weights vs the Pallas kernels in interpret mode with bf16 weights
+  on a bf16-exact input.
   Tolerance: max|diff| <= 1e-3 * max|want| + 1e-5 and mean|diff| <= 5e-5 *
   max|want|.  Both sum the same bf16-exact products in fp32, in another
   order; where the two fp32 sums of a conv1 output straddle a bf16 rounding
@@ -196,6 +197,24 @@ def test_mrf_stack_bf16_matches_pallas_bf16(C, T, B, rks, tile):
         assert_bf16_close(fn(xt, weights, rks), want)
     with pytest.raises(AssertionError):   # the fp32 arithmetic is another result
         assert_bf16_close(tmrf.mrf_stack_plain(xt, as_torch(st), rks), want)
+
+
+@pytest.mark.parametrize("B,T,tile", [
+    (2, 100, 48),    # two seams, a ragged last tile, two batch rows
+    (1, 40, None),   # one tile
+])
+def test_mrf_stack_streamed_bf16_matches_pallas_bf16(B, T, tile):
+    C, rks = 256, (3, 7, 11)
+    x, params = mrf_case(C, T, B, rks, seed=T)
+    x = bf16_exact(x)
+    st = jvoc.stack_mrf_params(params, 0, rks)
+    want = jvoc.mrf_stack_streamed(x, with_bf16_weights(st), rks, tile=tile, interpret=True)
+    xt = torch.as_tensor(np.asarray(x))
+    got = tmrf.mrf_stack_streamed(xt, tmrf.kernel_weights(as_torch(st), rks), rks)
+    assert tmrf.mrf_stack_streamed.launches == 0   # the CPU runs the plain version
+    assert_bf16_close(got, want)
+    with pytest.raises(AssertionError):   # the fp32 arithmetic is another result
+        assert_bf16_close(tmrf.mrf_stack_streamed(xt, as_torch(st), rks), want)
 
 
 @pytest.mark.parametrize("fold,tile", [(2, None), (4, 32)])
