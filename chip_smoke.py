@@ -1,8 +1,9 @@
 """Smoke test and first measurement of the PyTorch/CUDA port on one NVIDIA
-H100: shallow-mode LJSpeech text -> wav through `mixgantts_tpu_torch`.
+H100: shallow-mode LJSpeech and AISHELL3 text -> wav through
+`mixgantts_tpu_torch`, in fp32 and bf16, with HiFi-GAN and MelGAN.
 
     python3 chip_smoke.py                  # needs one CUDA device
-    python3 chip_smoke.py --profile DIR    # also traces one request into DIR
+    python3 chip_smoke.py --profile DIR    # keeps the request traces in DIR
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -53,7 +54,29 @@ prints no result line):
 8. synthesize from raw text through the CLI (`cli.synthesize`, single and
    batch mode) in a temporary working directory, from a checkpoint of the
    phase-4 weights; the wavs must be int16 at 22050 Hz and mel_len * hop
-   long, and every kernel of that path must launch.
+   long, and every kernel of that path must launch;
+9. AISHELL3 multi-speaker shallow at full width (encoder 4, decoder 6,
+   hidden 256, denoiser 20x256, universal HiFi-GAN V1, 218 speakers,
+   random unit-norm 512-dim DeepSpeaker embeddings, random weights from
+   seed 0): a B=1 request with 62 phone slots (frame bucket 1000) and a
+   B=4 one with 32 (bucket 512) must launch the denoiser kernel 1 and 2
+   times and the MRF kernels as phase 4's requests (18 + 18); the denoiser
+   kernel with the speaker term in its conditioner projection against its
+   plain version at those shapes (the bf16 tolerance); a small request
+   against the CPU at phase 5's bars; latency;
+10. `tpu.compute_dtype: bfloat16` LJSpeech requests at phase 4's shapes
+   against the fp32 ones on the same weights and injected noise: equal
+   lengths, mel mean |diff| < 5% of max|mel| (the JAX package's bf16 bar),
+   the same launches, the bf16 HiFi-GAN against the fp32 one on the fp32
+   mel at SNR > 30 dB; latency; one traced B=1 request of each type, with
+   its cuDNN convolution time;
+11. one LJSpeech request vocoded by MelGAN (ngf 32, ratios 8/8/2/2, 80
+   mels, random weights from seed 0): its waveform against the CPU's MelGAN
+   on the same mel, max |diff| <= 1e-3 with TF32 off; latency; one traced
+   request;
+and the synthesis CLI from Chinese text (`--dataset AISHELL3 --mode single
+--text <hanzi> --speaker_id N`) over a temporary preprocessed directory, on
+phase 9's weights; every serving kernel must launch.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 phase 4, or phase 7 for `mrf_stack_streamed`; max error in phase 3 or 7;
@@ -68,6 +91,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -78,6 +102,11 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 DURATION_FRAMES = 8.0       # frames per phone the random duration predictor is biased to
 KERNELS = ("residual_stack_mma", "mrf_pair_mma", "mrf_stage_streamed")   # __global__ names
 STAGE_SHAPES = ((1, 8000), (4, 4096))   # V1's C=256 stage in a B=1 request at bucket 1000, B=4 at 512
+N_SPEAKERS = 218            # AISHELL3's speakers
+DEVICE = "cuda"             # the card every phase runs on
+# kernel launches of one request of the main path's shapes (B, frame bucket):
+# (denoiser, mrf_stack, mrf_stack_folded), as phase 4's requests launch them
+REQUEST_LAUNCHES = {(1, 1000): (1, 18, 18), (4, 512): (2, 18, 18)}
 
 
 def log(*args):
@@ -273,18 +302,19 @@ def sass_hgmma(library):
     return counts
 
 
-def build_serving(torch, device):
-    """The full LJSpeech shallow model and HiFi-GAN V1 on `device`, from
+def build_serving(torch, device, dataset="LJSpeech"):
+    """The full shallow model of a dataset's configs (AISHELL3: N_SPEAKERS
+    speakers, DeepSpeaker embeddings) and its HiFi-GAN V1 on `device`, from
     seeds, through the entry points a user calls."""
     from mixgantts_tpu_torch.config import NormStats, get_configs_of
     from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
     from mixgantts_tpu_torch.models.vocoder import get_vocoder
-    pre, cfg, _ = get_configs_of("LJSpeech")
+    pre, cfg, _ = get_configs_of(dataset)
     torch.manual_seed(0)
     model = MixGANTTS.from_configs(
         "shallow", pre, cfg,
         NormStats.default(pre["preprocessing"]["mel"]["n_mel_channels"]),
-        device=device)
+        n_speakers=N_SPEAKERS if cfg["multi_speaker"] else 1, device=device)
     with torch.no_grad():
         # random weights: durations of a realistic length, and a non-zero
         # denoiser output projection (the reference zero-inits it, which
@@ -514,17 +544,12 @@ def cli_phase(torch, pre, cfg, model):
     source.  Every wav must be int16 at the corpus's rate and mel_len * hop
     long, and every kernel of the path must launch (counts set to 0 just
     before, read just after)."""
-    import tempfile
-
     import numpy as np
     from scipy.io import wavfile
     from mixgantts_tpu_torch.cli.synthesize import cli
     from mixgantts_tpu_torch.frontend import preprocess_english
-    from mixgantts_tpu_torch.ops import denoiser_stack as den
-    from mixgantts_tpu_torch.ops import mrf
     from mixgantts_tpu_torch.text import sequence_to_text
-    counters = {"fused_residual_stack": den.fused_residual_stack,
-                "mrf_stack": mrf.mrf_stack, "mrf_stack_folded": mrf.mrf_stack_folded}
+    counters = kernel_counters()
     hop = pre["preprocessing"]["stft"]["hop_length"]
     sr = pre["preprocessing"]["audio"]["sampling_rate"]
     text = "Dr. Smith read 3 zorblatt pages to the class, didn't he?"
@@ -584,11 +609,8 @@ def cli_phase(torch, pre, cfg, model):
 
 def serve(torch, pre, cfg, model, vocoder, records):
     """Phase 4: the main path through `TTSPipeline`, with launch counts."""
-    from mixgantts_tpu_torch.ops import denoiser_stack as den
-    from mixgantts_tpu_torch.ops import mrf
     from mixgantts_tpu_torch.pipeline import TTSPipeline
-    counters = {"fused_residual_stack": den.fused_residual_stack,
-                "mrf_stack": mrf.mrf_stack, "mrf_stack_folded": mrf.mrf_stack_folded}
+    counters = kernel_counters()
     hop = pre["preprocessing"]["stft"]["hop_length"]
     pipe = TTSPipeline(model, vocoder, pre, cfg)
     one = text_batch(1, 64, 24, seed=0)
@@ -625,22 +647,23 @@ def np_isfinite(a):
     return bool(np.isfinite(a).all())
 
 
-def cpu_reference(torch, pre, cfg, model, vocoder):
-    """Phase 5: one small request on the GPU (kernels) and on the CPU
-    (plain versions), same weights and injected noise: the CPU once with
-    its denoiser stack and MRF weights in bf16 (the GPU's arithmetic), once
-    in fp32."""
+def cpu_reference(torch, pre, cfg, model, vocoder, label="reference"):
+    """Phase 5 (and 9): one small request on the GPU (kernels) and on the
+    CPU (plain versions), same weights and injected noise (and, for a
+    multi-speaker model, speaker embedding): the CPU once with its denoiser
+    stack and MRF weights in bf16 (the GPU's arithmetic), once in fp32."""
     import numpy as np
     from mixgantts_tpu_torch.config import NormStats
     from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
     from mixgantts_tpu_torch.models.vocoder import get_vocoder
     from mixgantts_tpu_torch.pipeline import TTSPipeline
     cpu_model = MixGANTTS.from_configs(
-        "shallow", pre, cfg, NormStats.default(model.n_mels), device="cpu")
+        "shallow", pre, cfg, NormStats.default(model.n_mels),
+        n_speakers=N_SPEAKERS if cfg["multi_speaker"] else 1, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     cpu_voc = get_vocoder(cfg, device="cpu")
     cpu_voc.generator.load_state_dict(vocoder.generator.state_dict())
-    batch = text_batch(1, 8, 4, seed=2)
+    batch = with_speakers(text_batch(1, 8, 4, seed=2), cfg, seed=2)
     T, M = 128, model.n_mels           # the frame bucket of 8 phone slots
     r = np.random.RandomState(3)
     noise = {"start_noise": r.randn(1, T, M).astype(np.float32),
@@ -663,7 +686,7 @@ def cpu_reference(torch, pre, cfg, model, vocoder):
     lsb = int(np.abs(g - b).max())
     snr = 10 * math.log10((f ** 2).mean() / max(((f - g) ** 2).mean(), 1e-12))
     snr_bf16 = 10 * math.log10((b ** 2).mean() / max(((b - g) ** 2).mean(), 1e-12))
-    log(f"[reference] GPU vs CPU, mel_len {int(gl[0])}: against the CPU with bf16 denoiser "
+    log(f"[{label}] GPU vs CPU, mel_len {int(gl[0])}: against the CPU with bf16 denoiser "
         f"and MRF weights: mel mean|diff| {mae:.3e} (max|mel| {float(np.abs(bm).max()):.3f}), "
         f"waveform int16 max|diff| {lsb} LSB, SNR {snr_bf16:.1f} dB; against the CPU's fp32 "
         f"path: mel mean|diff| / max|mel| {mel_rel:.3e}, SNR {snr:.1f} dB (int16 max|diff| "
@@ -673,11 +696,14 @@ def cpu_reference(torch, pre, cfg, model, vocoder):
         raise AssertionError("GPU path disagrees with the CPU reference")
 
 
-def latency(torch, pipe, pre, one, four):
-    """Phase 6b: request latency (host clock, ending in collect's copy to
-    the host) and real-time factor = latency / audio seconds."""
+def latency(torch, pipe, pre, one, four, tag="latency"):
+    """Phase 6b (and 9-11): request latency (host clock, ending in
+    collect's copy to the host) and real-time factor = latency / audio
+    seconds."""
     sr = pre["preprocessing"]["audio"]["sampling_rate"]
     for label, batch, reps in (("B=1 bucket 1000", one, 10), ("B=4 bucket 512", four, 10)):
+        if batch is None:
+            continue
         pipe(batch)
         times, audio = [], 0.0
         for _ in range(reps):
@@ -686,22 +712,22 @@ def latency(torch, pipe, pre, one, four):
             times.append(time.perf_counter() - t0)
             audio = sum(len(w) for w in wavs) / sr
         med = statistics.median(times)
-        log(f"[latency] {label}: median {1e3 * med:.2f} ms (min {1e3 * min(times):.2f}, "
+        log(f"[{tag}] {label}: median {1e3 * med:.2f} ms (min {1e3 * min(times):.2f}, "
             f"max {1e3 * max(times):.2f}) over {reps}; audio {audio:.3f} s; RTF {med / audio:.5f}")
 
 
-def profile_request(torch, pipe, one, out_dir):
-    """One traced B=1 request: kernel time by name and the device's busy
-    share of the wall time, from the chrome trace."""
+def trace_request(torch, pipe, batch, path, tag="profile", top=15):
+    """One traced request (after one untraced): kernel time by name and the
+    device's busy share of the wall time, from the chrome trace at `path`.
+    Returns {kernel name: device us}."""
     from torch.profiler import ProfilerActivity, profile
-    os.makedirs(out_dir, exist_ok=True)
-    pipe(one)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    pipe(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(one, return_mel=False)
+        pipe(batch, return_mel=False)
         wall = time.perf_counter() - t0
-    path = os.path.join(out_dir, "request_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)
@@ -715,16 +741,246 @@ def profile_request(torch, pipe, one, out_dir):
     for s, e in spans:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-    log(f"[profile] wall {1e3 * wall:.2f} ms, {len(kernels)} kernels, device busy "
+    log(f"[{tag}] wall {1e3 * wall:.2f} ms, {len(kernels)} kernels, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / 1e6 / wall:.1f}% of wall), trace {path}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us / 1e3:9.3f} ms  {name[:110]}")
+    return by_name
+
+
+def profile_request(torch, pipe, one, out_dir):
+    """One traced B=1 request (`--profile`)."""
+    trace_request(torch, pipe, one, os.path.join(out_dir, "request_trace.json"))
+
+
+def kernel_counters():
+    from mixgantts_tpu_torch.ops import denoiser_stack as den
+    from mixgantts_tpu_torch.ops import mrf
+    return {"fused_residual_stack": den.fused_residual_stack,
+            "mrf_stack": mrf.mrf_stack, "mrf_stack_folded": mrf.mrf_stack_folded}
+
+
+def counted(torch, fn):
+    """fn()'s result and the serving kernels' launches during it (counts
+    set to 0 just before, read just after a synchronisation)."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    sync(torch)
+    return out, tuple(c.launches for c in counters.values())
+
+
+def with_speakers(batch, cfg, seed):
+    """A multi-speaker model's batch gets speaker ids and unit-norm random
+    DeepSpeaker-sized embeddings [B, external_speaker_dim] from `seed`."""
+    import numpy as np
+    if not cfg["multi_speaker"]:
+        return batch
+    r = np.random.RandomState(seed)
+    B = len(batch["texts"])
+    emb = r.randn(B, cfg["external_speaker_dim"]).astype(np.float32)
+    return dict(batch, speakers=r.randint(0, N_SPEAKERS, B),
+                spker_embeds=emb / np.linalg.norm(emb, axis=1, keepdims=True))
+
+
+def check_request_launches(label, shape, launches):
+    want = REQUEST_LAUNCHES[shape]
+    log(f"  {label} B={shape[0]} bucket {shape[1]}: launches (denoiser, mrf_stack, "
+        f"mrf_stack_folded) {launches}, want {want}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} at {shape}, want {want}")
+
+
+def aishell3_phase(torch, records):
+    """Phase 9: AISHELL3 multi-speaker shallow at full width (DeepSpeaker
+    embeddings, N_SPEAKERS speakers, universal HiFi-GAN V1, random weights
+    from seed 0) through `TTSPipeline`: launch counts per request, the
+    denoiser kernel with the speaker term against its plain version at the
+    requests' shapes, a small request against the CPU (phase 5's bars), and
+    latency.  Returns (pre, cfg, model) for the Mandarin CLI."""
+    from mixgantts_tpu_torch.ops import denoiser_stack as den
+    from mixgantts_tpu_torch.pipeline import TTSPipeline
+    pre, cfg, model, vocoder = build_serving(torch, DEVICE, "AISHELL3")
+    log(f"[aishell3] speaker embedding {model.speaker_emb} ({model.embedder_type}); "
+        f"max_seq_len {cfg['max_seq_len']}, vocoder {cfg['vocoder']}")
+    pipe = TTSPipeline(model, vocoder, pre, cfg)
+    one = with_speakers(text_batch(1, 62, 24, seed=3), cfg, seed=3)
+    four = with_speakers(text_batch(4, 32, 12, seed=4), cfg, seed=4)
+    for batch in (one, four):
+        (wavs, mel, lens), launches = counted(torch, lambda: pipe(batch))
+        check_request_launches("AISHELL3", (len(lens), mel.shape[1]), launches)
+        if not np_isfinite(mel) or any(len(w) != int(n) * 256 or n <= 0 for w, n in zip(wavs, lens)):
+            raise AssertionError(f"AISHELL3 request: bad output, lengths {lens}")
+        log(f"  mel lengths {lens.tolist()}")
+    dev = torch.device(DEVICE)
+    stacked = model.diffusion.denoise_fn.stacked()
+    g = torch.Generator(dev).manual_seed(9)
+    with torch.no_grad():
+        for batch, T in ((one, 1000), (four, 512)):
+            B = len(batch["texts"])
+            spk = model.speaker_embedding(None, torch.as_tensor(batch["spker_embeds"], device=dev))
+            spk_proj = den.speaker_projections(spk, stacked)
+            x = torch.randn(B, T, 256, device=dev, generator=g)
+            cond = torch.randn(B, T, 256, device=dev, generator=g)
+            step = torch.randn(B, 256, device=dev, generator=g)
+            got = den.fused_residual_stack(x, cond, step, stacked, spk_proj)
+            want = den.fused_residual_stack_plain(x, cond, step, stacked, spk_proj)
+            sync(torch)
+            for part, a, b in zip(("x", "skip"), got, want):
+                check_close(f"fused_residual_stack with the speaker term B={B} T={T} {part} (bf16)",
+                            a, b, BF16_TOL)
+            ms = time_ms(lambda: den.fused_residual_stack(x, cond, step, stacked, spk_proj), 20)
+            log(f"  fused_residual_stack with the speaker term B={B} T={T}: {ms:.4f} ms "
+                f"(without it: {records['fused_residual_stack'].get('ms', float('nan')):.4f} ms at "
+                f"B=1, T=1000 in phase 6)")
+    cpu_reference(torch, pre, cfg, model, vocoder, label="aishell3")
+    latency(torch, pipe, pre, one, four, tag="aishell3 latency")
+    return pre, cfg, model
+
+
+def bf16_phase(torch, pre, cfg, model, vocoder, out_dir):
+    """Phase 10: `tpu.compute_dtype: bfloat16` LJSpeech requests at phase
+    4's shapes, against the fp32 pipeline on the bf16 copy's weight values
+    and the same injected noise: equal lengths and mel mean |diff| < 5% of
+    max|mel| (the JAX package's bar), the same launches, the bf16 HiFi-GAN
+    against the fp32 one on the fp32 mel at SNR > 30 dB, latency, and one
+    traced B=1 request of each type (device time of cuDNN's convolutions).
+    (The fp32 reference takes the bf16-rounded weights because rounding
+    random weights moves the predicted durations: a pitch or energy
+    prediction that crosses a bin edge picks another embedding row.)"""
+    import copy
+
+    import numpy as np
+    from mixgantts_tpu_torch.pipeline import TTSPipeline, cast_parameters
+    cfg16 = copy.deepcopy(cfg)
+    cfg16["tpu"]["compute_dtype"] = "bfloat16"
+    rounded = cast_parameters(model, torch.bfloat16, rounded=("",))
+    pipe32 = TTSPipeline(rounded, vocoder, pre, cfg, mel_dtype=torch.float32)
+    pipe16 = TTSPipeline(model, vocoder, pre, cfg16, mel_dtype=torch.float32)
+    one = text_batch(1, 64, 24, seed=0)
+    four = text_batch(4, 32, 12, seed=1)
+    r = np.random.RandomState(10)
+    for batch, T in ((one, 1000), (four, 512)):
+        B = len(batch["texts"])
+        noise = {"start_noise": r.randn(B, T, 80).astype(np.float32),
+                 "step_noises": r.randn(1, B, T, 80).astype(np.float32)}
+        (w16, m16, l16), n16 = counted(torch, lambda: pipe16(batch, noise_override=noise))
+        (w32, m32, l32), n32 = counted(torch, lambda: pipe32(batch, noise_override=noise))
+        check_request_launches("bf16", (B, T), n16)
+        check_request_launches("fp32", (B, T), n32)
+        rel = float(np.abs(m16 - m32).mean() / np.abs(m32).max())
+        with torch.no_grad():
+            mel = torch.as_tensor(m32, device=DEVICE)
+            ref = vocoder(mel).double()
+            low = pipe16.vocoder(mel).double()
+        snr = 10 * math.log10((ref ** 2).mean().item() / max(((ref - low) ** 2).mean().item(), 1e-12))
+        log(f"  bf16 against fp32 B={B} T={T}: mel lengths {l16.tolist()} / {l32.tolist()}, mel "
+            f"mean|diff| / max|mel| {rel:.3e}; HiFi-GAN bf16 against fp32 on the fp32 mel: SNR "
+            f"{snr:.1f} dB")
+        if list(l16) != list(l32) or rel >= 0.05 or snr <= 30:
+            raise AssertionError("the bf16 request disagrees with the fp32 one")
+    latency(torch, pipe16, pre, one, four, tag="bf16 latency")
+    for tag, pipe in (("fp32", pipe32), ("bf16", pipe16)):
+        by_name = trace_request(torch, pipe, one, os.path.join(out_dir, f"{tag}_request_trace.json"),
+                                tag=f"{tag} trace", top=8)
+        conv = {k: v for k, v in by_name.items()
+                if any(s in k.lower() for s in ("conv", "fprop", "dgrad", "cudnn", "xmma"))}
+        dgrad = sum(v for k, v in conv.items() if "dgrad" in k.lower())
+        log(f"  {tag} request, cuDNN convolution kernels: {sum(conv.values()) / 1e3:.3f} ms "
+            f"in {len(conv)} kernel names, of which dgrad (transposed convolution) "
+            f"{dgrad / 1e3:.3f} ms:")
+        for name, us in sorted(conv.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"    {us / 1e3:9.3f} ms  {name[:110]}")
+
+
+def melgan_phase(torch, pre, cfg, model, out_dir):
+    """Phase 11: one LJSpeech request vocoded by MelGAN (ngf 32, ratios
+    8/8/2/2, 80 mels, random weights from seed 0): its waveform against the
+    CPU's MelGAN on the request's mel (max |diff| <= 1e-3, TF32 off), the
+    denoiser's launch, latency, and one traced request."""
+    import copy
+
+    import numpy as np
+    from mixgantts_tpu_torch.models.vocoder import get_vocoder
+    from mixgantts_tpu_torch.pipeline import TTSPipeline
+    mcfg = copy.deepcopy(cfg)
+    mcfg["vocoder"] = {"model": "MelGAN", "speaker": "universal"}
+    voc = get_vocoder(mcfg, device=DEVICE, seed=0)
+    cpu_voc = get_vocoder(mcfg, device="cpu", seed=0)
+    pipe = TTSPipeline(model, voc, pre, mcfg, mel_dtype=torch.float32)
+    one = text_batch(1, 64, 24, seed=0)
+    (wavs, mel, lens), launches = counted(torch, lambda: pipe(one))
+    if launches[0] != 1 or any(launches[1:]):
+        raise AssertionError(f"MelGAN request launches {launches}: want the denoiser's 1, no MRF")
+    if len(wavs[0]) != int(lens[0]) * 256:
+        raise AssertionError("MelGAN request: bad waveform length")
+    with torch.no_grad():
+        got = voc(torch.as_tensor(mel, device=DEVICE)).cpu().double()
+        want = cpu_voc(torch.as_tensor(mel)).double()
+    err = (got - want).abs().max().item()
+    log(f"[melgan] mel length {int(lens[0])}, {len(wavs[0])} samples; GPU against CPU "
+        f"waveform max|diff| {err:.3e} (allowed 1e-3), rms {want.pow(2).mean().sqrt().item():.3f}")
+    if err > 1e-3:
+        raise AssertionError("MelGAN on the GPU disagrees with the CPU")
+    latency(torch, pipe, pre, one, None, tag="melgan latency")
+    trace_request(torch, pipe, one, os.path.join(out_dir, "melgan_request_trace.json"),
+                  tag="melgan trace", top=10)
+
+
+def mandarin_cli_phase(torch, pre, cfg, model):
+    """The synthesis CLI from Chinese text: `--dataset AISHELL3 --mode
+    single --text <hanzi> --speaker_id N` in a temporary working directory
+    with phase 9's generator as `output/ckpt/AISHELL3_shallow/200000.pth.tar`,
+    `speakers.json` of N_SPEAKERS numeric ids, the speaker's
+    `spker_embed/{id}-spker_embed.npy` and a small pinyin lexicon; the wav
+    must be int16 at the corpus's rate and mel_len * hop long, and every
+    serving kernel must launch."""
+    import numpy as np
+    from scipy.io import wavfile
+    from mixgantts_tpu_torch.cli.synthesize import cli
+    hop = pre["preprocessing"]["stft"]["hop_length"]
+    sr = pre["preprocessing"]["audio"]["sampling_rate"]
+    text = "你好，欢迎使用语音合成系统。今天天气很好！"
+    speaker_id = 1005
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as ws:
+        os.chdir(ws)
+        try:
+            os.makedirs("output/ckpt/AISHELL3_shallow")
+            torch.save({"G": {k: v.cpu() for k, v in model.state_dict().items()}},
+                       "output/ckpt/AISHELL3_shallow/200000.pth.tar")
+            os.makedirs(os.path.dirname(pre["path"]["lexicon_path"]))
+            with open(pre["path"]["lexicon_path"], "w") as f:
+                f.write("ni3 n i3\nhao3 h ao3\nhuan1 h uan1\n")
+            pp = pre["path"]["preprocessed_path"]
+            os.makedirs(os.path.join(pp, "spker_embed"))
+            with open(os.path.join(pp, "speakers.json"), "w") as f:
+                json.dump({str(1000 + i): i for i in range(N_SPEAKERS)}, f)
+            emb = np.random.RandomState(12).randn(1, cfg["external_speaker_dim"]).astype(np.float32)
+            np.save(os.path.join(pp, "spker_embed", f"{speaker_id}-spker_embed.npy"),
+                    emb / np.linalg.norm(emb))
+            argv = ["--restore_step", "200000", "--model", "shallow", "--dataset", "AISHELL3",
+                    "--mode", "single", "--text", text, "--speaker_id", str(speaker_id)]
+            t0 = time.perf_counter()
+            written, launches = counted(torch, lambda: cli(argv))
+            t_single = time.perf_counter() - t0
+            (path, mel_len), = written
+            rate, wav = wavfile.read(path)
+        finally:
+            os.chdir(cwd)
+    log(f"[cli zh] wrote {os.path.basename(path)}: {rate} Hz, {wav.dtype}, {len(wav)} samples, "
+        f"mel_len {mel_len}; launches {launches}; {t_single:.3f} s wall for the whole cli() call")
+    if rate != sr or wav.dtype != np.int16 or mel_len <= 0 or len(wav) != mel_len * hop:
+        raise AssertionError("the Mandarin CLI wrote a bad wav")
+    if not all(launches):
+        raise AssertionError(f"a serving kernel was not launched on the Mandarin CLI path: {launches}")
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also trace one B=1 request into DIR")
+                        help="also trace one B=1 request into DIR, and keep phases 10-11's traces there")
     args = parser.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -769,6 +1025,15 @@ def main():
     c256_stage(torch, vocoder, records)                           # phase 7
     log("[cli] raw text -> wav files through the synthesis CLI")
     cli_phase(torch, pre, cfg, model)                             # phase 8
+    log("[aishell3] AISHELL3 multi-speaker shallow at full width, DeepSpeaker embeddings")
+    zh = aishell3_phase(torch, records)                           # phase 9
+    log("[bf16] tpu.compute_dtype bfloat16: LJSpeech requests against fp32")
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_phase(torch, pre, cfg, model, vocoder, args.profile or tmp)   # phase 10
+        log("[melgan] one LJSpeech request vocoded by MelGAN")
+        melgan_phase(torch, pre, cfg, model, args.profile or tmp)          # phase 11
+    log("[cli zh] Chinese text -> wav through the synthesis CLI, AISHELL3")
+    mandarin_cli_phase(torch, *zh)
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

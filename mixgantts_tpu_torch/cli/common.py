@@ -6,6 +6,7 @@ suffix `_naive` or `_shallow` (aux and shallow share), result directories
 the exact model name, each with an optional extra path tag.
 """
 
+import json
 import os
 
 import torch
@@ -33,14 +34,25 @@ def load_configs(args):
     return preprocess_config, model_config, train_config
 
 
+def n_speakers_of(preprocess_config, model_config):
+    """Speakers of the corpus (`speakers.json`); 1 for a single-speaker model."""
+    if not model_config["multi_speaker"]:
+        return 1
+    path = os.path.join(preprocess_config["path"]["preprocessed_path"], "speakers.json")
+    with open(path) as f:
+        return len(json.load(f))
+
+
 def build_model(mode, preprocess_config, model_config, device=None):
     """The generator of a mode, with the corpus's stats.json (placeholder
-    stats where there is none), on `device` (default cuda)."""
+    stats where there is none) and speaker count, on `device` (default
+    cuda)."""
     stats = NormStats.load_or_default(
         preprocess_config["path"]["preprocessed_path"],
         n_mels=preprocess_config["preprocessing"]["mel"]["n_mel_channels"])
-    model = MixGANTTS.from_configs(mode, preprocess_config, model_config, stats,
-                                   device=device)
+    model = MixGANTTS.from_configs(
+        mode, preprocess_config, model_config, stats,
+        n_speakers=n_speakers_of(preprocess_config, model_config), device=device)
     return model, stats
 
 

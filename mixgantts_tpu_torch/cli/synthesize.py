@@ -44,17 +44,21 @@ def synthesize(model, args, configs, vocoder, batches, control_values):
 
 
 def build_single_batch(args, preprocess_config, model_config):
+    """The batch of `--text`: its phone ids and word boundaries, the index
+    of `--speaker_id` in speakers.json for a multi-speaker model, and that
+    speaker's `spker_embed/{speaker_id}-spker_embed.npy` for one with an
+    external speaker embedder."""
     ids = raw_texts = [args.text[:100]]
+    pp = preprocess_config["path"]["preprocessed_path"]
     if model_config["multi_speaker"]:
-        with open(os.path.join(preprocess_config["path"]["preprocessed_path"],
-                               "speakers.json")) as f:
+        with open(os.path.join(pp, "speakers.json")) as f:
             speakers = np.array([json.load(f)[str(args.speaker_id)]])
     else:
         speakers = np.array([0])
     lang = preprocess_config["preprocessing"]["text"]["language"]
     fn = preprocess_english if lang == "en" else preprocess_mandarin
     texts, word_boundaries = fn(args.text, preprocess_config)
-    return {
+    batch = {
         "ids": ids,
         "raw_texts": raw_texts,
         "speakers": speakers,
@@ -63,6 +67,11 @@ def build_single_batch(args, preprocess_config, model_config):
         "word_boundaries": word_boundaries[None].astype(np.int64),
         "src_w_lens": np.array([len(word_boundaries)]),
     }
+    if (model_config["multi_speaker"]
+            and preprocess_config["preprocessing"].get("speaker_embedder", "none") != "none"):
+        batch["spker_embeds"] = np.load(os.path.join(
+            pp, "spker_embed", f"{args.speaker_id}-spker_embed.npy")).reshape(1, -1).astype(np.float32)
+    return batch
 
 
 def build_argparser():

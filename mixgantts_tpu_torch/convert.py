@@ -5,12 +5,20 @@ of numpy arrays.
 - `generator_state_dict`: the exact inverse of
   `mixgantts_tpu/convert.py::convert_generator`, in the original MixGAN-TTS
   torch key layout that the port's `MixGANTTS` module tree has.
+  A multi-speaker tree's speaker table (`speaker_emb`) or external-
+  embedding projection (`speaker_proj`) both map to the reference's one key
+  `speaker_emb` (the projection has a bias), and each residual block's
+  `speaker_projection` to `...residual_layers.{i}.speaker_projection.linear`.
 - `hifigan_state_dict`: the inverse of
   `mixgantts_tpu/models/hifigan.py::convert_torch_generator`, with plain
   `.weight`s (weight norm already folded).
-Both load into the port's modules with `load_state_dict(strict=True)`.
+- `melgan_state_dict`: the inverse of
+  `mixgantts_tpu/models/melgan.py::convert_torch_melgan`, in the
+  descript/melgan-neurips key layout (`model.N.*`, weight norm folded).
+All three load into the port's modules with `load_state_dict(strict=True)`.
 - `load_reference_generator`: the "G" of a reference `.pth.tar` (what
-  `mixgantts_tpu/export.py` writes) into the port's `MixGANTTS`.
+  `mixgantts_tpu/export.py` writes, single- or multi-speaker) into the
+  port's `MixGANTTS`.
 
 Layout rules:
 - flax conv kernel [k, in, out]          -> torch Conv1d .weight [out, in, k]
@@ -122,7 +130,8 @@ def _denoiser(p, out):
     for i in range(_n(p, "res_{}")):
         rp, rpre = p[f"res_{i}"], f"{pre}.residual_layers.{i}"
         if "speaker_projection" in rp:
-            raise NotImplementedError("the speaker projection is not ported yet")
+            _linear(rp["speaker_projection"]["linear"],
+                    f"{rpre}.speaker_projection.linear", out)
         _conv(rp["conv_layer"]["conv"], f"{rpre}.conv_layer.conv", out)
         _linear(rp["diffusion_projection"]["linear"],
                 f"{rpre}.diffusion_projection.linear", out)
@@ -134,10 +143,13 @@ def _denoiser(p, out):
 def generator_state_dict(params, batch_stats):
     """JAX MixGANTTS (params, batch_stats) -> the port's MixGANTTS
     state_dict.  The mode follows the tree: decoder, mel_linear and postnet
-    exist for aux and shallow only."""
-    if "speaker_emb" in params or "speaker_proj" in params:
-        raise NotImplementedError("multi-speaker models are not ported yet")
+    exist for aux and shallow only, the speaker keys for multi-speaker
+    models only."""
     out = {}
+    if "speaker_emb" in params:
+        out["speaker_emb.weight"] = _t(params["speaker_emb"]["embedding"])
+    elif "speaker_proj" in params:
+        _linear(params["speaker_proj"], "speaker_emb", out)
     _linguistic_encoder(params["linguistic_encoder"], out)
     _denoiser(params["denoiser"], out)
     if "decoder" in params:
@@ -165,6 +177,29 @@ def hifigan_state_dict(params):
                 base = f"resblocks.{i * n_k + j}"
                 _conv(block[f"convs1_{c}"], f"{base}.convs1.{c}", out)
                 _conv(block[f"convs2_{c}"], f"{base}.convs2.{c}", out)
+    return out
+
+
+def melgan_state_dict(params):
+    """JAX MelGANGenerator params -> the port's MelGANGenerator state_dict,
+    the descript layout of one `nn.Sequential`: conv_in at `model.1`, per
+    ratio a leaky_relu, the transposed conv and the residual blocks
+    (`block.2`, `block.4`, `shortcut`), then leaky_relu, reflection pad and
+    conv_out."""
+    out = {}
+    _conv(params["conv_in"], "model.1", out)
+    idx = 2
+    for i in range(_n(params, "ups_{}")):
+        idx += 1                                    # leaky_relu
+        _conv(params[f"ups_{i}"], f"model.{idx}", out)   # [k, out, in] -> [in, out, k]
+        idx += 1
+        for j in range(_n(params, f"res_{i}_{{}}")):
+            block = params[f"res_{i}_{j}"]
+            _conv(block["block_conv"], f"model.{idx}.block.2", out)
+            _conv(block["block_out"], f"model.{idx}.block.4", out)
+            _conv(block["shortcut"], f"model.{idx}.shortcut", out)
+            idx += 1
+    _conv(params["conv_out"], f"model.{idx + 2}", out)   # after leaky_relu, pad
     return out
 
 

@@ -2,9 +2,11 @@
 only): a source file of metadata lines "basename|speaker|{phones}|raw_text",
 with each utterance's phones per word in
 `preprocessed_path/phones_per_word/{speaker}-phones_per_word-{basename}.npy`
-and the speaker ids in `preprocessed_path/speakers.json`.  Batches are
-padded to the bucketed lengths of model.yaml's `tpu.phone_buckets`, as in
-the JAX package.
+and the speaker ids in `preprocessed_path/speakers.json`.  A multi-speaker
+model with an external speaker embedder also reads each speaker's embedding,
+`preprocessed_path/spker_embed/{speaker}-spker_embed.npy`, into the batch's
+`spker_embeds` [B, D].  Batches are padded to the bucketed lengths of
+model.yaml's `tpu.phone_buckets`, as in the JAX package.
 """
 
 import json
@@ -23,8 +25,8 @@ class TextOnlyDataset:
         pp = preprocess_config["preprocessing"]
         self.cleaners = pp["text"]["text_cleaners"]
         self.preprocessed_path = preprocess_config["path"]["preprocessed_path"]
-        if model_config["multi_speaker"] and pp.get("speaker_embedder", "none") != "none":
-            raise NotImplementedError("external speaker embeddings are not ported yet")
+        self.load_spker_embed = (model_config["multi_speaker"]
+                                 and pp.get("speaker_embedder", "none") != "none")
         self.phone_buckets = tuple(model_config.get("tpu", {}).get("phone_buckets", ()))
 
         self.basename, self.speaker, self.text, self.raw_text = [], [], [], []
@@ -45,7 +47,7 @@ class TextOnlyDataset:
 
     def __getitem__(self, idx):
         speaker = self.speaker[idx]
-        return {
+        item = {
             "id": self.basename[idx],
             "speaker": self.speaker_map[speaker],
             "raw_text": self.raw_text[idx],
@@ -54,13 +56,17 @@ class TextOnlyDataset:
                 self.preprocessed_path, "phones_per_word",
                 f"{speaker}-phones_per_word-{self.basename[idx]}.npy")),
         }
+        if self.load_spker_embed:
+            item["spker_embed"] = np.load(os.path.join(
+                self.preprocessed_path, "spker_embed", f"{speaker}-spker_embed.npy"))
+        return item
 
     def collate(self, items):
         text_lens = np.array([len(d["text"]) for d in items])
         word_lens = np.array([len(d["word_boundary"]) for d in items])
         P = bucket_length(int(text_lens.max()), self.phone_buckets)
         W = bucket_length(int(word_lens.max()), self.phone_buckets)
-        return {
+        batch = {
             "ids": [d["id"] for d in items],
             "raw_texts": [d["raw_text"] for d in items],
             "speakers": np.array([d["speaker"] for d in items]),
@@ -69,6 +75,10 @@ class TextOnlyDataset:
             "word_boundaries": pad_1d([d["word_boundary"] for d in items], W),
             "src_w_lens": word_lens,
         }
+        if self.load_spker_embed:
+            batch["spker_embeds"] = np.stack(
+                [np.asarray(d["spker_embed"]).reshape(-1) for d in items]).astype(np.float32)
+        return batch
 
     def batches(self, batch_size=8):
         for i in range(0, len(self), batch_size):

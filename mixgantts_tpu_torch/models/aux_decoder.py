@@ -76,7 +76,8 @@ class Decoder(nn.Module):
             persistent=False)
 
     def forward(self, x, mask):
-        x = x + self.position_enc[None, :x.shape[1]]
+        """x [B, T, hidden] -> [B, T, hidden] in the parameters' type."""
+        x = (x + self.position_enc[None, :x.shape[1]]).to(self.layer_stack[0].slf_attn.fc.weight.dtype)
         attn_mask = mask[:, None, :] & mask[:, :, None]
         for layer in self.layer_stack:
             x = layer(x, mask, attn_mask)
@@ -85,7 +86,8 @@ class Decoder(nn.Module):
 
 class PostNet(nn.Module):
     """Tacotron2 PostNet: five k = 5 convs with BatchNorm, tanh on all but
-    the last.  BatchNorm always uses its running statistics (inference).
+    the last.  BatchNorm always uses its running statistics (inference),
+    kept in fp32 whatever the parameters' type, and normalises in fp32.
     Returns the residual correction; the caller adds it."""
 
     def __init__(self, n_mels=80, embedding_dim=512, kernel_size=5, n_convs=5):
@@ -99,8 +101,9 @@ class PostNet(nn.Module):
     def forward(self, x):
         x = x.transpose(1, 2)
         for i, (conv, bn) in enumerate(self.convolutions):
-            x = F.batch_norm(conv.conv(x), bn.running_mean, bn.running_var,
-                             bn.weight, bn.bias, training=False, eps=bn.eps)
+            y = conv.conv(x.to(bn.weight.dtype))
+            x = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight.float(),
+                             bn.bias.float(), training=False, eps=bn.eps).to(y.dtype)
             if i < len(self.convolutions) - 1:
                 x = torch.tanh(x)
         return x.transpose(1, 2)

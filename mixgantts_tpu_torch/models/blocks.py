@@ -5,6 +5,11 @@ The module tree follows the original MixGAN-TTS torch repo's key layout
 (bare `nn.Conv1d`s inside attention and FFN, `ConvNorm.conv`,
 `LinearNorm.linear`), which is what `mixgantts_tpu/convert.py` reads and
 `mixgantts_tpu_torch/convert.py` writes.
+
+Activations follow the parameters' type: `conv_last` and `LinearNorm` cast
+their input to their weight's type, so a model whose parameters were cast
+to bf16 (`pipeline.TTSPipeline` under `compute_dtype: bfloat16`) computes
+in bf16, and an fp32 one exactly as before.
 """
 
 import math
@@ -31,7 +36,9 @@ def sinusoid_position_table(n_position, d_hid):
 
 
 def conv_last(conv, x):
-    """Apply a torch `nn.Conv1d` to channel-last x [B, T, C]."""
+    """Apply a torch `nn.Conv1d` to channel-last x [B, T, C] (cast to the
+    weight's type)."""
+    x = x.to(conv.weight.dtype)
     if conv.kernel_size[0] == 1:
         return F.linear(x, conv.weight[:, :, 0], conv.bias)
     return conv(x.transpose(1, 2)).transpose(1, 2)
@@ -78,7 +85,7 @@ class LinearNorm(nn.Module):
         nn.init.xavier_uniform_(self.linear.weight)
 
     def forward(self, x):
-        return self.linear(x)
+        return self.linear(x.to(self.linear.weight.dtype))
 
 
 class Mish(nn.Module):

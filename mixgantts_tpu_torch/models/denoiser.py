@@ -9,6 +9,13 @@ on CUDA (the kernel's operand type, and the TPU kernel's), in the
 parameters' own type elsewhere (`Denoiser.stack_dtype` overrides).  (The
 JAX package takes its TPU kernel only at batch >= 2; that rule was
 measured on a TPU and is not carried over.)
+
+A multi-speaker denoiser adds each block's speaker projection of the
+speaker embedding to y (never to the residual), as the JAX package's flax
+blocks do; here it rides in the kernel's conditioner projection
+(`speaker_projections`), so the same kernel runs with or without it.  The
+JAX package leaves its TPU kernel for the flax blocks when a speaker
+embedding is present.
 """
 
 import math
@@ -18,7 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.denoiser_stack import (
-    denoiser_kernel_weights, fused_residual_stack, stack_denoiser_params,
+    denoiser_kernel_weights, fused_residual_stack, speaker_projections,
+    stack_denoiser_params,
 )
 from .blocks import ConvNorm, LinearNorm, Mish, diffusion_embedding
 
@@ -27,25 +35,28 @@ class ResidualBlock(nn.Module):
     """Parameters of one gated residual block; the stack's math is in
     `ops.denoiser_stack`."""
 
-    def __init__(self, d_encoder, residual_channels):
+    def __init__(self, d_encoder, residual_channels, multi_speaker=False):
         super().__init__()
         C = residual_channels
         self.conv_layer = ConvNorm(C, 2 * C, 3)
         self.diffusion_projection = LinearNorm(C, C)
         self.conditioner_projection = ConvNorm(d_encoder, C, 1)
         self.output_projection = ConvNorm(C, 2 * C, 1)
+        if multi_speaker:
+            self.speaker_projection = LinearNorm(d_encoder, C)
 
 
 class Denoiser(nn.Module):
     def __init__(self, n_mels=80, d_encoder=256, residual_channels=256,
-                 residual_layers=20):
+                 residual_layers=20, multi_speaker=False):
         super().__init__()
         C = residual_channels
         self.residual_channels = C
+        self.multi_speaker = multi_speaker
         self.input_projection = nn.Sequential(ConvNorm(n_mels, C, 1), nn.ReLU())
         self.mlp = nn.Sequential(LinearNorm(C, 4 * C), Mish(), LinearNorm(4 * C, C))
         self.residual_layers = nn.ModuleList(
-            ResidualBlock(d_encoder, C) for _ in range(residual_layers))
+            ResidualBlock(d_encoder, C, multi_speaker) for _ in range(residual_layers))
         self.skip_projection = ConvNorm(C, C, 1)
         self.output_projection = ConvNorm(C, n_mels, 1)
         nn.init.zeros_(self.output_projection.conv.weight)  # as the reference
@@ -78,12 +89,17 @@ class Denoiser(nn.Module):
         self._stacked = None
         super()._load_from_state_dict(*args, **kwargs)
 
-    def forward(self, x_t, t, cond):
+    def forward(self, x_t, t, cond, spk_emb=None):
         """x_t [B, T, n_mels] noisy mel, t [B] int diffusion step, cond
-        [B, T, H] -> x0 prediction [B, T, n_mels]."""
+        [B, T, H], spk_emb [B, H] (used by a multi-speaker denoiser) -> x0
+        prediction [B, T, n_mels], in the parameters' type."""
         x = self.input_projection(x_t)
         step_emb = self.mlp(diffusion_embedding(t, self.residual_channels))
-        _, skip_sum = fused_residual_stack(x, cond, step_emb, self.stacked())
+        stacked = self.stacked()
+        spk_proj = None
+        if self.multi_speaker and spk_emb is not None:
+            spk_proj = speaker_projections(spk_emb, stacked)
+        _, skip_sum = fused_residual_stack(x, cond.to(x.dtype), step_emb, stacked, spk_proj)
         x = skip_sum / math.sqrt(len(self.residual_layers))
         x = F.relu(self.skip_projection(x))
         return self.output_projection(x)

@@ -84,19 +84,22 @@ class GaussianDiffusion(nn.Module):
 
     # --- inference ----------------------------------------------------------
 
-    def sampling(self, cond, noise=None, step_noises=None, generator=None):
+    def sampling(self, cond, spk_emb=None, noise=None, step_noises=None, generator=None):
         """Reverse process from `noise` (x_T; drawn when None) to the
-        normalised x0 [B, T, n_mels].  `step_noises` [S, B, T, n_mels]
-        injects the per-step posterior noises, consumed t = S-1 .. 0."""
+        normalised x0 [B, T, n_mels], conditioned on cond [B, T, H] and a
+        multi-speaker model's speaker embedding spk_emb [B, H].
+        `step_noises` [S, B, T, n_mels] injects the per-step posterior
+        noises, consumed t = S-1 .. 0; drawn noise is in cond's type."""
         B, T_mel, _ = cond.shape
         shape = (B, T_mel, self.spec_min.shape[0])
         x = noise if noise is not None else torch.randn(
-            shape, generator=generator, device=cond.device)
+            shape, generator=generator, device=cond.device, dtype=cond.dtype)
         for k, i in enumerate(reversed(range(self.num_timesteps))):
             t = torch.full((B,), i, dtype=torch.long, device=cond.device)
-            x0_pred = torch.clamp(self.denoise_fn(x, t, cond), -1.0, 1.0)
+            x0_pred = torch.clamp(self.denoise_fn(x, t, cond, spk_emb), -1.0, 1.0)
             step_noise = (step_noises[k] if step_noises is not None else
-                          torch.randn(x.shape, generator=generator, device=x.device))
+                          torch.randn(x.shape, generator=generator, device=x.device,
+                                      dtype=cond.dtype))
             x = self.q_posterior_sample(x0_pred, x, t, step_noise)
         return x
 

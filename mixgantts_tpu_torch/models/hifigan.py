@@ -1,4 +1,5 @@
-"""HiFi-GAN V1 generator (`mixgantts_tpu/models/hifigan.py`).
+"""HiFi-GAN generator (`mixgantts_tpu/models/hifigan.py`), V1 and any
+other dilation schedule.
 
 conv_pre (k7) -> per stage [leaky_relu -> ConvTranspose1d -> MRF stage] ->
 leaky_relu -> conv_post (k7) -> tanh.  The module tree follows the torch
@@ -13,6 +14,17 @@ type, and the TPU kernel's), in fp32 elsewhere (`HiFiGANGenerator.mrf_dtype`
 overrides).  The upsample is
 `F.conv_transpose1d(stride=u, padding=(k-u)//2)`, which is exactly the JAX
 package's sub-pixel upsample.
+
+The kernels share one dilation schedule across the branches of a stage
+(true of V1).  A config whose branches have different
+`resblock_dilation_sizes` takes the eager route (`eager_apply`: plain
+convolutions per branch, the math of the flax `HiFiGANGenerator`), chosen
+from the config when the generator is built, as the JAX package's
+`Vocoder.apply_fn` chooses.
+
+The generator computes in its parameters' type: the upsample convs, the
+activations and conv_post in bf16 for a bf16 copy (the JAX package's
+`fused_apply` with `compute_dtype` bf16), tanh and the waveform in fp32.
 """
 
 import numpy as np
@@ -54,6 +66,8 @@ class HiFiGANGenerator(nn.Module):
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
         self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
         self.resblock_dilation_sizes = tuple(tuple(d) for d in resblock_dilation_sizes)
+        # the kernels' route takes one dilation schedule for all branches
+        self.kernel_route = len(set(self.resblock_dilation_sizes)) == 1
         c0 = upsample_initial_channel
         self.conv_pre = nn.Conv1d(n_mels, c0, 7, padding=3)
         self.ups = nn.ModuleList()
@@ -90,8 +104,8 @@ class HiFiGANGenerator(nn.Module):
         super()._load_from_state_dict(*args, **kwargs)
 
     def forward(self, mel):
-        """mel [B, T, n_mels] log-mel -> waveform [B, T * prod(rates)]."""
-        return fused_apply(self, mel)
+        """mel [B, T, n_mels] log-mel -> waveform [B, T * prod(rates)], fp32."""
+        return fused_apply(self, mel) if self.kernel_route else eager_apply(self, mel)
 
 
 def stage_mode(channels, frames):
@@ -122,6 +136,35 @@ def stage_weights(generator, stage, mode, channels, dtype=torch.float32):
     return typed(stack_mrf_params(generator, stage, rks, dils), rks)
 
 
+def _generate(generator, mel, mrf_stage):
+    """conv_pre -> per stage [leaky_relu -> upsample -> mrf_stage(i, x)] ->
+    leaky_relu -> conv_post -> tanh, with x [B, C, T] in the parameters'
+    type and tanh in fp32.  mel [B, T, n_mels] -> [B, T * hop] fp32."""
+    x = generator.conv_pre(mel.transpose(1, 2).to(generator.conv_pre.weight.dtype))
+    for i, up in enumerate(generator.ups):
+        x = mrf_stage(i, up(F.leaky_relu(x, LRELU_SLOPE)))
+    x = generator.conv_post(F.leaky_relu(x, LRELU_SLOPE))
+    return torch.tanh(x.float())[:, 0]
+
+
+def eager_apply(generator, mel):
+    """HiFi-GAN forward with each MRF branch as plain convolutions (any
+    dilation schedule), the math of the flax `HiFiGANGenerator.__call__`.
+    mel [B, T, n_mels] -> [B, T * hop]."""
+    n_k = len(generator.resblock_kernel_sizes)
+
+    def stage(i, x):
+        acc = None
+        for block in generator.resblocks[i * n_k:(i + 1) * n_k]:
+            y = x
+            for conv1, conv2 in zip(block.convs1, block.convs2):
+                y = y + conv2(F.leaky_relu(conv1(F.leaky_relu(y, LRELU_SLOPE)), LRELU_SLOPE))
+            acc = y if acc is None else acc + y
+        return acc / n_k
+
+    return _generate(generator, mel, stage)
+
+
 def fused_apply(generator, mel):
     """HiFi-GAN forward with each stage's MRF in one `ops.mrf` call (three
     one-branch calls at C > 128).  mel [B, T, n_mels] -> [B, T * hop]."""
@@ -132,15 +175,16 @@ def fused_apply(generator, mel):
     if any(d != dils[0] for d in dils):
         raise NotImplementedError(
             f"fused_apply requires identical resblock_dilation_sizes per "
-            f"branch, got {dils}")
+            f"branch, got {dils}; eager_apply takes them")
     dils = dils[0]
     if generator._stacked is None:
         generator._stacked = {}
+    # bf16 stacks with the kernel's layout on CUDA; fp32 elsewhere, where the
+    # stack keeps the parameters' own type (bf16 ones: bf16 arithmetic)
     dtype = generator.mrf_dtype or (
         torch.bfloat16 if mel.device.type == "cuda" else torch.float32)
-    x = generator.conv_pre(mel.transpose(1, 2))                  # [B, C, T]
-    for i, up in enumerate(generator.ups):
-        x = up(F.leaky_relu(x, LRELU_SLOPE))
+
+    def stage(i, x):
         B, C, T = x.shape
         mode = stage_mode(C, T)
         if (i, mode, dtype) not in generator._stacked:
@@ -156,9 +200,9 @@ def fused_apply(generator, mel):
         else:
             x = sum(mrf_stack(x, st, (rk,), dils)
                     for st, rk in zip(stacked, rks)) / len(rks)
-        x = x.transpose(1, 2)
-    x = generator.conv_post(F.leaky_relu(x, LRELU_SLOPE))
-    return torch.tanh(x)[:, 0]
+        return x.transpose(1, 2)
+
+    return _generate(generator, mel, stage)
 
 
 def fold_weight_norm(weight_v, weight_g):

@@ -8,6 +8,12 @@ coarse mel) -> Gaussian diffusion.  The three modes:
 - aux: no reverse process; `mel_pred` is the diffuse trace
   [S+1, B, T, n_mels] whose element 0 is the clamped normalised coarse mel.
 
+A multi-speaker model embeds the speaker with a table (`n_speakers` rows,
+speaker embedder "none") or projects an external embedding (`spker_embeds`
+[B, external_speaker_dim], e.g. DeepSpeaker's), under the reference's one
+key `speaker_emb`; the embedding conditions the denoiser only, as in the
+JAX package.
+
 Randomness comes from `noise_override` ({"start_noise": [B, T, M],
 "step_noises": [S, B, T, M]}) or from an explicit `torch.Generator`.
 """
@@ -42,16 +48,15 @@ class MixGANTTS(nn.Module):
                  max_seq_len=1000, n_mels=80, n_bins=256,
                  pitch_quantization="linear", energy_quantization="linear",
                  vp_filter_size=256, vp_kernel_size=3, residual_channels=256,
-                 residual_layers=20, multi_speaker=False, device=None):
+                 residual_layers=20, multi_speaker=False, n_speakers=1,
+                 embedder_type="none", external_speaker_dim=512, device=None):
         super().__init__()
         if mode not in ("naive", "aux", "shallow"):
             raise ValueError(f"unknown mode {mode!r}")
-        if multi_speaker:
-            raise NotImplementedError(
-                "multi-speaker synthesis (speaker table, external embedding "
-                "and the denoiser's speaker projection) is not ported yet")
         device = resolve_device(device)
         self.mode = mode
+        self.multi_speaker = multi_speaker
+        self.embedder_type = embedder_type
         self.max_seq_len = max_seq_len
         self.n_mels = n_mels
         self.linguistic_encoder = LinguisticEncoder(
@@ -70,18 +75,22 @@ class MixGANTTS(nn.Module):
                 max_seq_len=max_seq_len)
             self.mel_linear = nn.Linear(hidden, n_mels)
             self.postnet = PostNet(n_mels=n_mels)
+        if multi_speaker:
+            self.speaker_emb = (nn.Embedding(n_speakers, hidden) if embedder_type == "none"
+                                else nn.Linear(external_speaker_dim, hidden))
         self.diffusion = GaussianDiffusion(
             Denoiser(n_mels=n_mels, d_encoder=hidden,
                      residual_channels=residual_channels,
-                     residual_layers=residual_layers),
+                     residual_layers=residual_layers, multi_speaker=multi_speaker),
             betas, stats.spec_min[:n_mels], stats.spec_max[:n_mels])
         self.to(device)
         self.eval()
 
     @classmethod
     def from_configs(cls, mode, preprocess_config, model_config, stats,
-                     device=None):
-        """Build from the preprocess/model YAML configs and dataset stats."""
+                     n_speakers=1, device=None):
+        """Build from the preprocess/model YAML configs, dataset stats and
+        the corpus's speaker count."""
         t = model_config["transformer"]
         d = model_config["denoiser"]
         v = model_config["variance_predictor"]
@@ -109,17 +118,22 @@ class MixGANTTS(nn.Module):
             residual_channels=d["residual_channels"],
             residual_layers=d["residual_layers"],
             multi_speaker=model_config["multi_speaker"],
+            n_speakers=n_speakers,
+            embedder_type=preprocess_config["preprocessing"].get("speaker_embedder", "none"),
+            external_speaker_dim=model_config.get("external_speaker_dim", 512),
             device=device,
         )
 
     def forward(self, speakers, texts, src_lens, word_boundaries, src_w_lens,
                 max_mel_len, p_control=1.0, e_control=1.0, d_control=1.0,
-                noise_override=None, generator=None):
+                noise_override=None, generator=None, spker_embeds=None):
         """Synthesis.  texts [B, P] phoneme ids, src_lens [B],
         word_boundaries [B, W], src_w_lens [B]; max_mel_len is the static
-        frame axis.  `speakers` is unused by single-speaker models;
-        e_control is unused, as in the reference (energy follows p_control).
-        """
+        frame axis.  `speakers` [B] indexes a multi-speaker model's table;
+        `spker_embeds` [B, external_speaker_dim] feeds one with an external
+        embedder; single-speaker models use neither.  e_control is unused,
+        as in the reference (energy follows p_control).  Activations are in
+        the parameters' type."""
         if max_mel_len > self.max_seq_len:
             raise ValueError(
                 f"max_mel_len={max_mel_len} exceeds max_seq_len="
@@ -131,6 +145,7 @@ class MixGANTTS(nn.Module):
             p_control=p_control, d_control=d_control)
         cond, mel_mask = enc.features, enc.mel_mask
         maskf = mel_mask[..., None].to(cond.dtype)
+        spk = self.speaker_embedding(speakers, spker_embeds)
 
         coarse_mel = None
         if self.mode in ("aux", "shallow"):
@@ -146,11 +161,11 @@ class MixGANTTS(nn.Module):
             if self.mode == "shallow":
                 if start is None:
                     start = torch.randn(coarse_mel.shape, generator=generator,
-                                        device=coarse_mel.device)
+                                        device=coarse_mel.device, dtype=coarse_mel.dtype)
                 t_start = torch.full((texts.shape[0],), diffusion.num_timesteps - 1,
                                      dtype=torch.long, device=cond.device)
                 start = diffusion.diffuse(coarse_mel, t_start, start) * maskf
-            x0 = diffusion.sampling(cond, noise=start,
+            x0 = diffusion.sampling(cond, spk, noise=start,
                                     step_noises=ov.get("step_noises"),
                                     generator=generator)
             mel_pred = diffusion.denorm_spec(x0) * maskf
@@ -160,3 +175,16 @@ class MixGANTTS(nn.Module):
             coarse_mel=coarse_mel, pitch_pred=enc.pitch_pred,
             energy_pred=enc.energy_pred, log_dur_w_pred=enc.log_dur_w_pred,
             dur_w_rounded=enc.dur_w_rounded)
+
+    def speaker_embedding(self, speakers, spker_embeds=None):
+        """[B, hidden] speaker embedding of a multi-speaker model (None for a
+        single-speaker one): the table row of `speakers`, or the projection
+        of `spker_embeds`."""
+        if not self.multi_speaker:
+            return None
+        if self.embedder_type == "none":
+            return self.speaker_emb(speakers)
+        if spker_embeds is None:
+            raise ValueError(f"speaker embedder {self.embedder_type!r}: spker_embeds "
+                             f"[B, {self.speaker_emb.in_features}] is required")
+        return self.speaker_emb(spker_embeds.to(self.speaker_emb.weight.dtype))

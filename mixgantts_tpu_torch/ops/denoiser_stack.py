@@ -3,12 +3,15 @@
 Counterpart of `mixgantts_tpu/ops/pallas.py` (`fused_residual_stack`,
 `stack_denoiser_params`).  Per block (`models/denoiser.ResidualBlock`):
 
-    y0 = x + step_proj;  y = y0 + cond @ Wc + bc      (zero outside [0, T))
+    y0 = x + step_proj;  y = y0 + cond @ Wc + bc [+ spk_proj]   (zero outside [0, T))
     z  = conv_k3(y) -> g = sigmoid(z[:, :C]) * tanh(z[:, C:])
     o  = g @ Wo + bo;  x' = (o[:, :C] + y0) / sqrt(2);  skip += o[:, C:]
 
 The step and conditioner projections of every layer are computed up front
-with fp32 matrix products; the L layers then run in
+with fp32 matrix products; a multi-speaker denoiser's per-layer speaker term
+`spk_proj` [L, B, C] joins the conditioner projection (it reaches y, never
+the residual y0, as in `mixgantts_tpu/models/denoiser.py::ResidualBlock`).
+The L layers then run in
 `csrc/denoiser_stack.cu` for CUDA tensors (one launch for all the layers
 where the card holds the whole grid at once, one per layer otherwise), or
 in `fused_residual_stack_plain` for CPU tensors.
@@ -20,6 +23,11 @@ biases, y0, the residual and skip in fp32.  On the TPU the JAX package
 casts the weights to bf16, and so does `fused_residual_stack` on CUDA:
 `csrc/denoiser_stack.cu` is a bf16 tensor-core kernel, fed by
 `denoiser_kernel_weights`.
+
+Activations (x, cond, step_emb) may be fp32 or bf16, as the TPU kernel
+reads them: bf16 ones are upcast exactly, the hoisted projections are
+rounded to bf16 (as the JAX package's bf16 products are), the layers keep
+fp32 state, and the outputs come back in x's type.
 """
 
 import ctypes
@@ -29,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .mrf import no_tf32
+from .mrf import no_tf32, upcast
 
 GROUP = 32   # gate channels per CTA of the CUDA kernel (`kGroup` in the source)
 
@@ -38,13 +46,13 @@ def stack_denoiser_params(denoiser):
     """A port `models.denoiser.Denoiser` -> stacked per-layer tensors in the
     JAX package's layout: conv_w [L, 3, C, 2C], conv_b [L, 2C],
     cond_w [L, Hc, C], cond_b [L, C], step_w [L, C, C], out_w [L, C, 2C],
-    out_b [L, 2C]."""
+    out_b [L, 2C], and a multi-speaker denoiser's spk_w [L, H, C]."""
     layers = list(denoiser.residual_layers)
 
     def stack(fn):
         return torch.stack([fn(layer).detach() for layer in layers]).contiguous()
 
-    return {
+    out = {
         "conv_w": stack(lambda m: m.conv_layer.conv.weight.permute(2, 1, 0)),
         "conv_b": stack(lambda m: m.conv_layer.conv.bias),
         "cond_w": stack(lambda m: m.conditioner_projection.conv.weight[:, :, 0].t()),
@@ -53,28 +61,55 @@ def stack_denoiser_params(denoiser):
         "out_w": stack(lambda m: m.output_projection.conv.weight[:, :, 0].t()),
         "out_b": stack(lambda m: m.output_projection.conv.bias),
     }
+    if getattr(layers[0], "speaker_projection", None) is not None:
+        out["spk_w"] = stack(lambda m: m.speaker_projection.linear.weight.t())
+    return out
 
 
-def _step_projections(step_emb, stacked):
+def speaker_projections(spk_emb, stacked):
+    """The per-layer speaker terms [L, B, C] of speaker embeddings [B, H]
+    (fp32 products of the stacked `spk_w`)."""
+    return torch.einsum("bh,lhc->lbc", upcast(spk_emb), stacked["spk_w"].float()).contiguous()
+
+
+def _round(t, dtype):
+    """t rounded to the activations' type and back: bf16 activations round
+    a hoisted product as the JAX package's bf16 einsum does."""
+    return t.to(dtype).float() if dtype == torch.bfloat16 else t
+
+
+def _step_projections(step_emb, stacked, dtype=torch.float32):
     """Step projections [L, B, C] of every layer."""
-    return torch.einsum("bc,lcd->lbd", step_emb, stacked["step_w"]).contiguous()
+    return _round(torch.einsum("bc,lcd->lbd", step_emb, stacked["step_w"].float()),
+                  dtype).contiguous()
 
 
-def _projections(cond, step_emb, stacked):
+def _projections(cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
     """Step projections [L, B, C] and conditioner projections [L, B, T, C]
-    of every layer (the products the TPU kernel's caller hoists too)."""
-    condp = torch.einsum("bth,lhc->lbtc", cond, stacked["cond_w"])
-    condp = condp + stacked["cond_b"][:, None, None, :]
-    return _step_projections(step_emb, stacked), condp.contiguous()
+    of every layer (the products the TPU kernel's caller hoists too), the
+    speaker term added to the latter, both rounded to `dtype`."""
+    condp = torch.einsum("bth,lhc->lbtc", cond, stacked["cond_w"].float())
+    condp = condp + stacked["cond_b"].float()[:, None, None, :]
+    if spk_proj is not None:
+        condp = condp + spk_proj[:, :, None, :]
+    return _step_projections(step_emb, stacked, dtype), _round(condp, dtype).contiguous()
 
 
-def fused_residual_stack_plain(x, cond, step_emb, stacked):
+def fused_residual_stack_plain(x, cond, step_emb, stacked, spk_proj=None):
     """The stack in plain PyTorch (F.conv1d and matmul), any device.
-    x [B, T, C], cond [B, T, Hc], step_emb [B, C] -> (x_final, skip_sum),
-    in the arithmetic of conv_w's type (bf16: `_plain_bf16`)."""
-    if stacked["conv_w"].dtype == torch.bfloat16:
-        return _plain_bf16(x, cond, step_emb, stacked)
-    step_proj, condp = _projections(cond, step_emb, stacked)
+    x [B, T, C], cond [B, T, Hc], step_emb [B, C], spk_proj [L, B, C] or
+    None -> (x_final, skip_sum) in x's type, in the arithmetic of conv_w's
+    type (bf16: `_layers_bf16`)."""
+    dtype = x.dtype
+    x, cond, step_emb = upcast(x), upcast(cond), upcast(step_emb)
+    step_proj, condp = _projections(cond, step_emb, stacked, spk_proj, dtype)
+    layers = _layers_bf16 if stacked["conv_w"].dtype == torch.bfloat16 else _layers
+    x, skip = layers(x, step_proj, condp, stacked)
+    return x.to(dtype), skip.to(dtype)
+
+
+def _layers(x, step_proj, condp, stacked):
+    """The L layers in the weights' own type."""
     C = x.shape[-1]
     skip = torch.zeros_like(x)
     for l in range(stacked["conv_w"].shape[0]):
@@ -89,16 +124,15 @@ def fused_residual_stack_plain(x, cond, step_emb, stacked):
     return x, skip
 
 
-def _plain_bf16(x, cond, step_emb, stacked):
-    """The TPU kernel's arithmetic with bf16 operands (`pallas.py::_kernel`):
-    y = (y0 + condp) and g = sigmoid * tanh rounded to bf16, products of
-    bf16-exact values summed in fp32 (TF32 off), the biases added after each
-    product, and y0, the residual and skip kept in fp32.  The projections
-    stay fp32."""
+def _layers_bf16(x, step_proj, condp, stacked):
+    """The L layers in the TPU kernel's arithmetic with bf16 operands
+    (`pallas.py::_kernel`): y = (y0 + condp) and g = sigmoid * tanh rounded
+    to bf16, products of bf16-exact values summed in fp32 (TF32 off), the
+    biases added after each product, and y0, the residual and skip kept in
+    fp32."""
     def bf16(t):
         return t.to(torch.bfloat16).float()
 
-    step_proj, condp = _projections(cond, step_emb, stacked)
     C = x.shape[-1]
     skip = torch.zeros_like(x)
     with no_tf32():
@@ -134,7 +168,8 @@ def denoiser_kernel_weights(stacked):
     (the TPU kernel's operand type, `pallas.py:133-138`), conv_b/out_b in
     fp32, the conditioner projection's weights side by side, `cond_w_cat`
     [Hc, L * C] and `cond_b_cat` [L * C] (one product gives condp in the
-    [B, T, L, C] layout the kernel reads), and, where C is a multiple of
+    [B, T, L, C] layout the kernel reads), `step_w` (and a multi-speaker
+    stack's `spk_w`) in fp32, and, where C is a multiple of
     GROUP, the bf16 copies `conv_w_mma` [L, C / 32, 3C * 64] (K = tap * C +
     input channel) and `out_w_mma` [L, C / 32, C * 64] in the kernel's
     order (`_pack`).  `models.denoiser.Denoiser.stacked` makes them once;
@@ -146,8 +181,11 @@ def denoiser_kernel_weights(stacked):
     out = dict(stacked, conv_w=conv_w, out_w=out_w,
                conv_b=stacked["conv_b"].float().contiguous(),
                out_b=stacked["out_b"].float().contiguous(),
-               cond_w_cat=stacked["cond_w"].permute(1, 0, 2).reshape(Hc, L * C).contiguous(),
-               cond_b_cat=stacked["cond_b"].reshape(L * C).contiguous())
+               cond_w_cat=stacked["cond_w"].permute(1, 0, 2).reshape(Hc, L * C).float().contiguous(),
+               cond_b_cat=stacked["cond_b"].reshape(L * C).float().contiguous())
+    for key in ("step_w", "spk_w"):
+        if key in stacked:
+            out[key] = stacked[key].float().contiguous()
     if C % GROUP == 0:
         out.update(conv_w_mma=_pack(conv_w.reshape(L, 3 * C, 2 * C)), out_w_mma=_pack(out_w))
     return out
@@ -161,9 +199,10 @@ def _library():
     return lib
 
 
-def _check(x, cond, step_emb, stacked):
-    """Raise unless the CUDA kernel takes x [B, T, C] (fp32) and the stacked
-    weights (conv_w/out_w bf16 or fp32, conv_b/out_b fp32) as they are."""
+def _check(x, cond, step_emb, stacked, spk_proj=None):
+    """Raise unless the CUDA kernel takes x [B, T, C] (fp32), the stacked
+    weights (conv_w/out_w bf16 or fp32, conv_b/out_b fp32) and the speaker
+    term spk_proj [L, B, C] (fp32, or None) as they are."""
     B, T, C = x.shape
     L = stacked["conv_w"].shape[0]
     want = {"conv_w": (L, 3, C, 2 * C), "conv_b": (L, 2 * C),
@@ -172,6 +211,8 @@ def _check(x, cond, step_emb, stacked):
         raise ValueError(f"denoiser_stack kernel: C={C}; built for 128 and 256")
     tensors = {"x": x, "cond": cond, "step_emb": step_emb,
                **{k: stacked[k] for k in want}}
+    if spk_proj is not None:
+        tensors["spk_proj"] = spk_proj
     for name, t in tensors.items():
         dtypes = ((torch.bfloat16, torch.float32) if name in ("conv_w", "out_w")
                   else (torch.float32,))
@@ -179,20 +220,23 @@ def _check(x, cond, step_emb, stacked):
             raise ValueError(f"denoiser_stack kernel: {name} must be contiguous "
                              f"{' or '.join(map(str, dtypes))} on {x.device}, "
                              f"got {t.dtype} on {t.device}")
+    if spk_proj is not None:
+        want["spk_proj"] = (L, B, C)
     for name, shape in want.items():
-        if tuple(stacked[name].shape) != shape:
+        if tuple(tensors[name].shape) != shape:
             raise ValueError(f"denoiser_stack kernel: {name} has shape "
-                             f"{tuple(stacked[name].shape)}, want {shape}")
+                             f"{tuple(tensors[name].shape)}, want {shape}")
     if cond.shape[:2] != (B, T) or tuple(step_emb.shape) != (B, C):
         raise ValueError("denoiser_stack kernel: cond must be [B, T, Hc] and "
                          "step_emb [B, C] for x [B, T, C]")
 
 
-def _launch(x, cond, step_emb, stacked):
+def _launch(x, cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
     """Run csrc/denoiser_stack.cu on CUDA tensors with bf16 operands; fp32
-    weights are cast (`denoiser_kernel_weights`) for this call.  Returns
-    (x_final, skip_sum, launches)."""
-    _check(x, cond, step_emb, stacked)
+    weights are cast (`denoiser_kernel_weights`) for this call, and the
+    hoisted projections are rounded to `dtype`, the activations' type.
+    Returns (x_final, skip_sum, launches)."""
+    _check(x, cond, step_emb, stacked, spk_proj)
     B, T, C = x.shape
     L = stacked["conv_w"].shape[0]
     if "conv_w_mma" not in stacked:
@@ -201,19 +245,25 @@ def _launch(x, cond, step_emb, stacked):
     packed = {"conv_w_mma": (torch.bfloat16, (L, C // GROUP, 3 * C * 2 * GROUP)),
               "out_w_mma": (torch.bfloat16, (L, C // GROUP, C * 2 * GROUP)),
               "cond_w_cat": (torch.float32, (Hc, L * C)), "cond_b_cat": (torch.float32, (L * C,))}
-    for key, (dtype, shape) in packed.items():
+    for key, (want, shape) in packed.items():
         t = stacked.get(key)
-        if (t is None or tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device
+        if (t is None or tuple(t.shape) != shape or t.dtype != want or t.device != x.device
                 or not t.is_contiguous()):
-            raise ValueError(f"denoiser_stack kernel: {key} must be contiguous {dtype} "
+            raise ValueError(f"denoiser_stack kernel: {key} must be contiguous {want} "
                              f"{shape} on {x.device}; make it with denoiser_kernel_weights")
     lib = _library()
     with torch.cuda.device(x.device):
         # the products `_projections` computes, condp as [B * T, L * C] by
-        # one matrix product with its bias (no layout copy)
-        step_proj = _step_projections(step_emb, stacked)
-        condp = torch.addmm(stacked["cond_b_cat"], cond.reshape(B * T, Hc),
-                            stacked["cond_w_cat"])
+        # one matrix product with its bias (no layout copy); the speaker
+        # term joins the bias, one row of it per batch row
+        step_proj = _step_projections(step_emb, stacked, dtype)
+        if spk_proj is None:
+            condp = torch.addmm(stacked["cond_b_cat"], cond.reshape(B * T, Hc),
+                                stacked["cond_w_cat"])
+        else:
+            bias = stacked["cond_b_cat"] + spk_proj.transpose(0, 1).reshape(B, 1, L * C)
+            condp = torch.baddbmm(bias, cond, stacked["cond_w_cat"].expand(B, Hc, L * C))
+        condp = _round(condp, dtype)
         x_out = torch.empty_like(x)
         skip = torch.empty_like(x)
         scratch = torch.empty_like(x)
@@ -244,10 +294,13 @@ def launch_shape(B, T, C):
     return B * -(-T // 64) * cluster, cluster, n.value
 
 
-def fused_residual_stack(x, cond, step_emb, stacked):
+def fused_residual_stack(x, cond, step_emb, stacked, spk_proj=None):
     """x [B, T, C], cond [B, T, Hc], step_emb [B, C], stacked from
-    `stack_denoiser_params` (or `denoiser_kernel_weights`) ->
-    (x_final [B, T, C], skip_sum [B, T, C]).
+    `stack_denoiser_params` (or `denoiser_kernel_weights`), and a
+    multi-speaker denoiser's per-layer speaker term spk_proj [L, B, C]
+    (`speaker_projections`, else None) -> (x_final [B, T, C], skip_sum
+    [B, T, C]) in x's type.  Activations are fp32, or bf16 (upcast exactly,
+    the projections rounded to bf16).
 
     CUDA tensors run the hand-written bf16 tensor-core kernel (C in {128,
     256}; fp32 weights are cast per call) and add the number of kernel
@@ -256,12 +309,13 @@ def fused_residual_stack(x, cond, step_emb, stacked):
     `fused_residual_stack.launches`; CPU tensors run the plain version in
     the weights' type."""
     if x.device.type == "cpu":
-        return fused_residual_stack_plain(x, cond, step_emb, stacked)
+        return fused_residual_stack_plain(x, cond, step_emb, stacked, spk_proj)
     if x.device.type != "cuda":
         raise ValueError(f"denoiser_stack: no kernel for device {x.device}")
-    x_out, skip, launches = _launch(x, cond, step_emb, stacked)
+    x_out, skip, launches = _launch(upcast(x), upcast(cond), upcast(step_emb), stacked,
+                                    spk_proj, x.dtype)
     fused_residual_stack.launches += launches
-    return x_out, skip
+    return x_out.to(x.dtype), skip.to(x.dtype)
 
 
 fused_residual_stack.launches = 0

@@ -24,6 +24,11 @@ fp32 and keep biases, residual and branch mean in fp32.  On the TPU the
 JAX package always casts the weights to bf16, and so do the three entry
 points on CUDA: `csrc/mrf_stack.cu` and `csrc/mrf_stack_streamed.cu` are
 bf16 tensor-core kernels, fed by `kernel_weights`.
+
+The signal x may be fp32 or bf16 (a vocoder computing in bf16, as the TPU
+kernels read it under the JAX package's bf16 compute): bf16 is upcast
+exactly into the fp32-input kernels and plain version, and the output comes
+back in x's type.
 """
 
 import contextlib
@@ -73,12 +78,19 @@ def stack_mrf_params_folded(generator, stage, fold, kernel_sizes=(3, 7, 11),
                 fold=fold)
 
 
+def upcast(t):
+    """bf16 activations upcast to fp32 (exact); anything else as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def mrf_stack_plain(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     """The MRF stage in plain PyTorch (F.conv1d), any device.
-    x [B, T, C] -> [B, T, C], in the arithmetic of the weights' type (bf16
-    weights: `_mrf_stack_plain_bf16`)."""
+    x [B, T, C] -> [B, T, C] in x's type, in the arithmetic of the weights'
+    type (bf16 weights: `_mrf_stack_plain_bf16`)."""
+    dtype = x.dtype
+    x = upcast(x)
     if stacked["w1"].dtype == torch.bfloat16:
-        return _mrf_stack_plain_bf16(x, stacked, kernel_sizes, dilations)
+        return _mrf_stack_plain_bf16(x, stacked, kernel_sizes, dilations).to(dtype)
     xt = x.transpose(1, 2)
     acc = None
     for br, rk in enumerate(kernel_sizes):
@@ -94,7 +106,7 @@ def mrf_stack_plain(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
             t = F.conv1d(t, w2, stacked["b2"][br, p], padding=(rk - 1) // 2)
             y = y + t
         acc = y if acc is None else acc + y
-    return (acc / len(kernel_sizes)).transpose(1, 2)
+    return (acc / len(kernel_sizes)).transpose(1, 2).to(dtype)
 
 
 @contextlib.contextmanager
@@ -175,7 +187,7 @@ def kernel_weights(stacked, kernel_sizes=(3, 7, 11)):
 
 def _check(name, x, stacked, kernel_sizes, dilations, widths):
     """Raise unless a CUDA kernel takes x [B, T, C] (fp32) and the stacked
-    weights (w1/w2 in bf16 or fp32, b1/b2 fp32) as they are."""
+    weights (bf16 or fp32; `kernel_weights` casts them) as they are."""
     B, T, C = x.shape
     n_br, n_pair = len(kernel_sizes), len(dilations)
     if C not in widths:
@@ -191,7 +203,7 @@ def _check(name, x, stacked, kernel_sizes, dilations, widths):
             "b1": (n_br, n_pair, C), "b2": (n_br, n_pair, C)}
     for key in ("x", *want):
         t = x if key == "x" else stacked[key]
-        dtypes = (torch.bfloat16, torch.float32) if key in ("w1", "w2") else (torch.float32,)
+        dtypes = (torch.float32,) if key == "x" else (torch.bfloat16, torch.float32)
         if t.device != x.device or t.dtype not in dtypes or not t.is_contiguous():
             raise ValueError(f"{name} kernel: {key} must be contiguous "
                              f"{' or '.join(map(str, dtypes))} on {x.device}, "
@@ -218,10 +230,11 @@ def _mma_weights(name, x, stacked, kernel_sizes, dilations, widths):
     packed = (len(kernel_sizes), len(dilations), TAPS * C * C)
     if (stacked["mma_kernel_sizes"] != kernel_sizes
             or any(stacked[k].shape != packed or stacked[k].dtype != torch.bfloat16
-                   or stacked[k].device != x.device for k in ("w1_mma", "w2_mma"))):
+                   or stacked[k].device != x.device for k in ("w1_mma", "w2_mma"))
+            or any(stacked[k].dtype != torch.float32 for k in ("b1", "b2"))):
         raise ValueError(f"{name} kernel: w1_mma/w2_mma must be bf16 {packed} on "
-                         f"{x.device}, laid out for kernel sizes {kernel_sizes}; "
-                         "make them with kernel_weights")
+                         f"{x.device}, laid out for kernel sizes {kernel_sizes}, and "
+                         "b1/b2 fp32; make them with kernel_weights")
     return stacked
 
 
@@ -267,14 +280,15 @@ def mrf_stack(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     CUDA tensors run the hand-written bf16 tensor-core kernel (one launch
     per branch and pair, counted in `mrf_stack.launches`) on the weights of
     `kernel_weights` (fp32 weights are cast per call); CPU tensors run the
-    plain version in the weights' type."""
+    plain version in the weights' type.  bf16 x is upcast, and the output
+    comes back in x's type."""
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stack: no kernel for device {x.device}")
-    out, n = _launch(x, stacked, tuple(kernel_sizes), tuple(dilations))
+    out, n = _launch(upcast(x), stacked, tuple(kernel_sizes), tuple(dilations))
     mrf_stack.launches += n
-    return out
+    return out.to(x.dtype)
 
 
 mrf_stack.launches = 0
@@ -287,9 +301,9 @@ def mrf_stack_folded(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
     prefolded=True takes x in the TPU kernel's folded layout [B, T/F, F*C]
     (x_folded[b, i, f*C + c] == x[b, F*i + f, c]), which is a view of the
     contiguous [B, T, C] signal; otherwise x is [B, T, C].  Returns
-    [B, T, C].  CUDA tensors run the same bf16 kernel as `mrf_stack`,
-    counted in `mrf_stack_folded.launches`; CPU tensors run the plain
-    version."""
+    [B, T, C] in x's type.  CUDA tensors run the same bf16 kernel as
+    `mrf_stack`, counted in `mrf_stack_folded.launches`; CPU tensors run the
+    plain version."""
     if prefolded:
         fold = stacked["fold"]
         B, R, Cf = x.shape
@@ -301,9 +315,9 @@ def mrf_stack_folded(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stack_folded: no kernel for device {x.device}")
-    out, n = _launch(x, stacked, tuple(kernel_sizes), tuple(dilations))
+    out, n = _launch(upcast(x), stacked, tuple(kernel_sizes), tuple(dilations))
     mrf_stack_folded.launches += n
-    return out
+    return out.to(x.dtype)
 
 
 mrf_stack_folded.launches = 0
@@ -354,11 +368,13 @@ def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5))
     CUDA tensors run `csrc/mrf_stack_streamed.cu`, a bf16 tensor-core kernel
     in clusters of 4 CTAs that split the output channels (counted in `mrf_stack_streamed.launches`), on the
     weights of `kernel_weights` for the whole stage (fp32 weights are cast
-    per call); CPU tensors run the plain version in the weights' type."""
+    per call); CPU tensors run the plain version in the weights' type.  bf16
+    x is upcast, and the output comes back in x's type."""
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stack_streamed: no kernel for device {x.device}")
+    dtype, x = x.dtype, upcast(x)
     kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
     stacked = _mma_weights("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, (256,))
     B, T, C = x.shape
@@ -375,7 +391,7 @@ def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5))
             _int_array(dilations), torch.cuda.current_stream().cuda_stream)
         cuda_build.check(lib, "mrf_stack_streamed", err)
     mrf_stack_streamed.launches += 1
-    return out
+    return out.to(dtype)
 
 
 mrf_stack_streamed.launches = 0

@@ -1,19 +1,33 @@
 """Serving pipeline (`mixgantts_tpu/pipeline.py`): a text batch -> int16
 waveforms on one GPU.
 
-Linguistic encoder -> aux decoder -> diffusion sampling -> HiFi-GAN, with
+Linguistic encoder -> aux decoder -> diffusion sampling -> vocoder, with
 shapes bucketed as in the JAX package (`tpu.length_buckets` /
 `tpu.phone_buckets` in model.yaml), the whole frame bucket vocoded, and the
 int16 conversion done on the device.  Device work is asynchronous:
 `submit` only enqueues it, and `collect` is the one place that waits for
 the device (the copies to the host).
+
+`tpu.compute_dtype: bfloat16` serves bf16 copies of the generator and the
+vocoder, as the JAX pipeline casts its `params` (`cast_floats`): every
+parameter rounded to bf16, while BatchNorm's running statistics, the
+diffusion tables and `spec_min`/`spec_max` (buffers here, `batch_stats` and
+constants there) stay fp32; the caller's modules are left as they are.
+Activations follow the parameters' type, so the decoder, PostNet, denoiser
+and vocoder compute in bf16.  The linguistic encoder's parameters are
+rounded to bf16 but held in fp32, so it computes in fp32 on bf16 values: in
+the JAX package its fp32 masks and tables promote every encoder product
+after the first to fp32, and the predicted durations, which set the
+output's length, are computed so.  The int16 conversion is fp32.
 """
 
 import collections
+import copy
 import warnings
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from .utils.tools import bucket_length
 
@@ -30,6 +44,25 @@ class _Pending:
         self.B, self.T = B, T
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cast_parameters(module, dtype, rounded=()):
+    """A copy of `module` with every floating-point parameter in `dtype`,
+    except that those of the submodules named in `rounded` are rounded to
+    `dtype` and keep their type; every buffer as it is (cached stacks are
+    rebuilt: `_apply`)."""
+    out = copy.deepcopy(module)
+    keep = {id(p) for name in rounded for p in out.get_submodule(name).parameters()}
+
+    def cast(t):
+        if not (isinstance(t, nn.Parameter) and t.is_floating_point()):
+            return t
+        return t.to(dtype).to(t.dtype) if id(t) in keep else t.to(dtype)
+
+    return out._apply(cast)
+
+
 class TTSPipeline:
     """Text -> wav synthesis on the model's device.
 
@@ -42,9 +75,15 @@ class TTSPipeline:
         if mesh is not None:
             raise NotImplementedError("sharded serving over a mesh is not ported yet")
         tpu_cfg = model_config.get("tpu", {}) or {}
-        if tpu_cfg.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                "compute_dtype bfloat16 is not ported yet: the port computes in float32")
+        name = tpu_cfg.get("compute_dtype", "float32")
+        if name not in COMPUTE_DTYPES:
+            raise ValueError(f"tpu.compute_dtype {name!r}: one of {sorted(COMPUTE_DTYPES)}")
+        self.compute_dtype = COMPUTE_DTYPES[name]
+        if self.compute_dtype != torch.float32:
+            model = cast_parameters(model, self.compute_dtype, rounded=("linguistic_encoder",))
+            vocoder = type(vocoder)(vocoder.name, cast_parameters(vocoder.generator,
+                                                                  self.compute_dtype),
+                                    vocoder.config)
         self.model = model
         self.vocoder = vocoder
         self.device = next(model.parameters()).device
@@ -63,7 +102,8 @@ class TTSPipeline:
     def __call__(self, batch, p_control=1.0, e_control=1.0, d_control=1.0,
                  generator=None, return_mel=True, noise_override=None):
         """batch: dict with texts [B, P], src_lens, word_boundaries [B, W],
-        src_w_lens, speakers.  Returns (wavs, mel, mel_lens): B int16
+        src_w_lens, speakers, and spker_embeds [B, D] for a model with an
+        external speaker embedder.  Returns (wavs, mel, mel_lens): B int16
         waveforms trimmed to each predicted mel length, the mel batch as
         float32 numpy (None with return_mel=False), and the lengths."""
         return self.collect(
@@ -78,9 +118,8 @@ class TTSPipeline:
         torch.Generator on the model's device) draws the diffusion noise;
         by default each call seeds one from the pipeline's call counter.
         `noise_override` injects the noise instead ({"start_noise":
-        [B, T, M], "step_noises": [S, B, T, M]} at the bucketed T)."""
-        if batch.get("spker_embeds") is not None:
-            raise NotImplementedError("external speaker embeddings are not ported yet")
+        [B, T, M], "step_noises": [S, B, T, M]} at the bucketed T), in the
+        compute type."""
         texts = np.asarray(batch["texts"])
         wb = np.asarray(batch["word_boundaries"])
         B = texts.shape[0]
@@ -99,15 +138,19 @@ class TTSPipeline:
             generator = torch.Generator(self.device).manual_seed(self._call_count)
             self._call_count += 1
         if noise_override is not None:
-            noise_override = {k: on_device(v, torch.float32)
+            noise_override = {k: on_device(v, self.compute_dtype)
                               for k, v in noise_override.items()}
+        spker_embeds = batch.get("spker_embeds")
+        if spker_embeds is not None:
+            spker_embeds = on_device(spker_embeds, self.compute_dtype)
         with torch.no_grad():
             out = self.model(
                 on_device(batch["speakers"]), on_device(texts),
                 on_device(batch["src_lens"]), on_device(wb),
                 on_device(batch["src_w_lens"]), max_mel_len=T,
                 p_control=p_control, e_control=e_control, d_control=d_control,
-                noise_override=noise_override, generator=generator)
+                noise_override=noise_override, generator=generator,
+                spker_embeds=spker_embeds)
             mel = out.mel_pred
             if self.model.mode == "aux":
                 # element 0 of aux mode's trace is the clamped normalised mel

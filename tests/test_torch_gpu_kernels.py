@@ -14,7 +14,11 @@ held against its plain version with the same bf16 weights (which
 rounds where it rounds) at 4e-3 * max|plain| + 1e-5, one bf16 step of the
 largest value: the same products summed in another order, plus bf16
 rounding flips of an intermediate (the MRF's conv1 output, the denoiser's y
-and g) where the two sums straddle a rounding boundary.
+and g) where the two sums straddle a rounding boundary.  The denoiser
+kernel with a multi-speaker model's speaker term (in its conditioner
+projection) is held to the same bar.  Fed bf16 activations (a model
+computing in bf16), the kernels upcast them exactly and must give the same
+bits as when fed that fp32 upcast, rounded to bf16.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ from mixgantts_tpu_torch.models.denoiser import Denoiser
 from mixgantts_tpu_torch.ops import denoiser_stack
 from mixgantts_tpu_torch.ops.denoiser_stack import (
     denoiser_kernel_weights, fused_residual_stack, fused_residual_stack_plain,
+    speaker_projections,
 )
 from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from mixgantts_tpu_torch.ops.mrf import (
@@ -113,6 +118,58 @@ def test_denoiser_fp32_weights_are_cast_and_runs_repeat(cuda, B, T):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
     for a, b in zip(got, fused_residual_stack_plain(x, cond, step, kw)):
         assert_close(a, b, BF16_TOL)
+
+
+@pytest.mark.parametrize("B,T", [(1, 1000), (4, 512), (2, 37)])
+def test_denoiser_kernel_with_speaker_term_matches_plain(cuda, B, T):
+    """The speaker term [L, B, C] rides in the conditioner projection (a
+    `baddbmm` bias): the same kernel, the same launches, against the plain
+    bf16 version given the same term."""
+    x, cond, step, stacked = denoiser_inputs(B, T)
+    r = np.random.RandomState(B)
+    stacked["spk_w"] = torch.tensor(r.randn(20, 256, 256) * 256 ** -0.5, dtype=torch.float32,
+                                    device=cuda)
+    kw = denoiser_kernel_weights(stacked)
+    spk = speaker_projections(torch.randn(B, 256, device=cuda), kw)
+    n0 = fused_residual_stack.launches
+    got = fused_residual_stack(x, cond, step, kw, spk)
+    torch.cuda.synchronize()
+    n = fused_residual_stack.launches - n0
+    fused_residual_stack(x, cond, step, kw)
+    assert n == fused_residual_stack.launches - n0 - n > 0
+    want = fused_residual_stack_plain(x, cond, step, kw, spk)
+    for a, b in zip(got, want):
+        assert_close(a, b, BF16_TOL)
+    without = fused_residual_stack_plain(x, cond, step, kw)
+    assert (got[1] - without[1]).abs().max() > 1e-2
+
+
+def test_kernels_take_bf16_activations_bit_equal(cuda):
+    """bf16 x (and cond, step embedding, speaker term's embedding) give
+    exactly the fp32 upcast's result, rounded to bf16; the denoiser's hoisted
+    projections are rounded to bf16 on that path (`_launch` with dtype
+    bf16 on the upcast inputs)."""
+    x, cond, step, stacked = denoiser_inputs(2, 300)
+    kw = denoiser_kernel_weights(stacked)
+    xb, cb, sb = x.bfloat16(), cond.bfloat16(), step.bfloat16()
+    got = fused_residual_stack(xb, cb, sb, kw)
+    want = denoiser_stack._launch(xb.float(), cb.float(), sb.float(), kw, None, torch.bfloat16)
+    for a, b in zip(got, want[:2]):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b.bfloat16())
+    for C, kernel_sizes in ((256, (11,)), (128, (3, 7, 11))):
+        y = torch.randn(2, 700, C, device=cuda).bfloat16()
+        st = kernel_weights(mrf_weights(C, kernel_sizes), kernel_sizes)
+        got = mrf_stack(y, st, kernel_sizes)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, mrf_stack(y.float(), st, kernel_sizes).bfloat16())
+    y = torch.randn(2, 1000, 32, device=cuda).bfloat16()
+    st = dict(kernel_weights(mrf_weights(32, (3, 7, 11))), fold=4)
+    got = mrf_stack_folded(y.reshape(2, 250, 128), st, prefolded=True)
+    assert torch.equal(got, mrf_stack_folded(y.float().reshape(2, 250, 128), st,
+                                             prefolded=True).bfloat16())
+    y = torch.randn(1, 800, 256, device=cuda).bfloat16()
+    st = kernel_weights(mrf_weights(256, (3, 7, 11)))
+    assert torch.equal(mrf_stack_streamed(y, st), mrf_stack_streamed(y.float(), st).bfloat16())
 
 
 def test_denoiser_stacks_bf16_on_cuda(cuda):

@@ -37,7 +37,16 @@ package's Pallas kernels, which run here in interpret mode:
   apart.  fp32 weights give exactly what the fp32 plain version gave before
   the bf16 kernel; `denoiser_kernel_weights` lays out each CTA's columns in
   wgmma's order, element for element; `models.denoiser.Denoiser` stacks
-  fp32 on the CPU and bf16 where `stack_dtype` asks.
+  fp32 on the CPU and bf16 where `stack_dtype` asks;
+- bf16 activations (a model computing in bf16): the MRF entry points and
+  the denoiser stack fed bf16 signals, weights and biases against the
+  Pallas kernels in interpret mode on the same bf16 values, outputs in
+  bf16 on both sides: max |diff| <= 2^-7 and mean <= 2^-10 of max|want|
+  (two bf16 steps: the output's rounding, and the hoisted projections,
+  which JAX rounds after the product and again after the bias and the
+  port once);
+- the speaker term of a multi-speaker denoiser joins the conditioner
+  projection, per batch row, and never the residual.
 
 On CPU tensors the port's entry points take the plain versions, which
 the entry-point cases check too.
@@ -229,6 +238,83 @@ def test_mrf_stack_folded_bf16_matches_pallas_bf16(fold, tile):
     got = tmrf.mrf_stack_folded(torch.as_tensor(np.asarray(xf)), st, prefolded=True)
     assert got.shape == (B, T, C)
     assert_bf16_close(got, want)
+
+
+def assert_bf16_outputs_close(got, want):
+    """Both sides in bf16 (bf16 activations in, the output in x's type):
+    max|diff| within two bf16 steps of max|want| (2^-7: the output's own
+    rounding, plus the hoisted projections, which the JAX package rounds
+    twice, product then sum with the bias, and the port once) and mean
+    |diff| within 2^-10 of it."""
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    got = got.float().numpy().astype(np.float64)
+    want = np.asarray(want, np.float64)
+    scale = np.abs(want).max()
+    err = np.abs(got - want)
+    assert err.max() <= 2 ** -7 * scale, f"max|diff| {err.max():.3g}, max|want| {scale:.3g}"
+    assert err.mean() <= 2 ** -10 * scale, f"mean|diff| {err.mean():.3g}, max|want| {scale:.3g}"
+
+
+@pytest.mark.parametrize("fold", [None, 4])
+def test_mrf_stack_bf16_activations_match_pallas(fold):
+    """bf16 signal and bf16 weights and biases (what the TPU kernels read
+    under the JAX package's bf16 compute) against the Pallas kernels in
+    interpret mode on the same bf16 values; the output in bf16."""
+    C, T, B, rks = 16, 96, 2, (3, 7, 11)
+    x, params = mrf_case(C, T, B, rks, seed=11)
+    x16 = x.astype(jnp.bfloat16)
+    st16 = {k: v.astype(jnp.bfloat16) for k, v in jvoc.stack_mrf_params(params, 0, rks).items()}
+    port_st = as_torch({k: v.astype(jnp.float32) for k, v in st16.items()})
+    port_st = {k: v.bfloat16() for k, v in port_st.items()}
+    xt = torch.as_tensor(np.asarray(x16.astype(jnp.float32))).bfloat16()
+    if fold is None:
+        want = jvoc.mrf_stack(x16, st16, rks, interpret=True)
+        for fn in (tmrf.mrf_stack_plain, tmrf.mrf_stack):
+            assert_bf16_outputs_close(fn(xt, port_st, rks), want)
+    else:
+        folded = jvoc.stack_mrf_params_folded(params, 0, fold)
+        folded = {k: v if k == "fold" else v.astype(jnp.bfloat16) for k, v in folded.items()}
+        want = jvoc.mrf_stack_folded(x16.reshape(B, T // fold, fold * C), folded, rks,
+                                     interpret=True, prefolded=True)
+        got = tmrf.mrf_stack_folded(xt.reshape(B, T // fold, fold * C), dict(port_st, fold=fold),
+                                    rks, prefolded=True)
+        assert_bf16_outputs_close(got, want.reshape(B, T, C))
+
+
+def test_denoiser_stack_bf16_activations_match_pallas():
+    """bf16 x, cond and step embedding with every stacked weight in bf16
+    (the JAX package's bf16 compute) against the Pallas kernel in interpret
+    mode on the same values; the outputs in bf16."""
+    x, cond, step, stacked = denoiser_case(2, 50, 4, 32, 48, seed=3)
+    low = {k: v.astype(jnp.bfloat16) for k, v in stacked.items()}
+    args16 = [a.astype(jnp.bfloat16) for a in (x, cond, step)]
+    want = jpallas.fused_residual_stack(*args16, low, interpret=True)
+    args = [torch.as_tensor(np.asarray(a.astype(jnp.float32))).bfloat16() for a in args16]
+    weights = {k: torch.as_tensor(np.asarray(v.astype(jnp.float32))).bfloat16()
+               for k, v in low.items()}
+    for fn in (tden.fused_residual_stack_plain, tden.fused_residual_stack):
+        for got, w in zip(fn(*args, weights), want):
+            assert_bf16_outputs_close(got, w)
+
+
+def test_denoiser_stack_speaker_term_joins_the_conditioner():
+    """The speaker term spk_proj [L, B, C] is added where the conditioner
+    projection's bias is, per batch row, and never to the residual: the
+    stack with it equals, row by row, the stack whose cond_b carries that
+    row's term (fp32 and bf16 weights; the entry point on the CPU too)."""
+    B, T, L, C, Hc = 2, 30, 3, 16, 24
+    x, cond, step, stacked = denoiser_case(B, T, L, C, Hc, seed=5)
+    x, cond, step = _torch_args(x, cond, step)
+    spk = torch.as_tensor(np.random.RandomState(5).randn(L, B, C).astype(np.float32))
+    for st in (as_torch(stacked), tden.denoiser_kernel_weights(as_torch(stacked))):
+        got = tden.fused_residual_stack(x, cond, step, st, spk)
+        for b in range(B):
+            want = tden.fused_residual_stack_plain(
+                x[b:b + 1], cond[b:b + 1], step[b:b + 1], dict(st, cond_b=st["cond_b"] + spk[:, b]))
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g[b].numpy(), w[0].numpy(), rtol=1e-5, atol=1e-5)
+        moved = tden.fused_residual_stack_plain(x, cond, step, st)
+        assert (moved[1] - got[1]).abs().max() > 1e-2
 
 
 def _mrf_stack_plain_fp32_reference(x, stacked, kernel_sizes, dilations):

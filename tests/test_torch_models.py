@@ -237,5 +237,8 @@ def test_get_vocoder_random_init_honours_num_mels():
     # seeded: two builds give the same weights (torch.equal: exact, and no
     # lazy imports that other files' stub modules can break)
     assert torch.equal(a.generator.conv_post.weight, b.generator.conv_post.weight)
-    with pytest.raises(NotImplementedError, match="MelGAN"):
-        get_vocoder({"vocoder": {"model": "MelGAN", "speaker": "x"}}, device="cpu")
+    melgan = get_vocoder({"vocoder": {"model": "MelGAN", "speaker": "x"}},
+                         ckpt_dir="/nonexistent", num_mels=20, device="cpu")
+    assert melgan.name == "MelGAN" and melgan.generator.model[1].in_channels == 20
+    with pytest.raises(ValueError, match="unknown vocoder"):
+        get_vocoder({"vocoder": {"model": "WaveNet", "speaker": "x"}}, device="cpu")

@@ -7,8 +7,16 @@
   test_vocoder.py: mel mean absolute error below 1e-3 (BASELINE.md), and
   int16 samples within 1 LSB (fp32 sums taken in another order can move a
   sample across a rounding boundary).
-- `submit`/`collect`/`stream`, the frame-budget warning and the options
-  not ported yet.
+- `tpu.compute_dtype: bfloat16`: the port's pipeline on bf16 copies of
+  the generator and vocoder against the JAX package's `model.apply` on
+  `cast_floats(params, bf16)` with the same noise in bf16: equal lengths
+  and mel mean |diff| < 5% of max|mel| (tests/test_pipeline.py's bar), and
+  the bf16 vocoder against the fp32 one on that mel at SNR > 30 dB
+  (tests/test_vocoder.py's bar).
+- `submit`/`collect`/`stream`, the frame-budget warning, the option not
+  ported yet (a mesh), speaker embeddings reaching the model, and HiFi-GAN
+  configs with per-branch dilations (the eager route, against flax at
+  rtol 1e-4 / atol 1e-5).
 - No module of the port imports JAX, flax or the JAX package (an AST scan),
   and the entry points refuse to run without a GPU unless asked for the CPU.
 """
@@ -27,6 +35,7 @@ import torch
 
 from mixgantts_tpu.models.hifigan import HiFiGANGenerator as JHiFiGAN
 from mixgantts_tpu.models.vocoder import Vocoder as JVocoder
+from mixgantts_tpu.pipeline import cast_floats
 from mixgantts_tpu.utils.tools import bucket_length
 from mixgantts_tpu_torch.config import NormStats, get_configs_of
 from mixgantts_tpu_torch.models import hifigan as thifigan
@@ -36,8 +45,8 @@ from mixgantts_tpu_torch.pipeline import TTSPipeline
 from test_pipeline import MODEL_CONFIG, N_MELS, PREPROCESS_CONFIG
 from test_vocoder import SMALL_CONFIG
 from torch_port_helpers import (
-    jax_generator, numpy_tree, text_batch, torch_generator_like,
-    torch_hifigan_like,
+    jax_generator, jax_multispeaker_generator, numpy_tree, speaker_batch, t,
+    text_batch, torch_generator_like, torch_hifigan_like,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,10 +75,14 @@ def port_pipeline(mode, **kwargs):
                        PRE_CONFIG, MODEL_CONFIG, **kwargs)
 
 
-def jax_slice(mode, jvoc, batch, noise):
+def jax_slice(mode, jvoc, batch, noise, dtype=jnp.float32):
     """What the JAX package's pipeline computes, with injected noise: the
-    same buckets, the whole frame bucket vocoded, the same int16 clip."""
+    same buckets, the whole frame bucket vocoded, the same int16 clip; in
+    bf16, its parameters and the noise cast as its pipeline casts them."""
     model, variables, apply = jax_generator(mode)
+    if dtype != jnp.float32:
+        variables = dict(variables, params=cast_floats(variables["params"], dtype))
+        noise = cast_floats({k: jnp.asarray(v) for k, v in noise.items()}, dtype)
     buckets = MODEL_CONFIG["tpu"]
     P = bucket_length(batch["texts"].shape[1], buckets["phone_buckets"])
     W = bucket_length(batch["word_boundaries"].shape[1], buckets["phone_buckets"])
@@ -117,6 +130,38 @@ def test_slice_matches_jax(mode):
         assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
 
 
+def slice_noise(mode, seed=5, B=2, T=128):
+    model, _, _ = jax_generator(mode)
+    r = np.random.RandomState(seed)
+    return {"start_noise": r.randn(B, T, N_MELS).astype(np.float32),
+            "step_noises": r.randn(model.schedule.num_timesteps, B, T,
+                                   N_MELS).astype(np.float32)}
+
+
+@pytest.mark.parametrize("mode", ["shallow", "naive"])
+def test_bf16_pipeline_matches_jax(mode):
+    batch = text_batch(B=2, P=10, W=4, seed=2)
+    noise = slice_noise(mode)
+    jvoc, tvoc = vocoders()
+    _, want_mel, want_lens, _ = jax_slice(mode, jvoc, batch, noise, jnp.bfloat16)
+    cfg16 = copy.deepcopy(MODEL_CONFIG)
+    cfg16["tpu"]["compute_dtype"] = "bfloat16"
+    pipe = port_pipeline(mode, mel_dtype=torch.float32)
+    pipe16 = TTSPipeline(pipe.model, tvoc, PRE_CONFIG, cfg16, mel_dtype=torch.float32)
+    wavs, mel, lens = pipe16(batch, noise_override=noise)
+    np.testing.assert_array_equal(lens, want_lens)
+    assert mel.dtype == np.float32 and np.isfinite(mel).all()
+    assert np.abs(mel - want_mel).mean() / np.abs(want_mel).max() < 0.05
+    for wav, n in zip(wavs, lens):
+        assert wav.dtype == np.int16 and len(wav) == n * HOP
+    # the vocoder: bf16 copy against the fp32 one on this mel
+    with torch.no_grad():
+        ref = tvoc(torch.as_tensor(mel))
+        low = pipe16.vocoder(torch.as_tensor(mel))
+    snr = 10 * np.log10((ref ** 2).mean().item() / max(((ref - low) ** 2).mean().item(), 1e-12))
+    assert snr > 30, f"bf16 vocoder SNR {snr:.1f} dB"
+
+
 def test_submit_collect_and_stream():
     """stream() keeps batches in flight and yields what one call per batch
     gives, in order; explicit generators set the draws; return_mel=False
@@ -154,25 +199,66 @@ def test_pipeline_warns_when_frame_budget_saturates():
 
 
 def test_pipeline_options_not_ported_raise():
+    """Sharded serving over a mesh is not ported and raises, as does an
+    unknown compute_dtype; bfloat16 serves bf16 copies (BatchNorm
+    statistics and the diffusion tables stay fp32) and leaves the caller's
+    modules in fp32; spker_embeds reach a model with an external speaker
+    embedder."""
     model, variables, _ = jax_generator("shallow")
     port = torch_generator_like(model, variables)
     _, tvoc = vocoders()
     with pytest.raises(NotImplementedError, match="mesh"):
         TTSPipeline(port, tvoc, PRE_CONFIG, MODEL_CONFIG, mesh=object())
-    cfg16 = copy.deepcopy(MODEL_CONFIG)
-    cfg16["tpu"]["compute_dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        TTSPipeline(port, tvoc, PRE_CONFIG, cfg16)
-    batch = dict(text_batch(), spker_embeds=np.zeros((2, 512), np.float32))
-    with pytest.raises(NotImplementedError, match="speaker"):
-        TTSPipeline(port, tvoc, PRE_CONFIG, MODEL_CONFIG).submit(batch)
+    cfg = copy.deepcopy(MODEL_CONFIG)
+    cfg["tpu"]["compute_dtype"] = "float16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TTSPipeline(port, tvoc, PRE_CONFIG, cfg)
+    cfg["tpu"]["compute_dtype"] = "bfloat16"
+    pipe = TTSPipeline(port, tvoc, PRE_CONFIG, cfg)
+    assert pipe.model is not port and pipe.vocoder.generator is not tvoc.generator
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+    assert all(p.dtype == torch.float32 for p in tvoc.generator.parameters())
+    assert all(p.dtype == torch.bfloat16 for p in pipe.vocoder.generator.parameters())
+    assert pipe.model.postnet.convolutions[0][0].conv.weight.dtype == torch.bfloat16
+    assert pipe.model.diffusion.denoise_fn.input_projection[0].conv.weight.dtype == torch.bfloat16
+    # the encoder's parameters hold bf16 values in fp32
+    w = pipe.model.linguistic_encoder.src_emb.weight
+    assert w.dtype == torch.float32 and torch.equal(w, w.bfloat16().float())
+    for name, buf in pipe.model.named_buffers():
+        assert buf.dtype == dict(port.named_buffers())[name].dtype, name
+    assert pipe.model.postnet.convolutions[0][1].running_var.dtype == torch.float32
+
+    ms_model, ms_variables, _ = jax_multispeaker_generator("shallow", "DeepSpeaker")
+    ms = TTSPipeline(torch_generator_like(ms_model, ms_variables), tvoc, PRE_CONFIG, MODEL_CONFIG,
+                     mel_dtype=torch.float32)
+    batch = speaker_batch(text_batch(), "DeepSpeaker")
+    noise = slice_noise("shallow")
+    _, mel, _ = ms(batch, noise_override=noise)
+    _, moved, _ = ms(dict(batch, spker_embeds=batch["spker_embeds"][::-1].copy()),
+                     noise_override=noise)
+    assert np.abs(mel - moved).max() > 1e-3
+    with pytest.raises(ValueError, match="spker_embeds"):
+        ms({k: v for k, v in batch.items() if k != "spker_embeds"})
 
 
 def test_hifigan_rejects_per_branch_dilations():
+    """The kernels' route (`fused_apply`) rejects branches with different
+    dilation schedules; the generator, built from such a config, takes the
+    eager route and agrees with the flax HiFiGANGenerator."""
     cfg = dict(SMALL_CONFIG, resblock_dilation_sizes=[[1, 3], [1, 2]])
     gen = thifigan.HiFiGANGenerator.from_config(cfg, device="cpu")
+    assert not gen.kernel_route
     with pytest.raises(NotImplementedError, match="dilation"):
-        gen(torch.zeros(1, 4, cfg["num_mels"]))
+        thifigan.fused_apply(gen, torch.zeros(1, 4, cfg["num_mels"]))
+    module = JHiFiGAN.from_config(cfg)
+    mel = np.random.RandomState(7).randn(2, 9, cfg["num_mels"]).astype(np.float32)
+    params = jax.jit(module.init)(jax.random.PRNGKey(7), jnp.asarray(mel))["params"]
+    want = jax.jit(module.apply)({"params": params}, jnp.asarray(mel))
+    port = torch_hifigan_like(cfg, params)
+    with torch.no_grad():
+        got = port(t(mel))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
 def port_files():
@@ -224,6 +310,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     small = get_vocoder(MODEL_CONFIG, ckpt_dir="/nonexistent",
                         num_mels=N_MELS, device="cpu")
     assert next(small.generator.parameters()).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="multi-speaker"):
-        MixGANTTS.from_configs("shallow", pre, dict(cfg, multi_speaker=True),
-                               stats, device="cpu")
+    ms = MixGANTTS.from_configs("shallow", pre, dict(cfg, multi_speaker=True), stats,
+                                n_speakers=5, device="cpu")
+    assert ms.speaker_emb.num_embeddings == 5
+    assert next(ms.parameters()).device.type == "cpu"

@@ -20,6 +20,8 @@ from test_pipeline import text_batch, tiny_model  # noqa: F401  (re-exported)
 # frames per word the duration predictor's bias is set to, so that random
 # weights give utterances of a realistic length
 DURATION_FRAMES = 6.0
+# the tiny multi-speaker models: speakers in the table, external embedding size
+N_SPEAKERS, SPK_DIM = 3, 12
 
 
 def numpy_tree(tree):
@@ -36,7 +38,8 @@ def init_jax_generator(model, batch, T, seed=0):
          "diffusion": jax.random.PRNGKey(2)},
         speakers=batch["speakers"], texts=batch["texts"],
         src_lens=batch["src_lens"], word_boundaries=batch["word_boundaries"],
-        src_w_lens=batch["src_w_lens"], max_mel_len=T, train=False)
+        src_w_lens=batch["src_w_lens"], spker_embeds=batch.get("spker_embeds"),
+        max_mel_len=T, train=False)
     variables = numpy_tree(variables)
     proj = variables["params"]["linguistic_encoder"]["duration_predictor"]["proj"]
     proj["bias"] = np.full_like(proj["bias"], math.log(DURATION_FRAMES))
@@ -65,6 +68,30 @@ def jax_generator(mode):
     return model, variables, apply
 
 
+def speaker_batch(batch, embedder, seed=0):
+    """`batch` with speakers drawn from the table, and for an external
+    embedder, spker_embeds [B, SPK_DIM]."""
+    r = np.random.RandomState(seed)
+    B = batch["texts"].shape[0]
+    out = dict(batch, speakers=r.randint(0, N_SPEAKERS, B).astype(np.int64))
+    if embedder != "none":
+        out["spker_embeds"] = r.randn(B, SPK_DIM).astype(np.float32)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_multispeaker_generator(mode, embedder):
+    """`jax_generator` of a multi-speaker model: a table of N_SPEAKERS
+    speakers (embedder "none") or a projection of SPK_DIM-wide external
+    embeddings."""
+    model = tiny_model(mode).clone(multi_speaker=True, n_speakers=N_SPEAKERS,
+                                   embedder_type=embedder, external_speaker_dim=SPK_DIM)
+    variables = init_jax_generator(model, speaker_batch(text_batch(), embedder), 32)
+    apply = jax.jit(model.apply,
+                    static_argnames=("max_mel_len", "train", "aux_only"))
+    return model, variables, apply
+
+
 def torch_generator_like(model, variables):
     """The port's MixGANTTS with the JAX model's hyper-parameters and the
     JAX weights, on the CPU."""
@@ -83,7 +110,9 @@ def torch_generator_like(model, variables):
         vp_filter_size=model.vp_filter_size,
         vp_kernel_size=model.vp_kernel_size,
         residual_channels=model.residual_channels,
-        residual_layers=model.residual_layers, device="cpu")
+        residual_layers=model.residual_layers, multi_speaker=model.multi_speaker,
+        n_speakers=model.n_speakers, embedder_type=model.embedder_type,
+        external_speaker_dim=model.external_speaker_dim, device="cpu")
     port.load_state_dict(generator_state_dict(
         variables["params"], variables.get("batch_stats", {})), strict=True)
     return port
