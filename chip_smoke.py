@@ -1,9 +1,10 @@
 """Smoke test and first measurement of the PyTorch/CUDA port on one NVIDIA
 H100: shallow-mode LJSpeech and AISHELL3 text -> wav through
-`mixgantts_tpu_torch`, in fp32 and bf16, with HiFi-GAN and MelGAN.
+`mixgantts_tpu_torch`, in fp32 and bf16, with HiFi-GAN and MelGAN, and a
+few training steps in each mode (aux, naive, shallow).
 
     python3 chip_smoke.py                  # needs one CUDA device
-    python3 chip_smoke.py --profile DIR    # keeps the request traces in DIR
+    python3 chip_smoke.py --profile DIR    # keeps the request and train-step traces in DIR
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -76,7 +77,22 @@ prints no result line):
    request;
 and the synthesis CLI from Chinese text (`--dataset AISHELL3 --mode single
 --text <hanzi> --speaker_id N`) over a temporary preprocessed directory, on
-phase 9's weights; every serving kernel must launch.
+phase 9's weights; every serving kernel must launch;
+12. training at the full width of the LJSpeech configs (fp32, TF32 off,
+   random weights from seed 0, the shipped `dga` helper) through
+   `mixgantts_tpu_torch.train`: aux and naive at B = batch_size (8),
+   shallow at batch_size_shallow (4), synthetic batches from a seed at
+   phone bucket 128, word bucket 64, mel bucket 1000 (lengths 600-1000):
+   a warm-up step and three timed ones (CUDA events); finite metrics
+   (`check_finite_metrics`), every parameter the mode trains moved (D's in
+   naive and shallow) and the others not; none of the four kernels'
+   counters, set to 0 before the steps, may move (training takes the
+   denoiser block by block, as the JAX package's training takes its flax
+   blocks); ms per step, peak memory, one traced shallow step with its
+   device busy share; then one shallow and one naive step at B=2, T=128
+   with dropout off and the same injected t and noise on the GPU and on
+   the CPU: losses at rtol 1e-4, each gradient tensor within 1e-3 * max|g|
+   on >= 99% of its elements and 1e-2 * max|g| on all (ReLU kinks).
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 phase 4, or phase 7 for `mrf_stack_streamed`; max error in phase 3 or 7;
@@ -720,13 +736,21 @@ def trace_request(torch, pipe, batch, path, tag="profile", top=15):
     """One traced request (after one untraced): kernel time by name and the
     device's busy share of the wall time, from the chrome trace at `path`.
     Returns {kernel name: device us}."""
+    pipe(batch)
+    return trace(torch, lambda: pipe(batch, return_mel=False), path, tag, top)
+
+
+def trace(torch, fn, path, tag, top=15):
+    """One traced call of fn: kernel time by name and the device's busy
+    share of the wall time (the union of kernel spans), from the chrome
+    trace at `path`.  Returns {kernel name: device us}."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    pipe(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(batch, return_mel=False)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -977,10 +1001,224 @@ def mandarin_cli_phase(torch, pre, cfg, model):
         raise AssertionError(f"a serving kernel was not launched on the Mandarin CLI path: {launches}")
 
 
+# Phase 12: training.  Parameters that may keep their values through the
+# steps though their mode trains them: the attention K-projection biases,
+# whose gradient is zero by symmetry (softmax is shift-invariant), so only
+# rounding noise moves them.  And those a mode does not train: aux mode
+# never runs the denoiser; shallow mode detaches the variance predictors'
+# outputs, as the JAX package's stop_gradient does.
+TRAIN_MAY_STAY = r"(conv_k|w_ks)\.bias$"
+TRAIN_FROZEN = {"aux": r"^diffusion\.", "naive": None,
+                "shallow": r"(pitch|energy|duration)_predictor\."}
+TRAIN_STEPS = 3            # timed steps per mode, after one warm-up step
+
+
+def train_batch(torch, pre, B, P, W, T, lens, seed, device=None):
+    """A synthetic training batch from `seed`, on `device`: B utterances
+    with mel lengths in `lens` at frame bucket T, phone bucket P, word
+    bucket W (1-2 phones a word); phone durations (each >= 1) summing to
+    the mel length; pitch and energy targets inside the stats' ranges;
+    mels inside [spec_min, spec_max], zero past the length."""
+    import numpy as np
+    from mixgantts_tpu_torch.config import NormStats
+    from mixgantts_tpu_torch.text.symbols import symbols
+    M = pre["preprocessing"]["mel"]["n_mel_channels"]
+    stats = NormStats.default(M)
+    r = np.random.RandomState(seed)
+    mel_lens = r.randint(lens[0], lens[1] + 1, B)
+    src_w_lens = r.randint(W // 2, W + 1, B)
+    wb = np.zeros((B, W), np.int64)
+    texts = np.zeros((B, P), np.int64)
+    durations = np.zeros((B, P), np.int64)
+    for b in range(B):
+        wb[b, :src_w_lens[b]] = r.randint(1, P // W + 1, src_w_lens[b])
+        n = int(wb[b].sum())
+        texts[b, :n] = r.randint(1, len(symbols), n)
+        durations[b, :n] = 1 + r.multinomial(mel_lens[b] - n, np.full(n, 1.0 / n))
+    src_lens = wb.sum(1)
+    phone_mask = np.arange(P)[None] < src_lens[:, None]
+    lo, hi = np.array(stats.spec_min), np.array(stats.spec_max)
+    mels = lo + (hi - lo) * r.uniform(size=(B, T, M))
+    mels *= (np.arange(T)[None] < mel_lens[:, None])[..., None]
+    batch = dict(
+        speakers=np.zeros(B, np.int64), texts=texts, src_lens=src_lens, word_boundaries=wb,
+        src_w_lens=src_w_lens, mels=mels.astype(np.float32), mel_lens=mel_lens,
+        p_targets=(r.uniform(stats.pitch_min, stats.pitch_max, (B, P)) * phone_mask).astype(np.float32),
+        e_targets=(r.uniform(stats.energy_min, stats.energy_max, (B, P)) * phone_mask).astype(np.float32),
+        d_targets=durations)
+    return {k: torch.as_tensor(v, device=device or DEVICE) for k, v in batch.items()}
+
+
+def build_training(torch, mode, pre, cfg, tc, device=None):
+    """G of `mode` and D at the full width of the LJSpeech configs, random
+    weights from seed 0, and a fresh train state and step."""
+    from mixgantts_tpu_torch.config import NormStats
+    from mixgantts_tpu_torch.models.discriminator import JCUDiscriminator
+    from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
+    from mixgantts_tpu_torch.train import create_train_state, make_train_step
+    torch.manual_seed(0)
+    model = MixGANTTS.from_configs(
+        mode, pre, cfg, NormStats.default(pre["preprocessing"]["mel"]["n_mel_channels"]),
+        device=device or DEVICE)
+    disc = JCUDiscriminator.from_configs(pre, cfg, device=device or DEVICE)
+    return (model, disc, create_train_state(model, disc, tc, cfg),
+            make_train_step(mode, model, disc, cfg, tc))
+
+
+def all_kernel_counters():
+    from mixgantts_tpu_torch.ops import mrf
+    return dict(kernel_counters(), mrf_stack_streamed=mrf.mrf_stack_streamed)
+
+
+def training_phase(torch, out_dir):
+    """Phase 12: aux (B = batch_size), naive (batch_size) and shallow
+    (batch_size_shallow) training at the full width of the LJSpeech
+    configs, on synthetic batches at phone bucket 128, word bucket 64, mel
+    bucket 1000 (lengths 600-1000): one warm-up step, then TRAIN_STEPS
+    timed ones (CUDA events).  The metrics must be finite, every parameter
+    the mode trains must move (D's too in naive and shallow) and the
+    others not, and no kernel may launch during the steps.  Median ms per
+    step, peak memory, and one traced shallow step with its device busy
+    share; then one shallow and one naive step against the CPU."""
+    import re
+    from mixgantts_tpu_torch.config import get_configs_of
+    from mixgantts_tpu_torch.train import check_finite_metrics
+    pre, cfg, tc = get_configs_of("LJSpeech")
+    counters = all_kernel_counters()
+    for mode in ("aux", "naive", "shallow"):
+        B = tc["optimizer"]["batch_size_shallow" if mode == "shallow" else "batch_size"]
+        model, disc, state, step_fn = build_training(torch, mode, pre, cfg, tc)
+        batch = train_batch(torch, pre, B, 128, 64, 1000, (600, 1000), seed=12)
+        named = [("G " + n, p) for n, p in model.named_parameters()]
+        if mode != "aux":
+            named += [("D " + n, p) for n, p in disc.named_parameters()]
+        before = [p.detach().clone() for _, p in named]
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()   # this mode's G, D and batch, and earlier phases'
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        check_finite_metrics(step_fn(state, batch), state.step)          # warm-up
+        warm = time.perf_counter() - t0
+        times, wall = [], []
+        for _ in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            metrics = step_fn(state, batch)
+            end.record()
+            check_finite_metrics(metrics, state.step)                     # copies to the host
+            wall.append(1e3 * (time.perf_counter() - t0))
+            times.append(start.elapsed_time(end))
+        sync(torch)
+        launches = {name: c.launches for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        frames = int(batch["mel_lens"].sum())
+        med = statistics.median(times)
+        log(f"[train] {mode} B={B} bucket 1000 ({frames} frames): "
+            f"{statistics.median(wall):.2f} ms per step on the host clock, device "
+            f"{med:.2f} ms (CUDA events; {', '.join(f'{x:.2f}' for x in times)}), "
+            f"{1e3 * frames / med:.0f} mel frames/s; warm-up step {1e3 * warm:.0f} ms; "
+            f"peak memory {peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB over the "
+            f"{base / 2**30:.2f} GiB allocated before the steps; "
+            + ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(metrics.items())))
+        if any(launches.values()):
+            raise AssertionError(f"{mode} training launched a serving kernel: {launches}")
+        frozen, still, moved_frozen = TRAIN_FROZEN[mode], [], []
+        for (name, p), p0 in zip(named, before):
+            moved = not torch.equal(p.detach(), p0)
+            if frozen and re.search(frozen, name.split(" ", 1)[1]):
+                if moved:
+                    moved_frozen.append(name)
+            elif not moved and not re.search(TRAIN_MAY_STAY, name):
+                still.append(name)
+        log(f"  {len(named)} parameter tensors, none of the serving kernels launched "
+            f"({launches})")
+        if still or moved_frozen:
+            raise AssertionError(f"{mode}: trained parameters that did not move {still[:8]}, "
+                                 f"frozen ones that moved {moved_frozen[:8]}")
+        if mode == "shallow":
+            trace(torch, lambda: step_fn(state, batch),
+                  os.path.join(out_dir, "shallow_train_step_trace.json"), "train trace")
+        del model, disc, state, step_fn, batch, before, named
+        torch.cuda.empty_cache()
+    train_cpu_reference(torch, pre, cfg, tc)
+
+
+def train_cpu_reference(torch, pre, cfg, tc):
+    """Phase 12b: one shallow and one naive step at B=2, T=128 on the
+    full-width model (a non-zero denoiser output projection, so the
+    residual stack's gradients show), TF32 off, dropout p = 0, the same
+    injected t and noise, on the GPU and on the CPU from the same weights:
+    every loss at rtol 1e-4; every gradient tensor of G and D within
+    1e-3 * max|g| on >= 99% of its elements and within 1e-2 * max|g| on
+    all (a ReLU input within rounding of 0 passes the gradient on one
+    device and not on the other, which moves a whole row of the next
+    weight's gradient: in the decoder's FFN one such row was 0.098% of
+    w_1's elements, off by up to 2.5e-3 of max|g|), max|g|
+    floored at 1e-3 of the model's largest gradient (the K-projection and
+    PostNet conv biases have a zero gradient by symmetry, softmax's shift
+    invariance and BatchNorm's mean, so theirs is rounding noise on both
+    devices)."""
+    import numpy as np
+    for mode in ("shallow", "naive"):
+        devices = (DEVICE, "cpu")
+        built = [build_training(torch, mode, pre, cfg, tc, device) for device in devices]
+        gpu_model, gpu_disc = built[0][:2]
+        with torch.no_grad():
+            out = gpu_model.diffusion.denoise_fn.output_projection.conv.weight
+            out.copy_(torch.randn(out.shape, generator=torch.Generator().manual_seed(1)) * 0.05)
+        batches = [train_batch(torch, pre, 2, 32, 16, 128, (100, 128), seed=13, device=device)
+                   for device in devices]
+        r = np.random.RandomState(14)
+        shape = tuple(batches[0]["mels"].shape)
+        noise = [{"t": r.randint(0, gpu_model.diffusion.num_timesteps, 2),
+                  **{k: r.randn(*shape).astype(np.float32)
+                     for k in ("x_t_noise", "x_t_prev_noise", "posterior_noise")}}
+                 for _ in range(2)]
+        init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (gpu_model, gpu_disc)]
+        runs = []
+        for (model, disc, state, step_fn), batch, device in zip(built, batches, devices):
+            model.load_state_dict(init[0])
+            disc.load_state_dict(init[1])
+            for m in model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
+            metrics = step_fn(state, batch, noise_overrides=[
+                {k: torch.as_tensor(v, device=device) for k, v in n.items()} for n in noise])
+            grads = {f"{tag} {n}": (p.grad.detach().cpu() if p.grad is not None
+                                     else torch.zeros(p.shape))
+                     for tag, m in (("G", model), ("D", disc)) for n, p in m.named_parameters()}
+            runs.append(({k: float(v) for k, v in metrics.items()}, grads))
+        (gm, gg), (cm, cg) = runs
+        bad = [k for k in cm if abs(gm[k] - cm[k]) > 1e-4 * abs(cm[k]) + 1e-6]
+        worst, worst_frac, failed = 0.0, 0.0, []
+        for tag in ("G", "D"):
+            names = [k for k in cg if k.startswith(tag)]
+            top = max(float(cg[k].abs().max()) for k in names)
+            for k in names:
+                bar = max(float(cg[k].abs().max()), 1e-3 * top)
+                diff = (gg[k] - cg[k]).abs()
+                frac = float((diff > 1e-3 * bar).float().mean())
+                worst = max(worst, float(diff.max()) / bar)
+                worst_frac = max(worst_frac, frac)
+                if frac > 1e-2 or float(diff.max()) > 1e-2 * bar:
+                    failed.append(f"{k} max|diff| {float(diff.max()):.3g}, {frac:.2%} of "
+                                  f"elements past 1e-3 * {bar:.3g}")
+        log(f"[train cpu] {mode} B=2 T=128, GPU against CPU: losses "
+            + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(cm))
+            + f"; gradients of {len(cg)} tensors: worst max|diff| / max|g| {worst:.3e}, "
+            f"worst share of elements past 1e-3 * max|g| {worst_frac:.2e}")
+        if bad or failed:
+            raise AssertionError(f"{mode}: the GPU step disagrees with the CPU step: "
+                                 f"losses {bad}, gradients {failed[:6]}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also trace one B=1 request into DIR, and keep phases 10-11's traces there")
+                        help="also trace one B=1 request into DIR, and keep phases 10-12's traces there")
     args = parser.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -1034,6 +1272,9 @@ def main():
         melgan_phase(torch, pre, cfg, model, args.profile or tmp)          # phase 11
     log("[cli zh] Chinese text -> wav through the synthesis CLI, AISHELL3")
     mandarin_cli_phase(torch, *zh)
+    log("[train] aux, naive and shallow training at full width (fp32, TF32 off)")
+    with tempfile.TemporaryDirectory() as tmp:
+        training_phase(torch, args.profile or tmp)                # phase 12
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

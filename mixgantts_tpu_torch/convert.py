@@ -15,7 +15,10 @@ of numpy arrays.
 - `melgan_state_dict`: the inverse of
   `mixgantts_tpu/models/melgan.py::convert_torch_melgan`, in the
   descript/melgan-neurips key layout (`model.N.*`, weight norm folded).
-All three load into the port's modules with `load_state_dict(strict=True)`.
+- `discriminator_state_dict`: the inverse of
+  `mixgantts_tpu/convert.py::convert_discriminator`, the reference's "D"
+  layout that `mixgantts_tpu/export.py::export_discriminator` writes.
+All four load into the port's modules with `load_state_dict(strict=True)`.
 - `load_reference_generator`: the "G" of a reference `.pth.tar` (what
   `mixgantts_tpu/export.py` writes, single- or multi-speaker) into the
   port's `MixGANTTS`.
@@ -156,6 +159,27 @@ def generator_state_dict(params, batch_stats):
         _decoder(params["decoder"], out)
         _linear(params["mel_linear"], "mel_linear", out)
         _postnet(params["postnet"], batch_stats["postnet"], out)
+    return out
+
+
+def discriminator_state_dict(params):
+    """JAX JCUDiscriminator params -> the port's JCUDiscriminator
+    state_dict."""
+    out = {}
+    _linear(params["input_projection"]["linear"], "input_projection.linear", out)
+    _linear(params["mlp"]["fc1"]["linear"], "mlp.0.linear", out)
+    _linear(params["mlp"]["fc2"]["linear"], "mlp.2.linear", out)
+    n_layer = _n(params, "conv_{}")
+    for i in range(n_layer):
+        _conv(params[f"conv_{i}"]["conv"], f"conv_block.{i}.conv", out)
+    for branch in ("cond", "uncond"):
+        j = 0
+        while f"{branch}_conv_{n_layer + j}" in params:
+            _conv(params[f"{branch}_conv_{n_layer + j}"]["conv"],
+                  f"{branch}_conv_block.{j}.conv", out)
+            j += 1
+    if "spk_mlp" in params:
+        _linear(params["spk_mlp"]["linear"], "spk_mlp.0.linear", out)
     return out
 
 

@@ -1,5 +1,12 @@
 """Auxiliary FastSpeech2-style mel decoder and Tacotron2 PostNet
-(`mixgantts_tpu/models/aux_decoder.py`), channel-last [B, T, C]."""
+(`mixgantts_tpu/models/aux_decoder.py`), channel-last [B, T, C].
+
+Dropout follows the module's training mode, as in `blocks.py`.  The
+PostNet's BatchNorm follows flax's `BatchNorm`, which the JAX package
+trains: in training mode it normalises with the batch's statistics and
+moves the running ones by momentum 0.99 with the biased batch variance
+(E[x^2] - E[x]^2, flax's fast variance); in eval mode it uses the running
+statistics."""
 
 import math
 
@@ -13,9 +20,10 @@ from .blocks import NEG_INF, ConvNorm, conv_last, same_conv1d, sinusoid_position
 class MultiHeadAttention(nn.Module):
     """Post-LN multi-head self-attention (LayerNorm eps 1e-5)."""
 
-    def __init__(self, n_heads, d_model):
+    def __init__(self, n_heads, d_model, dropout=0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.drop = nn.Dropout(dropout)
         self.w_qs = nn.Linear(d_model, d_model)
         self.w_ks = nn.Linear(d_model, d_model)
         self.w_vs = nn.Linear(d_model, d_model)
@@ -33,29 +41,30 @@ class MultiHeadAttention(nn.Module):
         scores = (q @ k.transpose(-1, -2)) / math.sqrt(d)
         scores = torch.where(attn_mask[:, None], scores, NEG_INF)
         out = torch.softmax(scores, dim=-1) @ v
-        out = self.fc(out.transpose(1, 2).reshape(B, L, C))
+        out = self.drop(self.fc(out.transpose(1, 2).reshape(B, L, C)))
         return self.layer_norm(out + x)
 
 
 class PositionwiseFeedForward(nn.Module):
     """conv(k) -> ReLU -> conv(1), post-residual LayerNorm."""
 
-    def __init__(self, d_model, d_inner, kernel_size):
+    def __init__(self, d_model, d_inner, kernel_size, dropout=0.0):
         super().__init__()
         self.w_1 = same_conv1d(d_model, d_inner, kernel_size)
         self.w_2 = nn.Conv1d(d_inner, d_model, 1)
         self.layer_norm = nn.LayerNorm(d_model)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, x):
-        y = conv_last(self.w_2, F.relu(conv_last(self.w_1, x)))
+        y = self.drop(conv_last(self.w_2, F.relu(conv_last(self.w_1, x))))
         return self.layer_norm(y + x)
 
 
 class FFTBlock(nn.Module):
-    def __init__(self, d_model, n_heads, d_inner, kernel_size):
+    def __init__(self, d_model, n_heads, d_inner, kernel_size, dropout=0.0):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(n_heads, d_model)
-        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size)
+        self.slf_attn = MultiHeadAttention(n_heads, d_model, dropout)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size, dropout)
 
     def forward(self, x, mask, attn_mask):
         x = self.slf_attn(x, attn_mask) * mask[..., None]
@@ -66,10 +75,10 @@ class Decoder(nn.Module):
     """FFT decoder with absolute sinusoidal positions; `mask` True = valid."""
 
     def __init__(self, hidden=256, n_layers=6, n_heads=2, d_inner=1024,
-                 kernel_size=9, max_seq_len=1000):
+                 kernel_size=9, max_seq_len=1000, dropout=0.0):
         super().__init__()
         self.layer_stack = nn.ModuleList(
-            FFTBlock(hidden, n_heads, d_inner, kernel_size) for _ in range(n_layers))
+            FFTBlock(hidden, n_heads, d_inner, kernel_size, dropout) for _ in range(n_layers))
         self.register_buffer(
             "position_enc",
             torch.from_numpy(sinusoid_position_table(max_seq_len + 1, hidden)),
@@ -86,9 +95,12 @@ class Decoder(nn.Module):
 
 class PostNet(nn.Module):
     """Tacotron2 PostNet: five k = 5 convs with BatchNorm, tanh on all but
-    the last.  BatchNorm always uses its running statistics (inference),
-    kept in fp32 whatever the parameters' type, and normalises in fp32.
-    Returns the residual correction; the caller adds it."""
+    the last, dropout 0.5 after each (the rate is fixed, as in the JAX
+    package).  The BatchNorm statistics stay fp32 whatever the parameters'
+    type, and it normalises in fp32.  Returns the residual correction; the
+    caller adds it."""
+
+    MOMENTUM = 0.99   # flax's BatchNorm default, which the JAX package trains with
 
     def __init__(self, n_mels=80, embedding_dim=512, kernel_size=5, n_convs=5):
         super().__init__()
@@ -97,13 +109,37 @@ class PostNet(nn.Module):
             nn.Sequential(ConvNorm(dims[i], dims[i + 1], kernel_size),
                           nn.BatchNorm1d(dims[i + 1]))
             for i in range(n_convs))
+        self.drop = nn.Dropout(0.5)
 
-    def forward(self, x):
+    def forward(self, x, update_stats=True):
+        """x [B, T, n_mels].  In training mode the batch statistics
+        normalise, and move the running ones unless `update_stats` is
+        False."""
         x = x.transpose(1, 2)
         for i, (conv, bn) in enumerate(self.convolutions):
             y = conv.conv(x.to(bn.weight.dtype))
-            x = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight.float(),
-                             bn.bias.float(), training=False, eps=bn.eps).to(y.dtype)
+            if self.training:
+                x = self._batch_norm(y, bn, update_stats)
+            else:
+                x = F.batch_norm(y.float(), bn.running_mean, bn.running_var,
+                                 bn.weight.float(), bn.bias.float(), training=False,
+                                 eps=bn.eps).to(y.dtype)
             if i < len(self.convolutions) - 1:
                 x = torch.tanh(x)
+            x = self.drop(x.transpose(1, 2)).transpose(1, 2)   # on the [B, T, C] view flax drops
         return x.transpose(1, 2)
+
+    def _batch_norm(self, y, bn, update_stats):
+        """flax's training-mode BatchNorm over the batch and time axes of
+        y [B, C, T]."""
+        yf = y.float()
+        mean = yf.mean(dim=(0, 2))
+        var = torch.clamp(yf.square().mean(dim=(0, 2)) - mean.square(), min=0.0)
+        if update_stats:
+            with torch.no_grad():
+                m = self.MOMENTUM
+                bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+                bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+        out = ((yf - mean[:, None]) * torch.rsqrt(var + bn.eps)[:, None]
+               * bn.weight.float()[:, None] + bn.bias.float()[:, None])
+        return out.to(y.dtype)

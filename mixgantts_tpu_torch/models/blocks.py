@@ -10,6 +10,10 @@ Activations follow the parameters' type: `conv_last` and `LinearNorm` cast
 their input to their weight's type, so a model whose parameters were cast
 to bf16 (`pipeline.TTSPipeline` under `compute_dtype: bfloat16`) computes
 in bf16, and an fp32 one exactly as before.
+
+Dropout sits where the flax blocks have it, at the same rates, as plain
+`nn.Dropout` modules: active in training mode (`module.train()`), the
+identity in eval mode.
 """
 
 import math
@@ -39,14 +43,14 @@ def conv_last(conv, x):
     """Apply a torch `nn.Conv1d` to channel-last x [B, T, C] (cast to the
     weight's type)."""
     x = x.to(conv.weight.dtype)
-    if conv.kernel_size[0] == 1:
+    if conv.kernel_size[0] == 1 and conv.stride[0] == 1:
         return F.linear(x, conv.weight[:, :, 0], conv.bias)
     return conv(x.transpose(1, 2)).transpose(1, 2)
 
 
-def same_conv1d(c_in, c_out, kernel_size=1, dilation=1, bias=True):
+def same_conv1d(c_in, c_out, kernel_size=1, dilation=1, bias=True, stride=1):
     """Conv1d with symmetric padding dilation * (k - 1) // 2."""
-    return nn.Conv1d(c_in, c_out, kernel_size, dilation=dilation,
+    return nn.Conv1d(c_in, c_out, kernel_size, stride=stride, dilation=dilation,
                      padding=dilation * (kernel_size - 1) // 2, bias=bias)
 
 
@@ -68,9 +72,9 @@ class LayerNorm(nn.Module):
 class ConvNorm(nn.Module):
     """The reference's ConvNorm: a `.conv` Conv1d, applied channel-last."""
 
-    def __init__(self, c_in, c_out, kernel_size=1, dilation=1, bias=True):
+    def __init__(self, c_in, c_out, kernel_size=1, dilation=1, bias=True, stride=1):
         super().__init__()
-        self.conv = same_conv1d(c_in, c_out, kernel_size, dilation, bias)
+        self.conv = same_conv1d(c_in, c_out, kernel_size, dilation, bias, stride)
 
     def forward(self, x):
         return conv_last(self.conv, x)
@@ -106,12 +110,13 @@ class FFN(nn.Module):
     """Masked conv + ReLU feed-forward of RelativeFFTBlock (hidden ->
     hidden, as the reference builds it)."""
 
-    def __init__(self, channels, kernel_size):
+    def __init__(self, channels, kernel_size, dropout=0.0):
         super().__init__()
         self.conv = same_conv1d(channels, channels, kernel_size)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, x, mask):
-        return F.relu(conv_last(self.conv, x * mask)) * mask
+        return self.drop(F.relu(conv_last(self.conv, x * mask))) * mask
 
 
 def _rel_to_abs(x):
@@ -143,9 +148,10 @@ class RelativeSelfAttention(nn.Module):
     """Multi-head self-attention with windowed relative position embeddings
     shared by the heads."""
 
-    def __init__(self, channels, n_heads, window_size):
+    def __init__(self, channels, n_heads, window_size, dropout=0.0):
         super().__init__()
         self.n_heads, self.window_size = n_heads, window_size
+        self.drop = nn.Dropout(dropout)
         k_channels = channels // n_heads
         self.conv_q = nn.Conv1d(channels, channels, 1)
         self.conv_k = nn.Conv1d(channels, channels, 1)
@@ -171,7 +177,7 @@ class RelativeSelfAttention(nn.Module):
         rel_k = _window_to_length(self.emb_rel_k, L, self.window_size)
         scores = scores + _rel_to_abs(q @ rel_k[0].t()) * scale
         scores = torch.where(attn_mask, scores, NEG_INF)
-        p_attn = torch.softmax(scores, dim=-1)
+        p_attn = self.drop(torch.softmax(scores, dim=-1))
         out = p_attn @ v
         rel_v = _window_to_length(self.emb_rel_v, L, self.window_size)
         out = out + _abs_to_rel(p_attn) @ rel_v[0]
@@ -183,14 +189,16 @@ class RelativeFFTBlock(nn.Module):
     """Layers of relative self-attention + LN + conv FFN + LN.
     `mask` is [B, L, 1] float, 1 = valid."""
 
-    def __init__(self, hidden, n_heads, n_layers, kernel_size, window_size=4):
+    def __init__(self, hidden, n_heads, n_layers, kernel_size, window_size=4, dropout=0.0):
         super().__init__()
         self.attn_layers = nn.ModuleList(
-            RelativeSelfAttention(hidden, n_heads, window_size)
+            RelativeSelfAttention(hidden, n_heads, window_size, dropout)
             for _ in range(n_layers))
         self.norm_layers_1 = nn.ModuleList(LayerNorm(hidden) for _ in range(n_layers))
-        self.ffn_layers = nn.ModuleList(FFN(hidden, kernel_size) for _ in range(n_layers))
+        self.ffn_layers = nn.ModuleList(FFN(hidden, kernel_size, dropout)
+                                        for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(LayerNorm(hidden) for _ in range(n_layers))
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, x, mask):
         valid = mask[:, None, :, 0] > 0
@@ -198,14 +206,19 @@ class RelativeFFTBlock(nn.Module):
         for attn, norm1, ffn, norm2 in zip(self.attn_layers, self.norm_layers_1,
                                            self.ffn_layers, self.norm_layers_2):
             x = x * mask
-            x = norm1(x + attn(x, attn_mask))
-            x = norm2(x + ffn(x, mask))
+            x = norm1(x + self.drop(attn(x, attn_mask)))
+            x = norm2(x + self.drop(ffn(x, mask)))
         return x * mask
 
 
 class WordToPhonemeAttention(nn.Module):
     """Cross-attention, queries = frames, keys/values = phonemes; the query
-    and word-mapping masks are applied after the softmax."""
+    and word-mapping masks are applied after the softmax.  With `attn_prior`
+    [B, P, T] (the CTC helper's) the scores are log-softmaxed and the log of
+    the prior added.  Returns (out [B, T, C], (attn, attn_raw),
+    attn_logprob), the last two [B, H, T, P]: `attn_raw` is taken after the
+    query mask and before the mapping mask, `attn_logprob` before the
+    softmax."""
 
     def __init__(self, n_heads, d_model):
         super().__init__()
@@ -215,7 +228,7 @@ class WordToPhonemeAttention(nn.Module):
         self.w_vs = LinearNorm(d_model, d_model)
         self.fc = LinearNorm(d_model, d_model)
 
-    def forward(self, q, k, v, key_mask, query_mask, map_mask):
+    def forward(self, q, k, v, key_mask, query_mask, map_mask, attn_prior=None):
         # q [B, T, C]; k, v [B, P, C]; key_mask [B, P]; query_mask [B, T];
         # map_mask [B, T, P]; all masks bool, True = valid
         B, T, C = q.shape
@@ -228,28 +241,34 @@ class WordToPhonemeAttention(nn.Module):
         qh, kh, vh = split(self.w_qs(q), T), split(self.w_ks(k), P), split(self.w_vs(v), P)
         scores = (qh @ kh.transpose(-1, -2)) / math.sqrt(d)
         scores = torch.where(key_mask[:, None, None, :], scores, NEG_INF)
-        attn = torch.softmax(scores, dim=-1)
-        attn = attn * query_mask[:, None, :, None] * map_mask[:, None, :, :]
+        if attn_prior is not None:
+            scores = (torch.log_softmax(scores, dim=-1)
+                      + torch.log(attn_prior.transpose(1, 2)[:, None] + 1e-8))
+        attn_raw = torch.softmax(scores, dim=-1) * query_mask[:, None, :, None]
+        attn = attn_raw * map_mask[:, None, :, :]
         out = (attn @ vh).transpose(1, 2).reshape(B, T, C)
-        return self.fc(out) + q
+        return self.fc(out) + q, (attn, attn_raw), scores
 
 
 class VariancePredictor(nn.Module):
-    """Duration/pitch/energy predictor: (conv, ReLU, LayerNorm) x 2, then a
-    linear projection; the mask is applied multiplicatively."""
+    """Duration/pitch/energy predictor: (conv, ReLU, LayerNorm, dropout)
+    x 2, then a linear projection; the mask is applied multiplicatively."""
 
-    def __init__(self, c_in, filter_size, kernel_size):
+    def __init__(self, c_in, filter_size, kernel_size, dropout=0.0):
         super().__init__()
         self.conv_layer = nn.ModuleDict({
             "conv1d_1": ConvNorm(c_in, filter_size, kernel_size),
             "layer_norm_1": nn.LayerNorm(filter_size),
+            "dropout_1": nn.Dropout(dropout),
             "conv1d_2": ConvNorm(filter_size, filter_size, kernel_size),
             "layer_norm_2": nn.LayerNorm(filter_size),
+            "dropout_2": nn.Dropout(dropout),
         })
         self.linear_layer = nn.Linear(filter_size, 1)
 
     def forward(self, x, mask):
         layers = self.conv_layer
-        x = layers["layer_norm_1"](F.relu(layers["conv1d_1"](x)))
-        x = layers["layer_norm_2"](F.relu(layers["conv1d_2"](x)))
+        for i in (1, 2):
+            x = layers[f"layer_norm_{i}"](F.relu(layers[f"conv1d_{i}"](x)))
+            x = layers[f"dropout_{i}"](x)
         return self.linear_layer(x)[..., 0] * mask.to(x.dtype)

@@ -16,6 +16,13 @@ blocks do; here it rides in the kernel's conditioner projection
 (`speaker_projections`), so the same kernel runs with or without it.  The
 JAX package leaves its TPU kernel for the flax blocks when a speaker
 embedding is present.
+
+Training takes the blocks one by one on their live parameters
+(`ResidualBlock.forward`, the flax blocks' math in fp32), as the JAX
+package's training does: the kernel has no backward, and its weights are
+detached bf16 copies.  `Denoiser.forward` takes that route whenever
+autograd records the stack or the caller asks for it (`fused=False`, the
+generator's training branch).
 """
 
 import math
@@ -32,8 +39,8 @@ from .blocks import ConvNorm, LinearNorm, Mish, diffusion_embedding
 
 
 class ResidualBlock(nn.Module):
-    """Parameters of one gated residual block; the stack's math is in
-    `ops.denoiser_stack`."""
+    """One gated residual block.  Inference stacks the blocks' parameters
+    for `ops.denoiser_stack`; `forward` is the block alone, for training."""
 
     def __init__(self, d_encoder, residual_channels, multi_speaker=False):
         super().__init__()
@@ -44,6 +51,17 @@ class ResidualBlock(nn.Module):
         self.output_projection = ConvNorm(C, 2 * C, 1)
         if multi_speaker:
             self.speaker_projection = LinearNorm(d_encoder, C)
+
+    def forward(self, x, cond, step_emb, spk_emb=None):
+        """x [B, T, C], cond [B, T, H], step_emb [B, C], spk_emb [B, H] or
+        None -> (residual output [B, T, C], skip [B, T, C])."""
+        y0 = x + self.diffusion_projection(step_emb)[:, None, :]
+        y = y0 + self.conditioner_projection(cond)
+        if spk_emb is not None:
+            y = y + self.speaker_projection(spk_emb)[:, None, :]
+        gate, filt = self.conv_layer(y).chunk(2, dim=-1)
+        out, skip = self.output_projection(torch.sigmoid(gate) * torch.tanh(filt)).chunk(2, dim=-1)
+        return (out + y0) / math.sqrt(2.0), skip
 
 
 class Denoiser(nn.Module):
@@ -89,17 +107,29 @@ class Denoiser(nn.Module):
         self._stacked = None
         super()._load_from_state_dict(*args, **kwargs)
 
-    def forward(self, x_t, t, cond, spk_emb=None):
+    def forward(self, x_t, t, cond, spk_emb=None, fused=True):
         """x_t [B, T, n_mels] noisy mel, t [B] int diffusion step, cond
         [B, T, H], spk_emb [B, H] (used by a multi-speaker denoiser) -> x0
-        prediction [B, T, n_mels], in the parameters' type."""
+        prediction [B, T, n_mels], in the parameters' type.  The residual
+        stack runs through `fused_residual_stack` when `fused` and autograd
+        does not record it, else block by block."""
         x = self.input_projection(x_t)
         step_emb = self.mlp(diffusion_embedding(t, self.residual_channels))
-        stacked = self.stacked()
-        spk_proj = None
-        if self.multi_speaker and spk_emb is not None:
-            spk_proj = speaker_projections(spk_emb, stacked)
-        _, skip_sum = fused_residual_stack(x, cond.to(x.dtype), step_emb, stacked, spk_proj)
+        spk_emb = spk_emb if self.multi_speaker else None
+        records = torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad for a in
+            (x, cond, step_emb, spk_emb, self.residual_layers[0].conv_layer.conv.weight))
+        if fused and not records:
+            stacked = self.stacked()
+            spk_proj = None if spk_emb is None else speaker_projections(spk_emb, stacked)
+            _, skip_sum = fused_residual_stack(x, cond.to(x.dtype), step_emb, stacked, spk_proj)
+        else:
+            # the weights are about to move: drop the stack cached for the kernel
+            self._stacked = None
+            skip_sum = 0
+            for block in self.residual_layers:
+                x, skip = block(x, cond, step_emb, spk_emb)
+                skip_sum = skip_sum + skip
         x = skip_sum / math.sqrt(len(self.residual_layers))
         x = F.relu(self.skip_projection(x))
         return self.output_projection(x)

@@ -1,5 +1,7 @@
 """Gaussian diffusion with few-step sampling
-(`mixgantts_tpu/models/diffusion.py`), inference.
+(`mixgantts_tpu/models/diffusion.py`): the forward process training draws
+from (`diffuse`, `q_posterior_sample`, aux mode's `diffuse_trace`) and the
+reverse process of inference (`sampling`).
 
 The reference's key layout puts the denoiser at `diffusion.denoise_fn`.
 The coefficient tables are built in float64 from the beta schedule, cast to
@@ -103,13 +105,15 @@ class GaussianDiffusion(nn.Module):
             x = self.q_posterior_sample(x0_pred, x, t, step_noise)
         return x
 
-    def diffuse_trace(self, mel, mel_mask, generator=None):
+    def diffuse_trace(self, mel, mel_mask, generator=None, noises=None):
         """[S+1, B, T, n_mels]: the clamped normalised mel, then its
-        diffusion at t = 0 .. S-1, all masked (aux mode's output)."""
+        diffusion at t = 0 .. S-1, all masked (aux mode's output).
+        `noises` [S, B, T, n_mels] injects the noise of each step."""
         maskf = mel_mask[..., None].to(mel.dtype)
         trace = [torch.clamp(self.norm_spec(mel), -1.0, 1.0) * maskf]
         for i in range(self.num_timesteps):
-            noise = torch.randn(mel.shape, generator=generator, device=mel.device)
+            noise = noises[i] if noises is not None else torch.randn(
+                mel.shape, generator=generator, device=mel.device)
             t = torch.full((mel.shape[0],), i, dtype=torch.long, device=mel.device)
             trace.append(self.diffuse(mel, t, noise) * maskf)
         return torch.stack(trace)

@@ -112,7 +112,9 @@ def torch_generator_like(model, variables):
         residual_channels=model.residual_channels,
         residual_layers=model.residual_layers, multi_speaker=model.multi_speaker,
         n_speakers=model.n_speakers, embedder_type=model.embedder_type,
-        external_speaker_dim=model.external_speaker_dim, device="cpu")
+        external_speaker_dim=model.external_speaker_dim,
+        encoder_dropout=model.encoder_dropout, decoder_dropout=model.decoder_dropout,
+        vp_dropout=model.vp_dropout, device="cpu")
     port.load_state_dict(generator_state_dict(
         variables["params"], variables.get("batch_stats", {})), strict=True)
     return port
