@@ -1,7 +1,8 @@
 """Smoke test and first measurement of the PyTorch/CUDA port on one NVIDIA
 H100: shallow-mode LJSpeech and AISHELL3 text -> wav through
-`mixgantts_tpu_torch`, in fp32 and bf16, with HiFi-GAN and MelGAN, and a
-few training steps in each mode (aux, naive, shallow).
+`mixgantts_tpu_torch`, in fp32 and bf16, with HiFi-GAN and MelGAN, a few
+training steps in each mode (aux, naive, shallow), and the train CLI from
+aux through the aux -> shallow handoff to a resumed shallow run.
 
     python3 chip_smoke.py                  # needs one CUDA device
     python3 chip_smoke.py --profile DIR    # keeps the request and train-step traces in DIR
@@ -92,7 +93,24 @@ phase 9's weights; every serving kernel must launch;
    device busy share; then one shallow and one naive step at B=2, T=128
    with dropout off and the same injected t and noise on the GPU and on
    the CPU: losses at rtol 1e-4, each gradient tensor within 1e-3 * max|g|
-   on >= 99% of its elements and 1e-2 * max|g| on all (ReLU kinks).
+   on >= 99% of its elements and 1e-2 * max|g| on all (ReLU kinks);
+13. the train CLI (`cli.train.main`, in process) at the full width of the
+   LJSpeech configs (batch_size 8, batch_size_shallow 4, steps_per_call 8;
+   only the paths and the step periods changed: total_step_aux 16,
+   total_step_shallow 32, log 4, synth 8, val 16, save 8) on a synthetic
+   preprocessed corpus from a seed (96 training utterances of 600-1000
+   frames, 32 of 300-500, 8 for validation): aux 0 -> 16, shallow from the
+   aux checkpoint at 16 to 32, shallow again from the checkpoint at 24 to
+   32, `cli.evaluate` at 32, teacher-forced batch synthesis at 32.  Every
+   log line finite, checkpoints 8, 16, 24 and 32 reload, the resumed run's
+   losses at steps 28 and 32 within rtol 1e-3 of the uninterrupted run's,
+   the denoiser kernel launched in the shallow runs' panels and
+   validation, the MRF kernels in both modes', no kernel inside a train
+   step, the teacher-forced wavs int16 at 22050 Hz and mel_len * hop long;
+   steps/s and mel frames/s per mode (CUDA events around segments, and
+   the host clock), each run's wall split into data, steps, panels,
+   validation, saving and the rest, checkpoint sizes and write times, peak
+   memory, and the kernels' launches per mode and part.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 phase 4, or phase 7 for `mrf_stack_streamed`; max error in phase 3 or 7;
@@ -1215,6 +1233,339 @@ def train_cpu_reference(torch, pre, cfg, tc):
                                  f"losses {bad}, gradients {failed[:6]}")
 
 
+# Phase 13: the train CLI.  Its step periods (the shipped configs' other
+# values are kept), and the synthetic corpus: (list, utterances, mel length
+# range).  Two mel buckets (512 and 1000) in train.txt.
+TRAIN_CLI_STEPS = {"total_step_aux": 16, "total_step_shallow": 32, "log_step": 4,
+                   "synth_step": 8, "val_step": 16, "save_step": 8}
+TRAIN_CLI_CORPUS = (("train.txt", 96, (600, 1000)), ("train.txt", 32, (300, 500)),
+                    ("val.txt", 8, (600, 1000)))
+CLI_PARTS = ("data", "steps", "panels", "validation", "saving")
+
+
+def write_corpus(pp, n_mels, plan=TRAIN_CLI_CORPUS, seed=13):
+    """A synthetic preprocessed corpus under `pp`, with numpy from `seed`,
+    in the files the JAX preprocessor writes (`mixgantts_tpu/data/
+    preprocessor.py:199-227`): per utterance mel [T, n_mels] float32 inside
+    [spec_min, spec_max], phone-level pitch and energy inside the stats'
+    ranges, durations (each >= 1) summing to T, phones per word (1-6),
+    attn_prior [P, T]; ~7 frames a phone, as LJSpeech speaks; train.txt and
+    val.txt lines "basename|speaker|{phones}|raw text", speakers.json and
+    stats.json (the placeholder statistics of `NormStats.default`)."""
+    import numpy as np
+    from mixgantts_tpu_torch.config import NormStats
+    from mixgantts_tpu_torch.text.cmudict import valid_symbols
+    stats = NormStats.default(n_mels)
+    r = np.random.RandomState(seed)
+    for kind in ("mel", "pitch", "energy", "duration", "phones_per_word", "attn_prior"):
+        os.makedirs(os.path.join(pp, kind), exist_ok=True)
+    lines = {}
+    for name, count, (lo, hi) in plan:
+        for _ in range(count):
+            base = f"LJ{sum(len(v) for v in lines.values()):04d}"
+            T = int(r.randint(lo, hi + 1))
+            P = int(T / r.uniform(6.0, 8.0))
+            words = []
+            while sum(words) < P:
+                words.append(min(int(r.randint(1, 7)), P - sum(words)))
+            prior = r.uniform(0.05, 1.0, (P, T)).astype(np.float32)
+            arrays = {
+                "mel": (stats.spec_min[0] + (stats.spec_max[0] - stats.spec_min[0])
+                        * r.uniform(size=(T, n_mels))).astype(np.float32),
+                "pitch": r.uniform(stats.pitch_min, stats.pitch_max, P),
+                "energy": r.uniform(stats.energy_min, stats.energy_max, P),
+                "duration": 1 + r.multinomial(T - P, np.full(P, 1.0 / P)),
+                "phones_per_word": np.array(words, np.int64),
+                "attn_prior": prior / prior.sum(0, keepdims=True),
+            }
+            for kind, a in arrays.items():
+                np.save(os.path.join(pp, kind, f"LJSpeech-{kind}-{base}.npy"), a)
+            phones = " ".join(r.choice(valid_symbols, P))
+            lines.setdefault(name, []).append(
+                f"{base}|LJSpeech|{{{phones}}}|a synthetic utterance of {T} frames")
+    for name, rows in lines.items():
+        with open(os.path.join(pp, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    with open(os.path.join(pp, "speakers.json"), "w") as f:
+        json.dump({"LJSpeech": 0}, f)
+    with open(os.path.join(pp, "stats.json"), "w") as f:
+        json.dump({"pitch": [stats.pitch_min, stats.pitch_max, stats.pitch_mean,
+                             stats.pitch_std],
+                   "energy": [stats.energy_min, stats.energy_max, stats.energy_mean,
+                              stats.energy_std],
+                   "spec_min": list(stats.spec_min), "spec_max": list(stats.spec_max),
+                   "max_seq_len": plan[0][2][1]}, f)
+
+
+class CLIMeter:
+    """Wraps the train CLI's parts (`cli.train`'s module attributes) for
+    one phase: host seconds of each part (`CLI_PARTS`: the loop's waits for
+    a batch, the segments, the sample panels outside validation,
+    validation, checkpoint writes), the four kernels' launches in each
+    part per mode, each segment's CUDA events, steps and mel frames, the
+    losses behind each log line per run, and each checkpoint's size and
+    write time.  A part ends in a synchronisation, so its host time holds
+    its device work."""
+
+    def __init__(self, torch, counters):
+        self.torch, self.counters = torch, counters
+        self.run = self.mode = None
+        self.time = {}          # (run, part) -> s
+        self.launches = {}      # (mode, part) -> {kernel: launches}
+        self.segments = []      # (mode, start event, end event, steps, frames, host s)
+        self.losses = {}        # (run, step) -> {loss: value}
+        self.saves = []         # (path, bytes, s)
+        self.waits = {}         # run -> [s of each wait for a batch]
+        self._validating = False
+
+    def _counts(self):
+        return {name: c.launches for name, c in self.counters.items()}
+
+    def _add(self, part, seconds, before):
+        key = (self.run, part)
+        self.time[key] = self.time.get(key, 0.0) + seconds
+        if before is not None:
+            counts = self.launches.setdefault((self.mode, part), dict.fromkeys(self.counters, 0))
+            for name, n in self._counts().items():
+                counts[name] += n - before[name]
+
+    def part(self, name, fn):
+        def wrapped(*args, **kwargs):
+            if name == "panels" and self._validating:    # validation's own panel
+                return fn(*args, **kwargs)
+            self._validating = name == "validation"
+            before, t0 = self._counts(), time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                sync(self.torch)
+            finally:
+                self._validating = False
+            self._add(name, time.perf_counter() - t0, before)
+            return out
+        return wrapped
+
+    def save(self, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            path = fn(*args, **kwargs)
+            seconds = time.perf_counter() - t0
+            self._add("saving", seconds, None)
+            self.saves.append((path, os.path.getsize(path), seconds))
+            return path
+        return wrapped
+
+    def prefetch(self, fn):
+        def wrapped(iterator, size=2):
+            items = fn(iterator, size)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(items)
+                except StopIteration:
+                    return
+                finally:
+                    self._add("data", time.perf_counter() - t0, None)
+                    self.waits.setdefault(self.run, []).append(time.perf_counter() - t0)
+                yield item
+        return wrapped
+
+    def chunk_train_step(self, fn):
+        torch = self.torch
+
+        def make(step_fn):
+            chunk_fn = fn(step_fn)
+
+            def wrapped(state, batches):
+                before, t0 = self._counts(), time.perf_counter()
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                out = chunk_fn(state, batches)
+                end.record()
+                sync(torch)
+                seconds = time.perf_counter() - t0
+                self._add("steps", seconds, before)
+                self.segments.append((self.mode, start, end, len(batches["mel_lens"]),
+                                      int(batches["mel_lens"].sum()), seconds))
+                return out
+            return wrapped
+        return make
+
+    def loss_message(self, fn):
+        def wrapped(step, total_step, losses):
+            self.losses[(self.run, step)] = {k: float(v) for k, v in losses.items()}
+            return fn(step, total_step, losses)
+        return wrapped
+
+
+def train_cli_phase(torch, device=DEVICE, dataset="LJSpeech", plan=TRAIN_CLI_CORPUS):
+    """Phase 13: the train CLI (`cli.train.main`, in process) at the full
+    width of the shipped configs of `dataset`, in a temporary workspace
+    that holds them with `TRAIN_CLI_STEPS` and a synthetic corpus
+    (`write_corpus`): aux 0 -> 16; shallow from the aux checkpoint at 16
+    to 32; shallow again from the checkpoint at 24 to 32; `cli.evaluate`
+    at 32; `cli.synthesize --mode batch --teacher_forced` at 32.  Every
+    log line must be finite, checkpoints 8, 16, 24 and 32 must reload, the
+    resumed run's losses at 28 and 32 must be within rtol 1e-3 of the
+    uninterrupted run's, the denoiser kernel must launch in the shallow
+    runs' panels and validation, the MRF kernels in both modes', no kernel
+    inside a train step, and the teacher-forced wavs must be int16 at the
+    corpus's rate and mel_len * hop long."""
+    import re
+    import numpy as np
+    import yaml
+    from scipy.io import wavfile
+    from mixgantts_tpu_torch.checkpoint import restore_checkpoint
+    from mixgantts_tpu_torch.cli import common, evaluate, synthesize
+    from mixgantts_tpu_torch.cli import train as cli_train
+    from mixgantts_tpu_torch.config import get_configs_of
+    from mixgantts_tpu_torch.train import create_train_state
+    from mixgantts_tpu_torch.utils.logging import MESSAGE_KEYS
+    pre, cfg, tc = get_configs_of(dataset)
+    tc["step"].update(TRAIN_CLI_STEPS)
+    counters = all_kernel_counters()
+    meter = CLIMeter(torch, counters)
+    wrappers = {"prefetch": meter.prefetch, "chunk_train_step": meter.chunk_train_step,
+                "synthesize_sample": lambda fn: meter.part("panels", fn),
+                "evaluate": lambda fn: meter.part("validation", fn),
+                "save_checkpoint": meter.save, "loss_message": meter.loss_message}
+    originals = {name: getattr(cli_train, name) for name in wrappers}
+    runs = (("aux 0-16", "aux", 0), ("shallow 16-32", "shallow", 16),
+            ("shallow 24-32 (resumed)", "shallow", 24))
+    cwd = os.getcwd()
+    walls, peaks = {}, {}
+    with tempfile.TemporaryDirectory() as ws:
+        os.chdir(ws)
+        try:
+            cfg_dir = os.path.join("config", dataset)
+            os.makedirs(cfg_dir)
+            for name, c in (("preprocess.yaml", pre), ("model.yaml", cfg), ("train.yaml", tc)):
+                with open(os.path.join(cfg_dir, name), "w") as f:
+                    yaml.safe_dump(c, f)
+            t0 = time.perf_counter()
+            write_corpus(pre["path"]["preprocessed_path"],
+                         pre["preprocessing"]["mel"]["n_mel_channels"], plan)
+            log(f"[train cli] corpus: {sum(n for _, n, _ in plan)} utterances "
+                f"({', '.join(f'{n} of {lo}-{hi} frames in {name}' for name, n, (lo, hi) in plan)})"
+                f", written in {time.perf_counter() - t0:.2f} s; steps {TRAIN_CLI_STEPS}, "
+                f"batch {tc['optimizer']['batch_size']} (shallow "
+                f"{tc['optimizer']['batch_size_shallow']}), steps_per_call "
+                f"{cfg['tpu']['steps_per_call']}")
+            for name, fn in wrappers.items():
+                setattr(cli_train, name, fn(originals[name]))
+            for label, mode, restore in runs:
+                meter.run, meter.mode = label, mode
+                args = argparse.Namespace(model=mode, dataset=dataset, restore_step=restore,
+                                          path_tag="", seed=0)
+                configs = common.load_configs(args)
+                if torch.cuda.is_available():
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                cli_train.main(args, configs, device)
+                walls[label] = time.perf_counter() - t0
+                peaks[label] = (torch.cuda.max_memory_allocated()
+                                if torch.cuda.is_available() else 0)
+            for name, fn in originals.items():
+                setattr(cli_train, name, fn)
+            tc_shallow = configs[2]
+            ckpt_path, log_path = tc_shallow["path"]["ckpt_path"], tc_shallow["path"]["log_path"]
+
+            t0 = time.perf_counter()
+            message = evaluate.cli(["--restore_step", "32", "--model", "shallow",
+                                    "--dataset", dataset], device=device)
+            t_eval = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            written = synthesize.cli(["--restore_step", "32", "--model", "shallow", "--mode",
+                                      "batch", "--teacher_forced", "--dataset", dataset],
+                                     device=device)
+            t_tf = time.perf_counter() - t0
+
+            numbers = []
+            for part in ("train", "val"):
+                with open(os.path.join(log_path, part, "log.txt")) as f:
+                    lines = f.read().splitlines()
+                numbers += [float(x) for line in lines
+                            for x in re.findall(r"-?\d+\.\d+|nan|inf", line.split(", ", 1)[1])]
+                log(f"[train cli] {part}/log.txt: {len(lines)} lines, the last: {lines[-1]}")
+            if not numbers or not np.isfinite(numbers).all():
+                raise AssertionError("a log line is not finite")
+            for step, mode in ((8, "aux"), (16, "aux"), (24, "shallow"), (32, "shallow")):
+                model, _ = common.build_model(mode, pre, cfg, device=device)
+                disc = common.build_discriminator(pre, cfg, device=device)
+                state = create_train_state(model, disc, tc, cfg)
+                restore_checkpoint(ckpt_path, state, step)
+                if state.step != step:
+                    raise AssertionError(f"checkpoint {step} restored step {state.step}")
+                del model, disc, state
+            hop = pre["preprocessing"]["stft"]["hop_length"]
+            sr = pre["preprocessing"]["audio"]["sampling_rate"]
+            for path, mel_len in written:
+                rate, wav = wavfile.read(path)
+                if rate != sr or wav.dtype != np.int16 or mel_len <= 0 or len(wav) != mel_len * hop:
+                    raise AssertionError(f"{path}: {rate} Hz, {wav.dtype}, {len(wav)} "
+                                         f"samples, mel_len {mel_len}")
+        finally:
+            for name, fn in originals.items():
+                setattr(cli_train, name, fn)
+            os.chdir(cwd)
+
+    worst = 0.0
+    for step in (28, 32):
+        want, got = meter.losses[(runs[1][0], step)], meter.losses[(runs[2][0], step)]
+        for k in MESSAGE_KEYS:
+            err = abs(got[k] - want[k]) / max(abs(want[k]), 1e-6)
+            worst = max(worst, err if abs(got[k] - want[k]) > 1e-6 else 0.0)
+        log(f"[train cli] step {step}, resumed / uninterrupted: "
+            + ", ".join(f"{k} {got[k]:.6f}/{want[k]:.6f}" for k in MESSAGE_KEYS))
+    if worst > 1e-3:
+        raise AssertionError(f"the resumed run's losses differ by {worst:.3e} (rtol 1e-3)")
+    log(f"[train cli] resumed against uninterrupted at steps 28 and 32: worst relative "
+        f"difference {worst:.3e} (rtol 1e-3)")
+    log(f"[train cli] checkpoints 8, 16, 24, 32 reload; evaluate at 32 ({t_eval:.2f} s): "
+        f"{message}; teacher-forced synthesis ({t_tf:.2f} s): {len(written)} wavs, int16 at "
+        f"{sr} Hz, mel_len * {hop} samples")
+
+    for mode in ("aux", "shallow"):
+        segs = [s for s in meter.segments if s[0] == mode]
+        device_ms = sum(start.elapsed_time(end) for _, start, end, _, _, _ in segs)
+        host_s = sum(s[5] for s in segs)
+        steps, frames = sum(s[3] for s in segs), sum(s[4] for s in segs)
+        per_step = [f"{start.elapsed_time(end) / n:.1f}" for _, start, end, n, _, _ in segs]
+        log(f"[train cli] {mode}: {steps} steps in {len(segs)} segments (lengths "
+            f"{[s[3] for s in segs]}, ms a step {per_step}): {1e3 * steps / device_ms:.2f} "
+            f"steps/s and "
+            f"{1e3 * frames / device_ms:.0f} mel frames/s on CUDA events "
+            f"({device_ms / steps:.2f} ms a step); {steps / host_s:.2f} steps/s and "
+            f"{frames / host_s:.0f} mel frames/s on the host clock")
+    for label, _, _ in runs:
+        shares = {part: meter.time.get((label, part), 0.0) for part in CLI_PARTS}
+        other = walls[label] - sum(shares.values())
+        log(f"[train cli] {label}: wall {walls[label]:.2f} s; "
+            + ", ".join(f"{part} {100 * s / walls[label]:.1f}%" for part, s in shares.items())
+            + f", other (model and vocoder build, restore, logging) "
+            f"{100 * other / walls[label]:.1f}%; peak memory {peaks[label] / 2**30:.2f} GiB")
+        waits = sorted(meter.waits.get(label, []), reverse=True)
+        log(f"  {len(waits)} batches taken, waits over 10 ms: "
+            f"{[f'{1e3 * w:.0f}' for w in waits if w > 0.01]} ms")
+    sizes = sorted({(os.path.basename(p), n) for p, n, _ in meter.saves})
+    log(f"[train cli] checkpoints {sizes}: "
+        + ", ".join(f"{n / 2**20:.1f} MiB in {1e3 * s:.0f} ms" for _, n, s in meter.saves))
+    for (mode, part), counts in sorted(meter.launches.items()):
+        log(f"[train cli] launches, {mode} {part}: {counts}")
+    steps_launched = {k: v for (mode, part), c in meter.launches.items() if part == "steps"
+                      for k, v in c.items() if v}
+    if steps_launched:
+        raise AssertionError(f"a kernel launched inside a train step: {steps_launched}")
+    for mode in ("aux", "shallow"):
+        for part in ("panels", "validation"):
+            counts = meter.launches.get((mode, part), {})
+            want = ["mrf_stack", "mrf_stack_folded"] + (
+                ["fused_residual_stack"] if mode == "shallow" else [])
+            missing = [k for k in want if not counts.get(k)]
+            if missing:
+                raise AssertionError(f"{mode} {part}: {missing} did not launch ({counts})")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1275,6 +1626,8 @@ def main():
     log("[train] aux, naive and shallow training at full width (fp32, TF32 off)")
     with tempfile.TemporaryDirectory() as tmp:
         training_phase(torch, args.profile or tmp)                # phase 12
+    log("[train cli] the train CLI at full width: aux, the aux -> shallow handoff, resume")
+    train_cli_phase(torch)                                        # phase 13
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

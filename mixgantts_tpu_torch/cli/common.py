@@ -1,5 +1,6 @@
 """Shared CLI plumbing (`mixgantts_tpu/cli/common.py`): config loading,
-path-tag routing, model assembly and the generator checkpoint.
+path-tag routing, model assembly, the generator checkpoint, and host
+batches moved to the device.
 
 Path routing as the reference: checkpoint and log directories take the
 suffix `_naive` or `_shallow` (aux and shallow share), result directories
@@ -9,10 +10,12 @@ the exact model name, each with an optional extra path tag.
 import json
 import os
 
+import numpy as np
 import torch
 
 from ..config import NormStats, get_configs_of
 from ..convert import load_reference_generator
+from ..models.discriminator import JCUDiscriminator
 from ..models.mixgantts import MixGANTTS
 
 
@@ -56,6 +59,15 @@ def build_model(mode, preprocess_config, model_config, device=None):
     return model, stats
 
 
+def build_discriminator(preprocess_config, model_config, device=None):
+    """The JCU discriminator of the configs, on `device` (default cuda)."""
+    return JCUDiscriminator.from_configs(preprocess_config, model_config, device=device)
+
+
+def param_count(module):
+    return sum(p.numel() for p in module.parameters())
+
+
 def restore_generator(model, ckpt_path, restore_step):
     """Load G from `{ckpt_path}/{restore_step}.pth.tar`, the reference's
     checkpoint format (a dict with "G", as `python -m mixgantts_tpu.export`
@@ -73,3 +85,16 @@ def restore_generator(model, ckpt_path, restore_step):
 def model_batch_of(batch):
     """Strip host-only fields before handing a batch to the device."""
     return {k: v for k, v in batch.items() if k not in ("ids", "raw_texts")}
+
+
+def to_device(batch, device):
+    """A host batch's arrays as tensors on `device` (their numpy types;
+    through pinned memory without blocking the host when it is a GPU).
+    Host-only fields are dropped."""
+    out = {}
+    for k, v in model_batch_of(batch).items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out

@@ -1,5 +1,7 @@
-"""Synthesis CLI (`mixgantts_tpu/cli/synthesize.py`): raw text, or a batch
-source file, to wav files, with pitch/energy/duration control.
+"""Synthesis CLI (`mixgantts_tpu/cli/synthesize.py`): raw text, a batch
+source file, or (`--teacher_forced`) val.txt's utterances driven by their
+duration, pitch and energy targets, to wav files, with pitch/energy/
+duration control.
 
     python -m mixgantts_tpu_torch.cli.synthesize --restore_step 200000 \
         --model shallow --mode single --text "..." --dataset LJSpeech
@@ -16,13 +18,15 @@ import json
 import os
 
 import numpy as np
+import torch
 
-from ..data.dataset import TextOnlyDataset
+from ..data.dataset import AcousticDataset, TextOnlyDataset
 from ..frontend import preprocess_english, preprocess_mandarin
 from ..models.vocoder import get_vocoder
 from ..pipeline import TTSPipeline
-from ..utils.synth import write_results
-from .common import build_model, load_configs, model_batch_of, restore_generator
+from ..train.step import model_kwargs
+from ..utils.synth import synth_samples, write_results
+from .common import build_model, load_configs, model_batch_of, restore_generator, to_device
 
 
 def synthesize(model, args, configs, vocoder, batches, control_values):
@@ -40,6 +44,28 @@ def synthesize(model, args, configs, vocoder, batches, control_values):
         paths = write_results(args, batch["ids"], mels, mel_lens, wavs, model_config,
                               preprocess_config, train_config["path"]["result_path"])
         written += [(p, int(n)) for p, n in zip(paths, mel_lens)]
+    return written
+
+
+def synthesize_teacher_forced(model, args, configs, vocoder, batches, control_values):
+    """Each batch of `val.txt` with its duration, pitch and energy targets
+    driving the model (batch i draws its noise from a generator seeded i),
+    written by `synth_samples`.  Returns (wav path, mel length) per
+    utterance."""
+    preprocess_config, model_config, train_config = configs
+    pitch_control, energy_control, duration_control = control_values
+    device = next(model.parameters()).device
+    written = []
+    for i, batch in enumerate(batches):
+        kwargs = model_kwargs(to_device(batch, device))
+        del kwargs["mels"], kwargs["mel_lens"]
+        with torch.no_grad():
+            out = model(**kwargs, p_control=pitch_control, e_control=energy_control,
+                        d_control=duration_control,
+                        generator=torch.Generator(device).manual_seed(i))
+        paths = synth_samples(args, batch, out, vocoder, model_config, preprocess_config,
+                              train_config["path"]["result_path"], model.diffusion)
+        written += [(p, int(n)) for p, n in zip(paths, out.mel_lens.tolist())]
     return written
 
 
@@ -108,10 +134,6 @@ def cli(argv=None, device=None):
     if args.mode == "single" and (args.source is not None or args.text is None
                                   or args.teacher_forced):
         raise AssertionError("single mode takes --text only")
-    if args.teacher_forced:
-        raise NotImplementedError(
-            "teacher-forced synthesis needs AcousticDataset, which is not "
-            "ported yet (ROADMAP item 6)")
     if args.data_parallel:
         raise NotImplementedError(
             "--data_parallel synthesis over several GPUs is not ported yet "
@@ -126,13 +148,19 @@ def cli(argv=None, device=None):
         model_config, num_mels=preprocess_config["preprocessing"]["mel"]["n_mel_channels"],
         device=device)
 
+    controls = (args.pitch_control, args.energy_control, args.duration_control)
+    if args.teacher_forced:
+        dataset = AcousticDataset("val.txt", args.model, preprocess_config, model_config,
+                                  train_config, sort=False, drop_last=False)
+        batches = [b for b in dataset.batches(group_size=1, shuffle=False, epochs=1)
+                   if b is not None]
+        return synthesize_teacher_forced(model, args, configs, vocoder, batches, controls)
     if args.mode == "batch":
         batches = list(TextOnlyDataset(args.source, preprocess_config,
                                        model_config).batches(batch_size=8))
     else:
         batches = [build_single_batch(args, preprocess_config, model_config)]
-    return synthesize(model, args, configs, vocoder, batches,
-                      (args.pitch_control, args.energy_control, args.duration_control))
+    return synthesize(model, args, configs, vocoder, batches, controls)
 
 
 if __name__ == "__main__":

@@ -86,16 +86,20 @@ class GaussianDiffusion(nn.Module):
 
     # --- inference ----------------------------------------------------------
 
-    def sampling(self, cond, spk_emb=None, noise=None, step_noises=None, generator=None):
+    def sampling(self, cond, spk_emb=None, noise=None, step_noises=None, generator=None,
+                 return_trace=False):
         """Reverse process from `noise` (x_T; drawn when None) to the
         normalised x0 [B, T, n_mels], conditioned on cond [B, T, H] and a
         multi-speaker model's speaker embedding spk_emb [B, H].
         `step_noises` [S, B, T, n_mels] injects the per-step posterior
-        noises, consumed t = S-1 .. 0; drawn noise is in cond's type."""
+        noises, consumed t = S-1 .. 0; drawn noise is in cond's type.
+        With `return_trace`, the whole trajectory x_T .. x_0 [S+1, B, T,
+        n_mels]."""
         B, T_mel, _ = cond.shape
         shape = (B, T_mel, self.spec_min.shape[0])
         x = noise if noise is not None else torch.randn(
             shape, generator=generator, device=cond.device, dtype=cond.dtype)
+        trace = [x]
         for k, i in enumerate(reversed(range(self.num_timesteps))):
             t = torch.full((B,), i, dtype=torch.long, device=cond.device)
             x0_pred = torch.clamp(self.denoise_fn(x, t, cond, spk_emb), -1.0, 1.0)
@@ -103,7 +107,8 @@ class GaussianDiffusion(nn.Module):
                           torch.randn(x.shape, generator=generator, device=x.device,
                                       dtype=cond.dtype))
             x = self.q_posterior_sample(x0_pred, x, t, step_noise)
-        return x
+            trace.append(x)
+        return torch.stack(trace) if return_trace else x
 
     def diffuse_trace(self, mel, mel_mask, generator=None, noises=None):
         """[S+1, B, T, n_mels]: the clamped normalised mel, then its

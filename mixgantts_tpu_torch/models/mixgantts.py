@@ -44,7 +44,8 @@ from .linguistic_encoder import LinguisticEncoder
 
 
 class GeneratorOutput(NamedTuple):
-    mel_pred: torch.Tensor                 # inference: [B, T, M] raw-scale mel;
+    mel_pred: torch.Tensor                 # inference: [B, T, M] raw-scale mel
+    #                                        ([S+1, B, T, M] with return_trace);
     #                                        training: normalised x0 prediction;
     #                                        aux: the trace [S+1, B, T, M]
     mel_lens: torch.Tensor                 # [B]
@@ -163,7 +164,7 @@ class MixGANTTS(nn.Module):
                 max_mel_len, p_control=1.0, e_control=1.0, d_control=1.0,
                 noise_override=None, generator=None, spker_embeds=None, mels=None,
                 mel_lens=None, attn_priors=None, p_targets=None, e_targets=None,
-                d_targets=None, update_stats=True):
+                d_targets=None, update_stats=True, return_trace=False):
         """texts [B, P] phoneme ids, src_lens [B], word_boundaries [B, W],
         src_w_lens [B]; max_mel_len is the static frame axis.  `speakers`
         [B] indexes a multi-speaker model's table; `spker_embeds`
@@ -176,7 +177,11 @@ class MixGANTTS(nn.Module):
         max_mel_len), `mel_lens`, the targets `p_targets`, `e_targets`
         [B, P] and `d_targets` [B, P] (frames per phone), and for the CTC
         helper `attn_priors` [B, P, T]; `update_stats=False` keeps the
-        PostNet's running statistics where they are in training mode."""
+        PostNet's running statistics where they are in training mode.
+
+        In naive and shallow inference, `return_trace` makes `mel_pred` the
+        whole reverse trajectory [S+1, B, T, M], denormalised and masked
+        (the train CLI's sample panels)."""
         if max_mel_len > self.max_seq_len:
             raise ValueError(
                 f"max_mel_len={max_mel_len} exceeds max_seq_len="
@@ -217,8 +222,8 @@ class MixGANTTS(nn.Module):
                 start = diffusion.diffuse(coarse_mel, t_start, start) * maskf
             x0 = diffusion.sampling(cond, spk, noise=start,
                                     step_noises=ov.get("step_noises"),
-                                    generator=generator)
-            mel_pred = diffusion.denorm_spec(x0) * maskf
+                                    generator=generator, return_trace=return_trace)
+            mel_pred = diffusion.denorm_spec(x0) * (maskf[None] if return_trace else maskf)
         else:
             # training: one random diffusion step per utterance
             def noise(key):

@@ -100,6 +100,50 @@ class Adam:
         self.count = t
         return True
 
+    def state_dict(self, lr=None):
+        """The state in `torch.optim.Adam.state_dict()`'s shape: per
+        parameter index {step, exp_avg, exp_avg_sq} once an update has been
+        applied, and one param group with `lr` (the schedule's next value
+        when none is given).  For exact resume the group also holds optax's
+        update count (`count`, the Noam schedule's input) and MultiSteps'
+        gradient counter (`mini_step`), and each parameter's entry the
+        running mean of the gradients still pending (`acc`)."""
+        state = {}
+        for i in range(len(self.params)):
+            entry = {}
+            if self.mu is not None:
+                entry.update(step=torch.tensor(float(self.count)), exp_avg=self.mu[i],
+                             exp_avg_sq=self.nu[i])
+            if self.acc is not None:
+                entry["acc"] = self.acc[i]
+            if entry:
+                state[i] = entry
+        group = {"lr": float(self.schedule(self.count) if lr is None else lr),
+                 "betas": (self.b1, self.b2), "eps": self.eps,
+                 "weight_decay": self.weight_decay, "amsgrad": False, "maximize": False,
+                 "foreach": None, "capturable": False, "differentiable": False,
+                 "fused": None, "count": self.count, "mini_step": self.mini_step,
+                 "params": list(range(len(self.params)))}
+        return {"state": state, "param_groups": [group]}
+
+    def load_state_dict(self, state_dict):
+        """Take back what `state_dict` wrote, onto these parameters'
+        devices and types."""
+        (group,) = state_dict["param_groups"]
+        if len(group["params"]) != len(self.params):
+            raise ValueError(f"optimizer state of {len(group['params'])} parameters "
+                             f"for {len(self.params)}")
+        state = state_dict["state"]
+        self.count, self.mini_step = int(group["count"]), int(group["mini_step"])
+
+        def tensors(key):
+            if key not in state.get(0, {}):
+                return None
+            return [state[i][key].to(p.device, p.dtype, copy=True)
+                    for i, p in enumerate(self.params)]
+
+        self.mu, self.nu, self.acc = tensors("exp_avg"), tensors("exp_avg_sq"), tensors("acc")
+
 
 def build_fs2_optimizer(params, model_config, train_config):
     fs2 = train_config["optimizer_fs2"]

@@ -1,4 +1,5 @@
-"""Train and eval steps (`mixgantts_tpu/train/step.py`), fp32.
+"""Train and eval steps (`mixgantts_tpu/train/step.py`), fp32, and
+`chunk_train_step`, k steps over a segment of stacked batches.
 
 Aux mode runs one generator forward and the reconstruction loss on the
 Noam-scheduled optimizer.  Naive and shallow modes run the reference's
@@ -30,7 +31,9 @@ BATCH_MODEL_KEYS = (
 )
 
 
-def _model_kwargs(batch):
+def model_kwargs(batch):
+    """The generator's keyword arguments of a batch of tensors: its
+    `BATCH_MODEL_KEYS`, and `max_mel_len` from the frame axis of `mels`."""
     kw = {k: batch[k] for k in BATCH_MODEL_KEYS if k in batch}
     kw["max_mel_len"] = batch["mels"].shape[1]
     return kw
@@ -114,7 +117,7 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
     diffusion = model.diffusion
 
     def g_forward(state, batch, noise, update_stats=True):
-        return model(**_model_kwargs(batch), noise_override=noise,
+        return model(**model_kwargs(batch), noise_override=noise,
                      generator=state.generator, update_stats=update_stats)
 
     if mode == "aux":
@@ -171,6 +174,24 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
     return step_fn
 
 
+def chunk_train_step(step_fn):
+    """chunk_fn(state, batches) -> metrics: k train steps, in order, over
+    batches stacked on a leading [k] axis (a dict of [k, B, ...] tensors),
+    returning each metric stacked on [k].  The steps queue on the device
+    with no host synchronisation between them, so the caller reads a
+    segment's metrics with one copy to the host.  k chunked steps leave
+    exactly the state that k sequential calls leave: the same step on the
+    same values, drawing from the same random streams."""
+
+    def chunk_fn(state, batches):
+        k = next(iter(batches.values())).shape[0]
+        metrics = [step_fn(state, {key: v[j] for key, v in batches.items()})
+                   for j in range(k)]
+        return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+
+    return chunk_fn
+
+
 def make_eval_step(mode, model, discriminator, model_config, train_config):
     """eval_fn(state, batch, generator=None, noise_override=None) -> the
     step's losses without updates: the training branch in eval mode (no
@@ -181,7 +202,7 @@ def make_eval_step(mode, model, discriminator, model_config, train_config):
 
     def eval_fn(state, batch, generator=None, noise_override=None):
         with _mode(model, False), _mode(discriminator, False), torch.no_grad():
-            out = model(**_model_kwargs(batch), noise_override=noise_override,
+            out = model(**model_kwargs(batch), noise_override=noise_override,
                         generator=generator if generator is not None else state.generator)
             if mode == "aux":
                 losses = generator_loss(loss_cfg, diffusion, out, batch["mels"],

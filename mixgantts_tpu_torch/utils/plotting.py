@@ -1,5 +1,6 @@
-"""Mel figures (`mixgantts_tpu/utils/plotting.py::plot_mel`).  matplotlib
-is imported inside the function, so the port imports where it is absent."""
+"""Mel and attention figures (`mixgantts_tpu/utils/plotting.py`:
+`plot_mel`, `plot_multi_attn`).  matplotlib is imported inside the
+functions, so the port imports where it is absent."""
 
 import numpy as np
 
@@ -22,3 +23,23 @@ def plot_mel(data, titles=None):
         axes[i][0].set_anchor("W")
     fig.tight_layout()
     return fig
+
+
+def plot_multi_attn(data, titles=None):
+    """Attention maps per head; data: list of [n_heads, P, T] arrays.  One
+    figure per array (the figure itself for a list of one)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    figs = []
+    for attn in data:
+        attn = np.asarray(attn)
+        fig, axes = plt.subplots(attn.shape[0], 1, squeeze=False, figsize=(6, 4 * attn.shape[0]))
+        for j in range(attn.shape[0]):
+            im = axes[j][0].imshow(attn[j], origin="lower", aspect="auto")
+            fig.colorbar(im, ax=axes[j][0])
+        fig.tight_layout()
+        figs.append(fig)
+    return figs[0] if len(figs) == 1 else figs

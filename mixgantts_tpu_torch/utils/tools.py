@@ -1,6 +1,6 @@
-"""Small helpers (`mixgantts_tpu/utils/tools.py`): host-side padding and
-word subdivision (numpy), the length buckets, and the device rule of the
-port's entry points."""
+"""Small helpers (`mixgantts_tpu/utils/tools.py`): host-side padding,
+word subdivision and expansion (numpy), the length buckets, and the device
+rule of the port's entry points."""
 
 import numpy as np
 import torch
@@ -32,6 +32,23 @@ def pad_2d(inputs, length=None):
     return np.stack([
         np.pad(np.asarray(x), ((0, length - np.shape(x)[0]), (0, 0)))
         for x in inputs])
+
+
+def pad_3d(inputs, B, T, L):
+    """Place [t_i, l_i] arrays into a zero [B, T, L] box."""
+    out = np.zeros((B, T, L), dtype=np.float32)
+    for i, x in enumerate(inputs):
+        x = np.asarray(x)
+        out[i, :x.shape[0], :x.shape[1]] = x
+    return out
+
+
+def expand(values, durations):
+    """Repeat each value by its duration (host-side logging helper)."""
+    out = []
+    for value, d in zip(values, durations):
+        out += [value] * max(0, int(d))
+    return np.array(out)
 
 
 def bucket_length(n, buckets):

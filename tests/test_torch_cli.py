@@ -11,7 +11,8 @@ CPU, at test_cli.py's small config (TINY_MODEL_YAML):
   `TTSPipeline` on the same weights within test_torch_pipeline.py's
   tolerance (int16 within 1 LSB, mel mean |diff| < 1e-3);
 - the probes: single mode without text, shallow below total_step_aux,
-  teacher-forced and data-parallel synthesis, no GPU, no checkpoint.
+  teacher-forced synthesis from a source file, data-parallel synthesis, no
+  GPU, no checkpoint.
 
 The vocoder is test_torch_pipeline.py's tiny HiFi-GAN on both sides.
 """
@@ -229,8 +230,8 @@ def test_write_results_without_matplotlib(workspace, monkeypatch, tmp_path):
      AssertionError, None),
     (["--restore_step", "2", "--model", "shallow", "--mode", "single", "--text", "hi"],
      AssertionError, "finished aux checkpoint"),
-    (["--restore_step", "4", "--model", "naive", "--mode", "batch", "--teacher_forced"],
-     NotImplementedError, "ROADMAP"),
+    (["--restore_step", "4", "--model", "naive", "--mode", "batch", "--teacher_forced",
+      "--source", "source.txt"], AssertionError, None),
     (["--restore_step", "4", "--model", "naive", "--mode", "batch", "--source", "source.txt",
       "--data_parallel"], NotImplementedError, "ROADMAP"),
     (["--restore_step", "6", "--model", "naive", "--mode", "single", "--text", "hi"],

@@ -18,13 +18,15 @@
   configs with per-branch dilations (the eager route, against flax at
   rtol 1e-4 / atol 1e-5).
 - No module of the port imports JAX, flax or the JAX package (an AST scan),
-  and the entry points refuse to run without a GPU unless asked for the CPU.
+  and the entry points (the model, the vocoders, the train and evaluate
+  CLIs) refuse to run without a GPU unless asked for the CPU.
 """
 
 import ast
 import copy
 import functools
 import os
+import types
 import warnings
 
 import jax
@@ -37,6 +39,8 @@ from mixgantts_tpu.models.hifigan import HiFiGANGenerator as JHiFiGAN
 from mixgantts_tpu.models.vocoder import Vocoder as JVocoder
 from mixgantts_tpu.pipeline import cast_floats
 from mixgantts_tpu.utils.tools import bucket_length
+from mixgantts_tpu_torch.cli import evaluate as evaluate_cli
+from mixgantts_tpu_torch.cli import train as train_cli
 from mixgantts_tpu_torch.config import NormStats, get_configs_of
 from mixgantts_tpu_torch.models import hifigan as thifigan
 from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
@@ -299,8 +303,14 @@ def test_port_imports_no_jax():
 
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    pre, cfg, _ = get_configs_of("LJSpeech")
+    pre, cfg, tc = get_configs_of("LJSpeech")
     stats = NormStats.default()
+    args = types.SimpleNamespace(model="aux", dataset="LJSpeech", restore_step=0, path_tag="",
+                                 seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(args, (pre, cfg, tc))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_cli.cli(["--model", "aux", "--dataset", "LJSpeech"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MixGANTTS.from_configs("shallow", pre, cfg, stats)
     with pytest.raises(RuntimeError, match="device='cpu'"):

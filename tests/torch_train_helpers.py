@@ -7,19 +7,24 @@ off on both sides for value parity."""
 
 import copy
 import functools
+import os
+import zlib
 
 import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+import yaml
 
 from mixgantts_tpu.config import NormStats
 from mixgantts_tpu.models.diffusion import DiffusionSchedule
 from mixgantts_tpu.models.discriminator import JCUDiscriminator as JJCUDiscriminator
 from mixgantts_tpu.models.mixgantts import MixGANTTS as JMixGANTTS
 from mixgantts_tpu_torch.convert import discriminator_state_dict
+from mixgantts_tpu_torch.models.diffusion import GaussianDiffusion
 from mixgantts_tpu_torch.models.discriminator import JCUDiscriminator
+from mixgantts_tpu_torch.utils.logging import LOSS_KEYS
 from torch_port_helpers import numpy_tree, t, torch_generator_like
 
 TRAIN_CONFIG = {
@@ -228,3 +233,96 @@ def jax_apply_kwargs(batch):
     kw = dict(batch)
     kw["max_mel_len"] = batch["mels"].shape[1]
     return kw
+
+
+def shape_noise(shape):
+    """Gaussian noise that is a fixed function of its shape alone (seeded
+    by the shape), so that a jitted JAX function, traced once per shape,
+    and the port draw the same values."""
+    seed = zlib.crc32(repr(tuple(int(n) for n in shape)).encode())
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def patch_trace_by_shape(monkeypatch):
+    """On both sides, aux mode's diffuse trace takes its step noises
+    [S, B, T, M] from `shape_noise` instead of a random stream: the JAX
+    package's `DiffusionSchedule.diffuse_trace` and the port's
+    `GaussianDiffusion.diffuse_trace`."""
+    def jax_trace(self, rng, mel, mel_mask):
+        step_noises = shape_noise((self.num_timesteps,) + tuple(mel.shape))
+        maskf = mel_mask[..., None].astype(mel.dtype)
+        trace = [jnp.clip(self.norm_spec(mel), -1.0, 1.0) * maskf]
+        for i in range(self.num_timesteps):
+            t_i = jnp.full((mel.shape[0],), i, dtype=jnp.int32)
+            trace.append(self.diffuse(mel, t_i, step_noises[i]) * maskf)
+        return jnp.stack(trace, axis=0)
+
+    port_trace = GaussianDiffusion.diffuse_trace
+
+    def torch_trace(self, mel, mel_mask, generator=None, noises=None):
+        noises = torch.from_numpy(shape_noise((self.num_timesteps,) + tuple(mel.shape)))
+        return port_trace(self, mel, mel_mask, noises=noises.to(mel.device))
+
+    monkeypatch.setattr(DiffusionSchedule, "diffuse_trace", jax_trace)
+    monkeypatch.setattr(GaussianDiffusion, "diffuse_trace", torch_trace)
+
+
+def cli_workspace(root, n_utts=6):
+    """test_cli.py's workspace under `root`: a corpus of `n_utts` sine-tone
+    utterances preprocessed by the JAX `Preprocessor`, a two-word lexicon,
+    and config/TestCorpus/*.yaml (TINY_MODEL_YAML, TINY_TRAIN_YAML with
+    output paths under `root/output`)."""
+    from mixgantts_tpu.data.preprocessor import Preprocessor
+    from test_cli import TINY_MODEL_YAML, TINY_TRAIN_YAML
+    from test_data_pipeline import PREPROCESS_CONFIG, make_corpus
+
+    make_corpus(root, n_utts=n_utts)
+    pre = copy.deepcopy(PREPROCESS_CONFIG)
+    pre["dataset"] = "TestCorpus"
+    pre["path"] = {"corpus_path": root, "lexicon_path": os.path.join(root, "lexicon.txt"),
+                   "raw_path": os.path.join(root, "raw_data"),
+                   "preprocessed_path": os.path.join(root, "preprocessed")}
+    with open(pre["path"]["lexicon_path"], "w") as f:
+        f.write("hello HH AH0 L OW1\nworld W ER1 L D\n")
+    train = copy.deepcopy(TINY_TRAIN_YAML)
+    train["path"] = {k: os.path.join(root, "output", k[:-5], "TestCorpus")
+                     for k in ("ckpt_path", "log_path", "result_path")}
+    mc = copy.deepcopy(TINY_MODEL_YAML)
+    cfg_dir = os.path.join(root, "config", "TestCorpus")
+    os.makedirs(cfg_dir, exist_ok=True)
+    for name, cfg in (("preprocess.yaml", pre), ("model.yaml", mc), ("train.yaml", train)):
+        with open(os.path.join(cfg_dir, name), "w") as f:
+            yaml.dump(cfg, f)
+    Preprocessor(pre, mc, train).build_from_path()
+
+
+def jit_generator_init(monkeypatch):
+    """The JAX MixGANTTS's `init` jitted: the JAX CLI's `create_train_state`
+    and the export CLI's initialise the generator op by op, ~30 s on the
+    CPU, where one jitted init of the same function and keys takes ~9."""
+    plain = flax.linen.Module.init
+
+    def init(self, rngs, *args, **kwargs):
+        static = {k: kwargs.pop(k) for k in ("max_mel_len", "train") if k in kwargs}
+        return jax.jit(lambda r, a, kw: plain(self, r, *a, **kw, **static))(rngs, args, kwargs)
+
+    monkeypatch.setattr(JMixGANTTS, "init", init)
+
+
+def recording(fn, out):
+    """fn, appending a host copy of each call's result to `out` (the JAX
+    CLI donates its state's buffers to the train step)."""
+    def wrapped(*args, **kwargs):
+        result = fn(*args, **kwargs)
+        out.append(jax.device_get(result))
+        return result
+    return wrapped
+
+
+def recording_losses(loss_message, out):
+    """`loss_message`, appending each call's (step, {loss key: float}) to
+    `out`: the unrounded metrics behind a log line."""
+    def wrapped(step, total_step, losses):
+        out.append((step, {k: float(losses[k]) for k in LOSS_KEYS}))
+        return loss_message(step, total_step, losses)
+    return wrapped
