@@ -1,8 +1,10 @@
 """Smoke test and first measurement of the PyTorch/CUDA port on one NVIDIA
 H100: shallow-mode LJSpeech and AISHELL3 text -> wav through
 `mixgantts_tpu_torch`, in fp32 and bf16, with HiFi-GAN and MelGAN, a few
-training steps in each mode (aux, naive, shallow), and the train CLI from
-aux through the aux -> shallow handoff to a resumed shallow run.
+training steps in each mode (aux, naive, shallow) and each opt-in step
+variant, the train CLI from aux through the aux -> shallow handoff to a
+resumed shallow run, and a raw corpus through prepare_align and preprocess
+into the train CLI.
 
     python3 chip_smoke.py                  # needs one CUDA device
     python3 chip_smoke.py --profile DIR    # keeps the request and train-step traces in DIR
@@ -110,7 +112,37 @@ phase 9's weights; every serving kernel must launch;
    steps/s and mel frames/s per mode (CUDA events around segments, and
    the host clock), each run's wall split into data, steps, panels,
    validation, saving and the rest, checkpoint sizes and write times, peak
-   memory, and the kernels' launches per mode and part.
+   memory, and the kernels' launches per mode and part;
+14. the opt-in train-step variants at phase 12's width, batches and bucket
+   (fp32 masters, TF32 off): `tpu.reuse_g_forward` naive (B=8) and
+   shallow (B=4), `tpu.reuse_aux_forward` shallow (B=4), `tpu.compute_dtype:
+   bfloat16` aux and naive (B=8) and shallow (B=4); a warm-up and three
+   timed steps each (CUDA events): finite metrics, the mode's parameters
+   moved (fp32 masters) and the others not, no kernel launched; ms per
+   step, mel frames/s and peak memory beside phase 12's two-forward fp32
+   step; one traced shallow step of each variant (device busy share,
+   kernel launches); then on the GPU and on the CPU at B=2, T=128 (dropout
+   off, the same injected noise) a `reuse_aux_forward` shallow step at
+   phase 12's bars and a bf16 naive step at the CPU tests' bf16 bars (the
+   losses through the updated D within rtol 5e-3, the others within 1e-4,
+   each gradient tensor at cosine >= 0.999);
+15. raw corpus -> preprocessing -> training on the card, in a temporary
+   workspace with the shipped LJSpeech and AISHELL3 configs (only
+   `val_size` changed: 8 and 4): synthetic raw corpora written here from a
+   seed at 22.05 kHz (48 LJSpeech utterances of 2-5 s of harmonic tones;
+   4 AISHELL3 speakers x 8) with the TextGrids an aligner would write,
+   then `cli.prepare_align` and `cli.preprocess` for each (AISHELL3's
+   DeepSpeaker on the card): every artifact present and finite, the split
+   and the json files well formed, unit-norm embeddings, DeepSpeaker on
+   the card against the CPU module on the same features and weights, the
+   batched mel spectrogram on the card against the host one on 4 wavs
+   (both max|diff| <= 1e-4 of the largest value, TF32 off); then the train
+   CLI on the LJSpeech output, 8 aux steps, the handoff and 8 shallow steps
+   with `reuse_aux_forward` and `compute_dtype: bfloat16`, one panel and
+   one save a run: finite log lines, the checkpoint reloads, the shallow
+   panel launches the denoiser and MRF kernels and no step any;
+   utterances/s of preprocessing and its wall split by part (host clock),
+   the train CLI's steps/s.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 phase 4, or phase 7 for `mrf_stack_streamed`; max error in phase 3 or 7;
@@ -1088,6 +1120,66 @@ def all_kernel_counters():
     return dict(kernel_counters(), mrf_stack_streamed=mrf.mrf_stack_streamed)
 
 
+def timed_steps(torch, mode, model, disc, state, step_fn, batch, counters):
+    """A warm-up step and TRAIN_STEPS timed ones (CUDA events, and the host
+    clock around each step's finite-metrics check), the kernel counters set
+    to 0 just before.  Returns a namespace of the step times, the last
+    metrics, the launches, peak and base memory, the parameters the mode
+    trains (`named`, D's too outside aux) and their values before."""
+    import types
+    from mixgantts_tpu_torch.train import check_finite_metrics
+    named = [("G " + n, p) for n, p in model.named_parameters()]
+    if mode != "aux":
+        named += [("D " + n, p) for n, p in disc.named_parameters()]
+    before = [p.detach().clone() for _, p in named]
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # this mode's G, D and batch, and earlier phases'
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    check_finite_metrics(step_fn(state, batch), state.step)          # warm-up
+    warm = time.perf_counter() - t0
+    times, wall = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step_fn(state, batch)
+        end.record()
+        check_finite_metrics(metrics, state.step)                     # copies to the host
+        wall.append(1e3 * (time.perf_counter() - t0))
+        times.append(start.elapsed_time(end))
+    sync(torch)
+    return types.SimpleNamespace(
+        times=times, wall=wall, warm=warm, median=statistics.median(times), metrics=metrics,
+        launches={name: c.launches for name, c in counters.items()},
+        peak=torch.cuda.max_memory_allocated(), base=base,
+        frames=int(batch["mel_lens"].sum()), named=named, before=before)
+
+
+def check_trained(torch, label, mode, run):
+    """No kernel launched in `timed_steps`' run; every parameter the mode
+    trains moved and stayed an fp32 master, and those it freezes did not
+    move."""
+    import re
+    if any(run.launches.values()):
+        raise AssertionError(f"{label} training launched a serving kernel: {run.launches}")
+    frozen, still, moved_frozen = TRAIN_FROZEN[mode], [], []
+    for (name, p), p0 in zip(run.named, run.before):
+        if p.dtype != torch.float32:
+            raise AssertionError(f"{label}: {name} is {p.dtype}, not an fp32 master")
+        moved = not torch.equal(p.detach(), p0)
+        if frozen and re.search(frozen, name.split(" ", 1)[1]):
+            if moved:
+                moved_frozen.append(name)
+        elif not moved and not re.search(TRAIN_MAY_STAY, name):
+            still.append(name)
+    if still or moved_frozen:
+        raise AssertionError(f"{label}: trained parameters that did not move {still[:8]}, "
+                             f"frozen ones that moved {moved_frozen[:8]}")
+
+
 def training_phase(torch, out_dir):
     """Phase 12: aux (B = batch_size), naive (batch_size) and shallow
     (batch_size_shallow) training at the full width of the LJSpeech
@@ -1097,71 +1189,36 @@ def training_phase(torch, out_dir):
     the mode trains must move (D's too in naive and shallow) and the
     others not, and no kernel may launch during the steps.  Median ms per
     step, peak memory, and one traced shallow step with its device busy
-    share; then one shallow and one naive step against the CPU."""
-    import re
+    share; then one shallow and one naive step against the CPU.  Returns
+    {mode: (median ms per step, mel frames/s, peak GiB)}."""
     from mixgantts_tpu_torch.config import get_configs_of
-    from mixgantts_tpu_torch.train import check_finite_metrics
     pre, cfg, tc = get_configs_of("LJSpeech")
     counters = all_kernel_counters()
+    results = {}
     for mode in ("aux", "naive", "shallow"):
         B = tc["optimizer"]["batch_size_shallow" if mode == "shallow" else "batch_size"]
         model, disc, state, step_fn = build_training(torch, mode, pre, cfg, tc)
         batch = train_batch(torch, pre, B, 128, 64, 1000, (600, 1000), seed=12)
-        named = [("G " + n, p) for n, p in model.named_parameters()]
-        if mode != "aux":
-            named += [("D " + n, p) for n, p in disc.named_parameters()]
-        before = [p.detach().clone() for _, p in named]
-        sync(torch)
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()   # this mode's G, D and batch, and earlier phases'
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        check_finite_metrics(step_fn(state, batch), state.step)          # warm-up
-        warm = time.perf_counter() - t0
-        times, wall = [], []
-        for _ in range(TRAIN_STEPS):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            metrics = step_fn(state, batch)
-            end.record()
-            check_finite_metrics(metrics, state.step)                     # copies to the host
-            wall.append(1e3 * (time.perf_counter() - t0))
-            times.append(start.elapsed_time(end))
-        sync(torch)
-        launches = {name: c.launches for name, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
-        frames = int(batch["mel_lens"].sum())
-        med = statistics.median(times)
+        run = timed_steps(torch, mode, model, disc, state, step_fn, batch, counters)
+        frames, med, peak, base = run.frames, run.median, run.peak, run.base
         log(f"[train] {mode} B={B} bucket 1000 ({frames} frames): "
-            f"{statistics.median(wall):.2f} ms per step on the host clock, device "
-            f"{med:.2f} ms (CUDA events; {', '.join(f'{x:.2f}' for x in times)}), "
-            f"{1e3 * frames / med:.0f} mel frames/s; warm-up step {1e3 * warm:.0f} ms; "
+            f"{statistics.median(run.wall):.2f} ms per step on the host clock, device "
+            f"{med:.2f} ms (CUDA events; {', '.join(f'{x:.2f}' for x in run.times)}), "
+            f"{1e3 * frames / med:.0f} mel frames/s; warm-up step {1e3 * run.warm:.0f} ms; "
             f"peak memory {peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB over the "
             f"{base / 2**30:.2f} GiB allocated before the steps; "
-            + ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(metrics.items())))
-        if any(launches.values()):
-            raise AssertionError(f"{mode} training launched a serving kernel: {launches}")
-        frozen, still, moved_frozen = TRAIN_FROZEN[mode], [], []
-        for (name, p), p0 in zip(named, before):
-            moved = not torch.equal(p.detach(), p0)
-            if frozen and re.search(frozen, name.split(" ", 1)[1]):
-                if moved:
-                    moved_frozen.append(name)
-            elif not moved and not re.search(TRAIN_MAY_STAY, name):
-                still.append(name)
-        log(f"  {len(named)} parameter tensors, none of the serving kernels launched "
-            f"({launches})")
-        if still or moved_frozen:
-            raise AssertionError(f"{mode}: trained parameters that did not move {still[:8]}, "
-                                 f"frozen ones that moved {moved_frozen[:8]}")
+            + ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(run.metrics.items())))
+        check_trained(torch, mode, mode, run)
+        log(f"  {len(run.named)} parameter tensors, none of the serving kernels launched "
+            f"({run.launches})")
         if mode == "shallow":
             trace(torch, lambda: step_fn(state, batch),
                   os.path.join(out_dir, "shallow_train_step_trace.json"), "train trace")
-        del model, disc, state, step_fn, batch, before, named
+        results[mode] = (med, 1e3 * frames / med, peak / 2**30)
+        del model, disc, state, step_fn, batch, run
         torch.cuda.empty_cache()
     train_cpu_reference(torch, pre, cfg, tc)
+    return results
 
 
 def train_cpu_reference(torch, pre, cfg, tc):
@@ -1179,58 +1236,73 @@ def train_cpu_reference(torch, pre, cfg, tc):
     PostNet conv biases have a zero gradient by symmetry, softmax's shift
     invariance and BatchNorm's mean, so theirs is rounding noise on both
     devices)."""
-    import numpy as np
     for mode in ("shallow", "naive"):
-        devices = (DEVICE, "cpu")
-        built = [build_training(torch, mode, pre, cfg, tc, device) for device in devices]
-        gpu_model, gpu_disc = built[0][:2]
-        with torch.no_grad():
-            out = gpu_model.diffusion.denoise_fn.output_projection.conv.weight
-            out.copy_(torch.randn(out.shape, generator=torch.Generator().manual_seed(1)) * 0.05)
-        batches = [train_batch(torch, pre, 2, 32, 16, 128, (100, 128), seed=13, device=device)
-                   for device in devices]
-        r = np.random.RandomState(14)
-        shape = tuple(batches[0]["mels"].shape)
-        noise = [{"t": r.randint(0, gpu_model.diffusion.num_timesteps, 2),
-                  **{k: r.randn(*shape).astype(np.float32)
-                     for k in ("x_t_noise", "x_t_prev_noise", "posterior_noise")}}
-                 for _ in range(2)]
-        init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (gpu_model, gpu_disc)]
-        runs = []
-        for (model, disc, state, step_fn), batch, device in zip(built, batches, devices):
-            model.load_state_dict(init[0])
-            disc.load_state_dict(init[1])
-            for m in model.modules():
-                if isinstance(m, torch.nn.Dropout):
-                    m.p = 0.0
-            metrics = step_fn(state, batch, noise_overrides=[
-                {k: torch.as_tensor(v, device=device) for k, v in n.items()} for n in noise])
-            grads = {f"{tag} {n}": (p.grad.detach().cpu() if p.grad is not None
-                                     else torch.zeros(p.shape))
-                     for tag, m in (("G", model), ("D", disc)) for n, p in m.named_parameters()}
-            runs.append(({k: float(v) for k, v in metrics.items()}, grads))
-        (gm, gg), (cm, cg) = runs
-        bad = [k for k in cm if abs(gm[k] - cm[k]) > 1e-4 * abs(cm[k]) + 1e-6]
-        worst, worst_frac, failed = 0.0, 0.0, []
-        for tag in ("G", "D"):
-            names = [k for k in cg if k.startswith(tag)]
-            top = max(float(cg[k].abs().max()) for k in names)
-            for k in names:
-                bar = max(float(cg[k].abs().max()), 1e-3 * top)
-                diff = (gg[k] - cg[k]).abs()
-                frac = float((diff > 1e-3 * bar).float().mean())
-                worst = max(worst, float(diff.max()) / bar)
-                worst_frac = max(worst_frac, frac)
-                if frac > 1e-2 or float(diff.max()) > 1e-2 * bar:
-                    failed.append(f"{k} max|diff| {float(diff.max()):.3g}, {frac:.2%} of "
-                                  f"elements past 1e-3 * {bar:.3g}")
-        log(f"[train cpu] {mode} B=2 T=128, GPU against CPU: losses "
-            + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(cm))
-            + f"; gradients of {len(cg)} tensors: worst max|diff| / max|g| {worst:.3e}, "
-            f"worst share of elements past 1e-3 * max|g| {worst_frac:.2e}")
-        if bad or failed:
-            raise AssertionError(f"{mode}: the GPU step disagrees with the CPU step: "
-                                 f"losses {bad}, gradients {failed[:6]}")
+        check_gpu_against_cpu(mode, *step_on_gpu_and_cpu(torch, mode, pre, cfg, tc))
+
+
+def step_on_gpu_and_cpu(torch, mode, pre, cfg, tc, n_noise=2):
+    """One step of `mode` with model.yaml `cfg` at B=2, T=128 on the
+    full-width model (a non-zero denoiser output projection), dropout
+    p = 0 and the same injected t and noise (`n_noise` diffusion branches),
+    on the GPU and on the CPU from the same weights.  Returns ((GPU
+    losses, gradients), (CPU losses, gradients)), the gradients on the
+    CPU by "G name" / "D name"."""
+    import numpy as np
+    devices = (DEVICE, "cpu")
+    built = [build_training(torch, mode, pre, cfg, tc, device) for device in devices]
+    gpu_model, gpu_disc = built[0][:2]
+    with torch.no_grad():
+        out = gpu_model.diffusion.denoise_fn.output_projection.conv.weight
+        out.copy_(torch.randn(out.shape, generator=torch.Generator().manual_seed(1)) * 0.05)
+    batches = [train_batch(torch, pre, 2, 32, 16, 128, (100, 128), seed=13, device=device)
+               for device in devices]
+    r = np.random.RandomState(14)
+    shape = tuple(batches[0]["mels"].shape)
+    noise = [{"t": r.randint(0, gpu_model.diffusion.num_timesteps, 2),
+              **{k: r.randn(*shape).astype(np.float32)
+                 for k in ("x_t_noise", "x_t_prev_noise", "posterior_noise")}}
+             for _ in range(n_noise)]
+    init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (gpu_model, gpu_disc)]
+    runs = []
+    for (model, disc, state, step_fn), batch, device in zip(built, batches, devices):
+        model.load_state_dict(init[0])
+        disc.load_state_dict(init[1])
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        metrics = step_fn(state, batch, noise_overrides=[
+            {k: torch.as_tensor(v, device=device) for k, v in n.items()} for n in noise])
+        grads = {f"{tag} {n}": (p.grad.detach().cpu() if p.grad is not None
+                                 else torch.zeros(p.shape))
+                 for tag, m in (("G", model), ("D", disc)) for n, p in m.named_parameters()}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads))
+    return runs
+
+
+def check_gpu_against_cpu(mode, gpu, cpu, label="train cpu"):
+    """Phase 12's bars on `step_on_gpu_and_cpu`'s runs."""
+    (gm, gg), (cm, cg) = gpu, cpu
+    bad = [k for k in cm if abs(gm[k] - cm[k]) > 1e-4 * abs(cm[k]) + 1e-6]
+    worst, worst_frac, failed = 0.0, 0.0, []
+    for tag in ("G", "D"):
+        names = [k for k in cg if k.startswith(tag)]
+        top = max(float(cg[k].abs().max()) for k in names)
+        for k in names:
+            bar = max(float(cg[k].abs().max()), 1e-3 * top)
+            diff = (gg[k] - cg[k]).abs()
+            frac = float((diff > 1e-3 * bar).float().mean())
+            worst = max(worst, float(diff.max()) / bar)
+            worst_frac = max(worst_frac, frac)
+            if frac > 1e-2 or float(diff.max()) > 1e-2 * bar:
+                failed.append(f"{k} max|diff| {float(diff.max()):.3g}, {frac:.2%} of "
+                              f"elements past 1e-3 * {bar:.3g}")
+    log(f"[{label}] {mode} B=2 T=128, GPU against CPU: losses "
+        + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(cm))
+        + f"; gradients of {len(cg)} tensors: worst max|diff| / max|g| {worst:.3e}, "
+        f"worst share of elements past 1e-3 * max|g| {worst_frac:.2e}")
+    if bad or failed:
+        raise AssertionError(f"{mode}: the GPU step disagrees with the CPU step: "
+                             f"losses {bad}, gradients {failed[:6]}")
 
 
 # Phase 13: the train CLI.  Its step periods (the shipped configs' other
@@ -1566,10 +1638,415 @@ def train_cli_phase(torch, device=DEVICE, dataset="LJSpeech", plan=TRAIN_CLI_COR
                 raise AssertionError(f"{mode} {part}: {missing} did not launch ({counts})")
 
 
+# Phase 14's bf16 bars, tests/test_torch_train_variants.py's: the losses
+# that read the D which phase 1 updated (Adam's sign-like first step turns
+# bf16 rounding flips of D's near-zero gradients into whole steps), and
+# each gradient tensor's cosine; the other losses at phase 12's rtol 1e-4.
+BF16_UPDATED_D_RTOL, BF16_GRAD_COSINE = 5e-3, 0.999
+UPDATED_D_KEYS = ("adv_loss", "fm_loss", "G_loss", "total_loss")
+
+# Phase 14: the opt-in step variants, (model.yaml tpu key, value, mode).
+TRAIN_VARIANTS = (("reuse_g_forward", True, "naive"), ("reuse_g_forward", True, "shallow"),
+                  ("reuse_aux_forward", True, "shallow"), ("compute_dtype", "bfloat16", "aux"),
+                  ("compute_dtype", "bfloat16", "naive"),
+                  ("compute_dtype", "bfloat16", "shallow"))
+
+
+def variant_config(cfg, **tpu):
+    import copy
+    out = copy.deepcopy(cfg)
+    out["tpu"] = dict(out.get("tpu") or {}, **tpu)
+    return out
+
+
+def train_variants_phase(torch, out_dir, plain):
+    """Phase 14: the opt-in step variants at phase 12's full width, batches
+    and bucket (fp32 masters, TF32 off, random weights from seed 0):
+    `reuse_g_forward` naive (B=8) and shallow (B=4), `reuse_aux_forward`
+    shallow (B=4), `compute_dtype: bfloat16` aux and naive (B=8) and
+    shallow (B=4); a warm-up step and three timed ones (CUDA events).  The
+    metrics must be finite, every parameter the mode trains must move and
+    the others not, and none of the four kernels may launch.  Prints ms
+    per step, mel frames/s and peak memory beside phase 12's two-forward
+    fp32 step of the same mode (`plain`), and one traced shallow step of
+    each variant (device busy share, kernel launches).  Then, on the GPU
+    and on the CPU at B=2, T=128 (dropout off, the same injected noise): a
+    `reuse_aux_forward` shallow step at phase 12's bars, and a bf16 naive
+    step at the CPU tests' bf16 bars (the losses through the updated D
+    within rtol 5e-3, the others within phase 12's 1e-4; each gradient
+    tensor at cosine >= 0.999 with the CPU's, tensors with a norm below
+    1e-3 of the largest left out)."""
+    from mixgantts_tpu_torch.config import get_configs_of
+    pre, cfg, tc = get_configs_of("LJSpeech")
+    counters = all_kernel_counters()
+    for key, value, mode in TRAIN_VARIANTS:
+        label = f"{key}={value} {mode}"
+        B = tc["optimizer"]["batch_size_shallow" if mode == "shallow" else "batch_size"]
+        model, disc, state, step_fn = build_training(
+            torch, mode, pre, variant_config(cfg, **{key: value}), tc)
+        batch = train_batch(torch, pre, B, 128, 64, 1000, (600, 1000), seed=12)
+        run = timed_steps(torch, mode, model, disc, state, step_fn, batch, counters)
+        med, peak = run.median, run.peak / 2**30
+        p_ms, p_fps, p_peak = plain[mode]
+        log(f"[train variants] {label} B={B}: {med:.2f} ms per step (CUDA events; "
+            f"{', '.join(f'{x:.2f}' for x in run.times)}), {1e3 * run.frames / med:.0f} mel "
+            f"frames/s, peak memory {peak:.2f} GiB; the two-forward fp32 step (phase 12): "
+            f"{p_ms:.2f} ms, {p_fps:.0f} mel frames/s, {p_peak:.2f} GiB; "
+            + ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(run.metrics.items())))
+        check_trained(torch, label, mode, run)
+        if mode == "shallow":
+            trace(torch, lambda: step_fn(state, batch),
+                  os.path.join(out_dir, f"shallow_{key}_step_trace.json"),
+                  f"train variants trace {label}", top=6)
+        del model, disc, state, step_fn, batch, run
+        torch.cuda.empty_cache()
+
+    check_gpu_against_cpu("shallow", *step_on_gpu_and_cpu(
+        torch, "shallow", pre, variant_config(cfg, reuse_aux_forward=True), tc),
+        label="train variants cpu, reuse_aux_forward")
+    (gm, gg), (cm, cg) = step_on_gpu_and_cpu(
+        torch, "naive", pre, variant_config(cfg, compute_dtype="bfloat16"), tc)
+    bad = [k for k in cm if abs(gm[k] - cm[k]) > (BF16_UPDATED_D_RTOL if k in UPDATED_D_KEYS
+                                                  else 1e-4) * abs(cm[k]) + 1e-6]
+    largest = max(float(g.norm()) for g in cg.values())
+    cosines = {k: float(torch.nn.functional.cosine_similarity(
+        gg[k].flatten().double(), g.flatten().double(), dim=0))
+        for k, g in cg.items() if float(g.norm()) >= 1e-3 * largest}
+    low = {k: c for k, c in cosines.items() if c < BF16_GRAD_COSINE}
+    log(f"[train variants cpu, bf16] naive B=2 T=128, GPU against CPU (both bf16): losses "
+        + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(cm))
+        + f"; gradients of {len(cosines)} tensors: worst cosine {min(cosines.values()):.6f} "
+        f"({len(cg) - len(cosines)} with a norm below 1e-3 of the largest left out)")
+    if bad or low:
+        raise AssertionError(f"bf16 naive: the GPU step disagrees with the CPU step: losses "
+                             f"{bad}, cosines {sorted(low.items())[:6]}")
+
+
+# Phase 15: raw corpus -> preprocessing -> training.  The synthetic corpora
+# (utterances, seconds) and the train CLI's step periods on the result.
+PREP_LJSPEECH = (48, (2.0, 5.0))
+PREP_AISHELL3 = (("SSB0001", "SSB0005", "SSB0012", "SSB0021"), 8, (2.0, 5.0))
+PREP_VAL_SIZE = {"LJSpeech": 8, "AISHELL3": 4}
+PREP_TRAIN_STEPS = {"total_step_aux": 8, "total_step_shallow": 16, "log_step": 4,
+                    "synth_step": 8, "val_step": 10**6, "save_step": 8}
+ARTIFACTS = ("mel", "pitch", "energy", "duration", "phones_per_word", "attn_prior")
+SYLLABLES = ("ni3", "hao3", "zhong1", "guo2", "ren2", "min2", "yu3", "yin1", "he2", "cheng2",
+             "xi4", "tong3", "shi4", "jie4", "wen2", "zi4", "shu1", "ma5", "da4", "xue2")
+
+
+def synthetic_utterance(r, seconds, sr):
+    """A voiced harmonic tone of `seconds` (f0 gliding around 100-220 Hz,
+    three harmonics, a syllable-rate envelope, a little noise) and its
+    phone boundaries: 60-120 ms phones, the last one a trailing silence of
+    ~150 ms.  Returns (wav float32, [phone end times])."""
+    import numpy as np
+    n = int(sr * seconds)
+    t = np.arange(n) / sr
+    f0 = r.uniform(100, 220) * (1 + 0.15 * np.sin(2 * np.pi * r.uniform(0.3, 1.0) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(a * np.sin(k * phase) for k, a in ((1, 0.5), (2, 0.25), (3, 0.12)))
+    wav *= 0.6 + 0.4 * np.sin(2 * np.pi * 4.0 * t) ** 2
+    speech = seconds - 0.15
+    ends = []
+    while not ends or ends[-1] < speech - 0.06:
+        ends.append(round((ends[-1] if ends else 0.0) + r.uniform(0.06, 0.12), 4))
+    ends[-1] = round(speech, 4)
+    wav[int(sr * speech):] = 0.0
+    wav = wav + 0.003 * r.randn(n)
+    return (0.5 * wav / np.abs(wav).max()).astype(np.float32), ends + [round(seconds, 4)]
+
+
+def textgrid_tiers(phones, ends, words_of):
+    """Phone and word tiers of an utterance whose phones end at `ends`
+    (the last one the trailing silence); `words_of` lists each word's
+    (label, number of phones)."""
+    from mixgantts_tpu_torch.data.textgrid import IntervalTier
+    starts = [0.0] + ends[:-1]
+    phone_iv = list(zip(starts, ends, phones + ["sil"]))
+    word_iv, i = [], 0
+    for label, n in words_of:
+        word_iv.append((starts[i], ends[i + n - 1], label))
+        i += n
+    word_iv.append((ends[-2], ends[-1], ""))
+    return [IntervalTier("words", word_iv), IntervalTier("phones", phone_iv)]
+
+
+def write_raw_corpora(pre_lj, pre_zh, seed=15):
+    """The raw LJSpeech layout (metadata.csv, wavs/) and AISHELL3 layout
+    (train/content.txt, train/wav/<speaker>/) at the configs' corpus
+    paths, from numpy with `seed`, and the TextGrids the aligner would
+    write (`<preprocessed_path>/TextGrid/<speaker>/<basename>.TextGrid`).
+    Returns the number of utterances of each."""
+    import numpy as np
+    from mixgantts_tpu_torch.audio.wav import save_wav
+    from mixgantts_tpu_torch.data.textgrid import write_textgrid
+    from mixgantts_tpu_torch.text.cmudict import valid_symbols
+    from mixgantts_tpu_torch.text.pinyin import pinyin_to_phones
+    r = np.random.RandomState(seed)
+    sr = pre_lj["preprocessing"]["audio"]["sampling_rate"]
+    arpabet = [p for p in valid_symbols if p[-1] in "012" or len(p) <= 2]
+
+    root = pre_lj["path"]["corpus_path"]
+    tg_dir = os.path.join(pre_lj["path"]["preprocessed_path"], "TextGrid", "LJSpeech")
+    os.makedirs(os.path.join(root, "wavs"))
+    os.makedirs(tg_dir)
+    n_lj, (lo, hi) = PREP_LJSPEECH
+    rows = []
+    for k in range(n_lj):
+        base = f"LJ{k // 20 + 1:03d}-{k % 20 + 1:04d}"
+        wav, ends = synthetic_utterance(r, r.uniform(lo, hi), sr)
+        phones = list(r.choice(arpabet, len(ends) - 1))
+        words, left = [], len(phones)
+        while left:
+            n = min(int(r.randint(1, 5)), left)
+            words.append((f"w{len(words)}", n))
+            left -= n
+        save_wav(os.path.join(root, "wavs", f"{base}.wav"), wav, sr)
+        write_textgrid(os.path.join(tg_dir, f"{base}.TextGrid"),
+                       textgrid_tiers(phones, ends, words), xmax=ends[-1])
+        text = " ".join(w for w, _ in words)
+        rows.append(f"{base}|{text}|Utterance {k + 1}, {len(words)} words.")
+    with open(os.path.join(root, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(rows) + "\n")
+
+    root = os.path.join(pre_zh["path"]["corpus_path"], "train")
+    speakers, per_speaker, (lo, hi) = PREP_AISHELL3
+    lines = []
+    for spk in speakers:
+        os.makedirs(os.path.join(root, "wav", spk))
+        tg_dir = os.path.join(pre_zh["path"]["preprocessed_path"], "TextGrid", spk)
+        os.makedirs(tg_dir)
+        for k in range(per_speaker):
+            base = f"{spk}{k + 1:04d}"
+            wav, ends = synthetic_utterance(r, r.uniform(lo, hi), sr)
+            n_phones = len(ends) - 1
+            sylls, phones, words = [], [], []
+            while len(phones) < n_phones:
+                syl = str(r.choice(SYLLABLES))
+                ph = pinyin_to_phones(syl)[:n_phones - len(phones)]
+                sylls.append(syl)
+                phones += ph
+                words.append((syl, len(ph)))
+            save_wav(os.path.join(root, "wav", spk, f"{base}.wav"), wav, sr)
+            write_textgrid(os.path.join(tg_dir, f"{base}.TextGrid"),
+                           textgrid_tiers(phones, ends, words), xmax=ends[-1])
+            lines.append(f"{base}.wav\t" + " ".join(f"字 {s}" for s in sylls))
+    with open(os.path.join(root, "content.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return n_lj, len(speakers) * per_speaker
+
+
+def check_preprocessed(pp, n_utts, val_size, speakers):
+    """Every artifact family present and finite for each line of train.txt
+    and val.txt, and stats.json, speakers.json and the split well formed."""
+    import numpy as np
+    with open(os.path.join(pp, "stats.json")) as f:
+        stats = json.load(f)
+    if not (len(stats["pitch"]) == len(stats["energy"]) == 4
+            and len(stats["spec_min"]) == len(stats["spec_max"]) == 80
+            and np.isfinite(stats["pitch"] + stats["energy"] + stats["spec_min"]
+                            + stats["spec_max"]).all() and stats["max_seq_len"] > 0):
+        raise AssertionError(f"stats.json is malformed: {stats}")
+    with open(os.path.join(pp, "speakers.json")) as f:
+        if sorted(json.load(f)) != sorted(speakers):
+            raise AssertionError("speakers.json does not list the corpus's speakers")
+    lines = {}
+    for name in ("train.txt", "val.txt"):
+        with open(os.path.join(pp, name), encoding="utf-8") as f:
+            lines[name] = [line.split("|") for line in f.read().splitlines()]
+    if len(lines["val.txt"]) != val_size or len(lines["train.txt"]) != n_utts - val_size:
+        raise AssertionError(f"split {len(lines['train.txt'])}/{len(lines['val.txt'])} of "
+                             f"{n_utts} utterances (val_size {val_size})")
+    for base, spk, phones, _ in lines["train.txt"] + lines["val.txt"]:
+        if spk not in speakers or not phones.startswith("{"):
+            raise AssertionError(f"malformed line for {base}")
+        for kind in ARTIFACTS:
+            a = np.load(os.path.join(pp, kind, f"{spk}-{kind}-{base}.npy"))
+            if not np.isfinite(a).all() or a.size == 0:
+                raise AssertionError(f"{kind} of {base} is empty or not finite")
+
+
+def preprocessing_phase(torch):
+    """Phase 15: raw corpus -> preprocessing -> training, on the card.  In a
+    temporary workspace: the shipped LJSpeech and AISHELL3 configs with
+    only `val_size` changed (8, 4: at the shipped 512 these corpora leave
+    no training split), raw corpora written here (`write_raw_corpora`:
+    48 LJSpeech utterances of 2-5 s, 4 AISHELL3 speakers x 8), then
+    `cli.prepare_align` and `cli.preprocess` for each (AISHELL3's
+    DeepSpeaker on the card).  Checks every artifact, the split, the
+    embeddings' unit norm, DeepSpeaker on the card against the CPU module
+    on the same features and weights (max|diff| <= 1e-4 * max|cpu|, TF32
+    off), and `TacotronSTFT.mel_spectrogram` on the card on 4 wavs against
+    the host `get_mel_from_wav` (mel and energy, max|diff| <= 1e-4 *
+    max|host|).  Then the train CLI on the LJSpeech output: 8 aux steps,
+    the handoff, 8 shallow steps with `reuse_aux_forward` and
+    `compute_dtype: bfloat16`, one panel and one save a run: finite log
+    lines, the checkpoint reloads, the shallow panel launches the denoiser
+    and MRF kernels and no step launches any.  Prints utterances/s of
+    preprocessing, its wall split by part (host clock), and the train
+    CLI's steps/s."""
+    import copy
+    import re
+    import numpy as np
+    import yaml
+    from mixgantts_tpu_torch.audio.stft import TacotronSTFT
+    from mixgantts_tpu_torch.audio.wav import load_wav
+    from mixgantts_tpu_torch.checkpoint import restore_checkpoint
+    from mixgantts_tpu_torch.cli import common
+    from mixgantts_tpu_torch.cli import prepare_align, preprocess
+    from mixgantts_tpu_torch.cli import train as cli_train
+    from mixgantts_tpu_torch.config import get_configs_of
+    from mixgantts_tpu_torch.models.speaker_embedder import read_mfcc, sample_from_mfcc
+    from mixgantts_tpu_torch.train import create_train_state
+    configs = {d: get_configs_of(d) for d in ("LJSpeech", "AISHELL3")}
+    for d, (pre, _, _) in configs.items():
+        pre["preprocessing"]["val_size"] = PREP_VAL_SIZE[d]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as ws:
+        os.chdir(ws)
+        try:
+            for d, (pre, cfg, tc) in configs.items():
+                os.makedirs(os.path.join("config", d))
+                for name, c in (("preprocess.yaml", pre), ("model.yaml", cfg),
+                                ("train.yaml", tc)):
+                    with open(os.path.join("config", d, name), "w") as f:
+                        yaml.safe_dump(c, f)
+            t0 = time.perf_counter()
+            counts = dict(zip(configs, write_raw_corpora(configs["LJSpeech"][0],
+                                                         configs["AISHELL3"][0])))
+            log(f"[prep] raw corpora written in {time.perf_counter() - t0:.2f} s: {counts} "
+                f"utterances of {PREP_LJSPEECH[1][0]}-{PREP_LJSPEECH[1][1]} s at "
+                f"{configs['LJSpeech'][0]['preprocessing']['audio']['sampling_rate']} Hz")
+            pres = {}
+            for d, (pre, _, _) in configs.items():
+                t0 = time.perf_counter()
+                prepare_align.cli(["--dataset", d], device=DEVICE)
+                t_align = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                pres[d], _ = preprocess.cli(["--dataset", d], device=DEVICE)
+                wall = time.perf_counter() - t0
+                seconds = pres[d].seconds
+                log(f"[prep] {d}: prepare_align {t_align:.2f} s; preprocess {wall:.2f} s, "
+                    f"{counts[d] / wall:.2f} utterances/s; "
+                    + ", ".join(f"{part} {100 * x / wall:.1f}%" for part, x in
+                                sorted(seconds.items(), key=lambda kv: -kv[1]))
+                    + f", other {100 * (wall - sum(seconds.values())) / wall:.1f}%")
+                speakers = (["LJSpeech"] if d == "LJSpeech" else list(PREP_AISHELL3[0]))
+                check_preprocessed(pre["path"]["preprocessed_path"], counts[d],
+                                   PREP_VAL_SIZE[d], speakers)
+
+            # DeepSpeaker on the card against the CPU module
+            pre_zh = configs["AISHELL3"][0]
+            embedder = pres["AISHELL3"].speaker_emb
+            if embedder.device.type != torch.device(DEVICE).type:
+                raise AssertionError(f"DeepSpeaker ran on {embedder.device}")
+            raw = pre_zh["path"]["raw_path"]
+            wavs = [load_wav(os.path.join(raw, spk, f"{spk}0001.wav"), 22050)[0]
+                    for spk in PREP_AISHELL3[0]]
+            np.random.seed(0)
+            feats = np.stack([sample_from_mfcc(read_mfcc(w, 22050, 1024)) for w in wavs])
+            gpu = embedder.embed(feats)
+            with torch.no_grad():
+                cpu = copy.deepcopy(embedder.module).cpu()(torch.from_numpy(feats)).numpy()
+            err = float(np.abs(gpu - cpu).max())
+            norms = np.linalg.norm(gpu, axis=-1)
+            means = [np.load(os.path.join(pre_zh["path"]["preprocessed_path"], "spker_embed",
+                                          f"{spk}-spker_embed.npy")) for spk in PREP_AISHELL3[0]]
+            log(f"[prep] DeepSpeaker on the card against the CPU module, 4 utterances: max|diff| "
+                f"{err:.3e} (allowed {1e-4 * np.abs(cpu).max():.3e}); norms "
+                f"{[f'{x:.6f}' for x in norms]}; speaker means {[m.shape for m in means]}, "
+                f"norms {[f'{np.linalg.norm(m):.4f}' for m in means]}")
+            if err > 1e-4 * np.abs(cpu).max() or np.abs(norms - 1).max() > 1e-4:
+                raise AssertionError("DeepSpeaker on the card disagrees with the CPU module, "
+                                     "or an embedding is not unit norm")
+            if not all(m.shape == (1, 512) and np.isfinite(m).all() for m in means):
+                raise AssertionError("a speaker embedding file is malformed")
+
+            # the batched mel path on the card against the host one
+            pre_lj = configs["LJSpeech"][0]
+            pp = pre_lj["preprocessing"]
+            stft = TacotronSTFT(pp["stft"]["filter_length"], pp["stft"]["hop_length"],
+                                pp["stft"]["win_length"], pp["mel"]["n_mel_channels"],
+                                pp["audio"]["sampling_rate"], pp["mel"]["mel_fmin"],
+                                pp["mel"]["mel_fmax"], device=DEVICE)
+            worst = 0.0
+            for k in range(4):
+                wav, _ = load_wav(os.path.join(pre_lj["path"]["raw_path"], "LJSpeech",
+                                               f"LJ001-{k + 1:04d}.wav"), 22050)
+                mel, energy = stft.mel_spectrogram(torch.from_numpy(wav).to(DEVICE))
+                host = stft.get_mel_from_wav(wav)
+                for name, got, want in (("mel", mel[0], host[0]), ("energy", energy[0], host[1])):
+                    e = float(np.abs(got.cpu().numpy() - want).max()) / float(np.abs(want).max())
+                    worst = max(worst, e)
+            log(f"[prep] TacotronSTFT.mel_spectrogram on the card against get_mel_from_wav, "
+                f"4 wavs: worst max|diff| / max|host| {worst:.3e} (allowed 1e-4)")
+            if worst > 1e-4:
+                raise AssertionError("the card's mel spectrogram disagrees with the host's")
+
+            # the train CLI on the LJSpeech output
+            pre, cfg, tc = configs["LJSpeech"]
+            cfg = variant_config(cfg, reuse_aux_forward=True, compute_dtype="bfloat16")
+            tc["step"].update(PREP_TRAIN_STEPS)
+            for name, c in (("model.yaml", cfg), ("train.yaml", tc)):
+                with open(os.path.join("config", "LJSpeech", name), "w") as f:
+                    yaml.safe_dump(c, f)
+            meter = CLIMeter(torch, all_kernel_counters())
+            wrappers = {"chunk_train_step": meter.chunk_train_step,
+                        "synthesize_sample": lambda fn: meter.part("panels", fn),
+                        "save_checkpoint": meter.save}
+            originals = {name: getattr(cli_train, name) for name in wrappers}
+            for name, fn in wrappers.items():
+                setattr(cli_train, name, fn(originals[name]))
+            try:
+                for mode, restore in (("aux", 0), ("shallow", 8)):
+                    meter.run = meter.mode = mode
+                    args = argparse.Namespace(model=mode, dataset="LJSpeech",
+                                              restore_step=restore, path_tag="", seed=0)
+                    cli_train.main(args, common.load_configs(args), DEVICE)
+            finally:
+                for name, fn in originals.items():
+                    setattr(cli_train, name, fn)
+            ckpt = os.path.join(tc["path"]["ckpt_path"] + "_shallow")
+            log_path = tc["path"]["log_path"] + "_shallow"
+            with open(os.path.join(log_path, "train", "log.txt")) as f:
+                lines = f.read().splitlines()
+            numbers = [float(x) for line in lines
+                       for x in re.findall(r"-?\d+\.\d+|nan|inf", line.split(", ", 1)[1])]
+            if not numbers or not np.isfinite(numbers).all():
+                raise AssertionError("a log line of the shallow run is not finite")
+            model, _ = common.build_model("shallow", pre, cfg, device=DEVICE)
+            disc = common.build_discriminator(pre, cfg, device=DEVICE)
+            state = create_train_state(model, disc, tc, cfg)
+            restore_checkpoint(ckpt, state, 16)
+            if state.step != 16:
+                raise AssertionError(f"checkpoint 16 restored step {state.step}")
+            del model, disc, state
+        finally:
+            os.chdir(cwd)
+    for mode in ("aux", "shallow"):
+        segs = [x for x in meter.segments if x[0] == mode]
+        device_ms = sum(start.elapsed_time(end) for _, start, end, _, _, _ in segs)
+        steps, host_s = sum(x[3] for x in segs), sum(x[5] for x in segs)
+        log(f"[prep train cli] {mode}: {steps} steps in {len(segs)} segments, "
+            f"{1e3 * steps / device_ms:.2f} steps/s on CUDA events, {steps / host_s:.2f} on the "
+            f"host clock; launches: steps {meter.launches.get((mode, 'steps'))}, panels "
+            f"{meter.launches.get((mode, 'panels'))}")
+    log(f"[prep train cli] shallow/log.txt, the last of {len(lines)} lines: {lines[-1]}; "
+        f"checkpoints {[os.path.basename(x[0]) for x in meter.saves]} (16 reloads)")
+    if any(v for (_, part), c in meter.launches.items() if part == "steps" for v in c.values()):
+        raise AssertionError(f"a kernel launched inside a train step: {meter.launches}")
+    panel = meter.launches.get(("shallow", "panels"), {})
+    missing = [k for k in ("fused_residual_stack", "mrf_stack", "mrf_stack_folded")
+               if not panel.get(k)]
+    if missing:
+        raise AssertionError(f"the shallow panel did not launch {missing} ({panel})")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also trace one B=1 request into DIR, and keep phases 10-12's traces there")
+                        help="also trace one B=1 request into DIR, and keep phases 10-14's "
+                             "traces there")
     args = parser.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -1625,9 +2102,20 @@ def main():
     mandarin_cli_phase(torch, *zh)
     log("[train] aux, naive and shallow training at full width (fp32, TF32 off)")
     with tempfile.TemporaryDirectory() as tmp:
-        training_phase(torch, args.profile or tmp)                # phase 12
-    log("[train cli] the train CLI at full width: aux, the aux -> shallow handoff, resume")
-    train_cli_phase(torch)                                        # phase 13
+        plain = training_phase(torch, args.profile or tmp)        # phase 12
+        log("[train cli] the train CLI at full width: aux, the aux -> shallow handoff, "
+            "resume")
+        train_cli_phase(torch)                                    # phase 13
+        log("[train variants] reuse_g_forward, reuse_aux_forward and bf16 compute at full "
+            "width")
+        t0 = time.perf_counter()
+        train_variants_phase(torch, args.profile or tmp, plain)   # phase 14
+        log(f"[train variants] phase 14 took {time.perf_counter() - t0:.1f} s")
+    log("[prep] raw corpus -> prepare_align -> preprocess -> the train CLI, LJSpeech and "
+        "AISHELL3")
+    t0 = time.perf_counter()
+    preprocessing_phase(torch)                                    # phase 15
+    log(f"[prep] phase 15 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

@@ -18,7 +18,11 @@ of numpy arrays.
 - `discriminator_state_dict`: the inverse of
   `mixgantts_tpu/convert.py::convert_discriminator`, the reference's "D"
   layout that `mixgantts_tpu/export.py::export_discriminator` writes.
-All four load into the port's modules with `load_state_dict(strict=True)`.
+- `deepspeaker_state_dict`: the JAX `DeepSpeakerResCNN`'s params and
+  batch_stats (or `speaker_embedder.convert_keras_weights`'s trees) -> the
+  port's `DeepSpeakerResCNN` (flax conv kernels [kh, kw, in, out] -> torch
+  [out, in, kh, kw]).
+All five load into the port's modules with `load_state_dict(strict=True)`.
 - `load_reference_generator`: the "G" of a reference `.pth.tar` (what
   `mixgantts_tpu/export.py` writes, single- or multi-speaker) into the
   port's `MixGANTTS`.
@@ -180,6 +184,36 @@ def discriminator_state_dict(params):
             j += 1
     if "spk_mlp" in params:
         _linear(params["spk_mlp"]["linear"], "spk_mlp.0.linear", out)
+    return out
+
+
+def _bn2d(p, s, prefix, out):
+    out[prefix + ".weight"] = _t(p["scale"])
+    out[prefix + ".bias"] = _t(p["bias"])
+    out[prefix + ".running_mean"] = _t(s["mean"])
+    out[prefix + ".running_var"] = _t(s["var"])
+    out[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def deepspeaker_state_dict(params, batch_stats):
+    """JAX DeepSpeakerResCNN params + batch_stats -> the port's
+    DeepSpeakerResCNN state_dict."""
+    out = {}
+
+    def conv(p, prefix):
+        out[prefix + ".weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+        out[prefix + ".bias"] = _t(p["bias"])
+
+    for i, filters in enumerate((64, 128, 256, 512)):
+        name, pre = f"conv{filters}-s", f"stages.{i}"
+        conv(params[name], pre + ".conv")
+        _bn2d(params[name + "_bn"], batch_stats[name + "_bn"], pre + ".bn", out)
+        for j in range(3):
+            p, s = params[f"res{i + 1}_{j}"], batch_stats[f"res{i + 1}_{j}"]
+            for half in ("2a", "2b"):
+                conv(p[f"conv_{half}"], f"{pre}.blocks.{j}.conv_{half}")
+                _bn2d(p[f"bn_{half}"], s[f"bn_{half}"], f"{pre}.blocks.{j}.bn_{half}", out)
+    _linear(params["affine"], "affine", out)
     return out
 
 

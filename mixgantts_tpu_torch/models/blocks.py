@@ -168,8 +168,8 @@ class RelativeSelfAttention(nn.Module):
         B, L, C = x.shape
         d = C // self.n_heads
 
-        def heads(conv):
-            return conv_last(conv, x).reshape(B, L, self.n_heads, d).transpose(1, 2)
+        def heads(conv):   # fp32, as the JAX einsums' preferred_element_type
+            return conv_last(conv, x).float().reshape(B, L, self.n_heads, d).transpose(1, 2)
 
         q, k, v = heads(self.conv_q), heads(self.conv_k), heads(self.conv_v)
         scale = 1.0 / math.sqrt(d)

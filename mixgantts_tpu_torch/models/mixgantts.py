@@ -23,6 +23,13 @@ branch by detaching what it feeds it, where the JAX package stops the
 gradient; the PostNet output keeps its gradient for the postnet loss.
 Dropout and the PostNet's BatchNorm follow the module's training mode.
 
+`aux_only=True` returns the aux stack's `AuxStage` (encoder features,
+the coarse mel, the speaker embedding and the encoder's side outputs)
+without the diffusion branch; `aux_reuse=stage` skips the encoder, decoder
+and PostNet and runs only the diffusion branch on a given stage, so a
+train step can run the aux stack once and the diffusion branch twice
+(`tpu.reuse_aux_forward`).
+
 Randomness comes from `noise_override` or from an explicit
 `torch.Generator`.  Keys: inference {"start_noise": [B, T, M],
 "step_noises": [S, B, T, M]}; training {"t": [B], "x_t_noise",
@@ -41,6 +48,23 @@ from .aux_decoder import Decoder, PostNet
 from .denoiser import Denoiser
 from .diffusion import GaussianDiffusion, schedule_betas
 from .linguistic_encoder import LinguisticEncoder
+
+
+class AuxStage(NamedTuple):
+    """What the aux stack (encoder -> decoder -> PostNet) gives the
+    diffusion branch and the losses; the JAX package's `AuxStage`."""
+    features: torch.Tensor                 # [B, T, H] encoder output (cond)
+    coarse_mel: Optional[torch.Tensor]     # [B, T, M] raw-scale (aux, shallow)
+    postnet_output: Optional[torch.Tensor]  # [B, T, M] the same values, kept apart
+    speaker_emb: Optional[torch.Tensor]    # [B, H] (multi-speaker)
+    pitch_pred: torch.Tensor               # [B, P]
+    energy_pred: torch.Tensor              # [B, P]
+    log_dur_w_pred: torch.Tensor           # [B, W]
+    dur_w_rounded: torch.Tensor            # [B, W]
+    mel_mask: torch.Tensor                 # [B, T] bool, True = valid
+    mel_lens: torch.Tensor                 # [B]
+    attn: tuple                            # (masked, raw) [B, H, T, P]
+    attn_logprob: torch.Tensor             # [B, H, T, P]
 
 
 class GeneratorOutput(NamedTuple):
@@ -164,7 +188,8 @@ class MixGANTTS(nn.Module):
                 max_mel_len, p_control=1.0, e_control=1.0, d_control=1.0,
                 noise_override=None, generator=None, spker_embeds=None, mels=None,
                 mel_lens=None, attn_priors=None, p_targets=None, e_targets=None,
-                d_targets=None, update_stats=True, return_trace=False):
+                d_targets=None, update_stats=True, return_trace=False, aux_only=False,
+                aux_reuse=None):
         """texts [B, P] phoneme ids, src_lens [B], word_boundaries [B, W],
         src_w_lens [B]; max_mel_len is the static frame axis.  `speakers`
         [B] indexes a multi-speaker model's table; `spker_embeds`
@@ -181,7 +206,10 @@ class MixGANTTS(nn.Module):
 
         In naive and shallow inference, `return_trace` makes `mel_pred` the
         whole reverse trajectory [S+1, B, T, M], denormalised and masked
-        (the train CLI's sample panels)."""
+        (the train CLI's sample panels).
+
+        `aux_only` returns the `AuxStage` and stops there; `aux_reuse`
+        takes one instead of running the aux stack."""
         if max_mel_len > self.max_seq_len:
             raise ValueError(
                 f"max_mel_len={max_mel_len} exceeds max_seq_len="
@@ -190,20 +218,16 @@ class MixGANTTS(nn.Module):
                 f"length bucket")
         B, P = texts.shape
         shallow = self.mode == "shallow"
-        enc = self.linguistic_encoder(
-            texts, src_lens, word_boundaries, src_w_lens, max_mel_len,
-            p_control=p_control, d_control=d_control,
-            mel_mask=None if mel_lens is None else sequence_mask(mel_lens, max_mel_len),
-            attn_prior=attn_priors, pitch_target=p_targets, energy_target=e_targets,
-            duration_target=d_targets)
-        cond, mel_mask = enc.features, enc.mel_mask
+        aux = aux_reuse
+        if aux is None:
+            aux = self._aux_stage(texts, src_lens, word_boundaries, src_w_lens, max_mel_len,
+                                  p_control, d_control, speakers, spker_embeds, mel_lens,
+                                  attn_priors, p_targets, e_targets, d_targets, update_stats)
+        if aux_only:
+            return aux
+        cond, mel_mask, spk, coarse_mel = (aux.features, aux.mel_mask, aux.speaker_emb,
+                                           aux.coarse_mel)
         maskf = mel_mask[..., None].to(cond.dtype)
-        spk = self.speaker_embedding(speakers, spker_embeds)
-
-        coarse_mel = None
-        if self.mode in ("aux", "shallow"):
-            coarse = self.mel_linear(self.decoder(cond, mel_mask))
-            coarse_mel = coarse + self.postnet(coarse, update_stats=update_stats)
 
         diffusion = self.diffusion
         ov = noise_override or {}
@@ -246,16 +270,39 @@ class MixGANTTS(nn.Module):
             mel_pred = x0_pred
 
         return GeneratorOutput(
-            mel_pred=mel_pred, mel_lens=enc.mel_len, mel_mask=mel_mask,
-            coarse_mel=_detach_if(coarse_mel, shallow), pitch_pred=enc.pitch_pred,
-            energy_pred=_detach_if(enc.energy_pred, shallow),
-            log_dur_w_pred=enc.log_dur_w_pred, dur_w_rounded=enc.dur_w_rounded,
+            mel_pred=mel_pred, mel_lens=aux.mel_lens, mel_mask=mel_mask,
+            coarse_mel=_detach_if(coarse_mel, shallow), pitch_pred=aux.pitch_pred,
+            energy_pred=_detach_if(aux.energy_pred, shallow),
+            log_dur_w_pred=aux.log_dur_w_pred, dur_w_rounded=_detach_if(aux.dur_w_rounded, shallow),
             x_ts=x_ts, x_t_prevs=x_t_prevs, x_t_prev_preds=x_t_prev_preds,
             diffusion_step=t, speaker_emb=_detach_if(spk, shallow),
             src_mask=sequence_mask(src_lens, P),
             src_w_mask=sequence_mask(src_w_lens, word_boundaries.shape[1]),
-            src_lens=src_lens, attn=enc.attn, attn_logprob=enc.attn_logprob,
-            postnet_output=coarse_mel)
+            src_lens=src_lens, attn=aux.attn, attn_logprob=aux.attn_logprob,
+            postnet_output=aux.postnet_output)
+
+    def _aux_stage(self, texts, src_lens, word_boundaries, src_w_lens, max_mel_len,
+                   p_control, d_control, speakers, spker_embeds, mel_lens, attn_priors,
+                   p_targets, e_targets, d_targets, update_stats):
+        """Linguistic encoder -> (aux, shallow: decoder, mel_linear and
+        PostNet) -> `AuxStage`."""
+        enc = self.linguistic_encoder(
+            texts, src_lens, word_boundaries, src_w_lens, max_mel_len,
+            p_control=p_control, d_control=d_control,
+            mel_mask=None if mel_lens is None else sequence_mask(mel_lens, max_mel_len),
+            attn_prior=attn_priors, pitch_target=p_targets, energy_target=e_targets,
+            duration_target=d_targets)
+        coarse_mel = None
+        if self.mode in ("aux", "shallow"):
+            coarse = self.mel_linear(self.decoder(enc.features, enc.mel_mask))
+            coarse_mel = coarse + self.postnet(coarse, update_stats=update_stats)
+        return AuxStage(
+            features=enc.features, coarse_mel=coarse_mel, postnet_output=coarse_mel,
+            speaker_emb=self.speaker_embedding(speakers, spker_embeds),
+            pitch_pred=enc.pitch_pred, energy_pred=enc.energy_pred,
+            log_dur_w_pred=enc.log_dur_w_pred, dur_w_rounded=enc.dur_w_rounded,
+            mel_mask=enc.mel_mask, mel_lens=enc.mel_len, attn=enc.attn,
+            attn_logprob=enc.attn_logprob)
 
     def speaker_embedding(self, speakers, spker_embeds=None):
         """[B, hidden] speaker embedding of a multi-speaker model (None for a

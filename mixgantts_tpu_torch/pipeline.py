@@ -27,9 +27,8 @@ import warnings
 
 import numpy as np
 import torch
-import torch.nn as nn
 
-from .utils.tools import bucket_length
+from .utils.tools import bucket_length, cast_param, compute_dtype
 
 _GENERATORS_EXHAUSTED = object()
 
@@ -44,21 +43,17 @@ class _Pending:
         self.B, self.T = B, T
 
 
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
 def cast_parameters(module, dtype, rounded=()):
-    """A copy of `module` with every floating-point parameter in `dtype`,
-    except that those of the submodules named in `rounded` are rounded to
-    `dtype` and keep their type; every buffer as it is (cached stacks are
-    rebuilt: `_apply`)."""
+    """A copy of `module` with every parameter cast by `cast_param` (those
+    of the submodules named in `rounded` rounded to `dtype` in their own
+    type, the other floating-point ones in `dtype`); every buffer as it is
+    (cached stacks are rebuilt: `_apply`)."""
     out = copy.deepcopy(module)
-    keep = {id(p) for name in rounded for p in out.get_submodule(name).parameters()}
+    names = {id(p): name for name, p in out.named_parameters()}
 
     def cast(t):
-        if not (isinstance(t, nn.Parameter) and t.is_floating_point()):
-            return t
-        return t.to(dtype).to(t.dtype) if id(t) in keep else t.to(dtype)
+        name = names.get(id(t))
+        return t if name is None else cast_param(name, t, dtype, rounded)
 
     return out._apply(cast)
 
@@ -75,10 +70,7 @@ class TTSPipeline:
         if mesh is not None:
             raise NotImplementedError("sharded serving over a mesh is not ported yet")
         tpu_cfg = model_config.get("tpu", {}) or {}
-        name = tpu_cfg.get("compute_dtype", "float32")
-        if name not in COMPUTE_DTYPES:
-            raise ValueError(f"tpu.compute_dtype {name!r}: one of {sorted(COMPUTE_DTYPES)}")
-        self.compute_dtype = COMPUTE_DTYPES[name]
+        self.compute_dtype = compute_dtype(model_config)
         if self.compute_dtype != torch.float32:
             model = cast_parameters(model, self.compute_dtype, rounded=("linguistic_encoder",))
             vocoder = type(vocoder)(vocoder.name, cast_parameters(vocoder.generator,

@@ -1,5 +1,6 @@
 """Mel and attention figures (`mixgantts_tpu/utils/plotting.py`:
-`plot_mel`, `plot_multi_attn`).  matplotlib is imported inside the
+`plot_mel`, `plot_multi_attn`, `plot_embedding`).  matplotlib (and sklearn for
+the t-SNE of `plot_embedding`) are imported inside the
 functions, so the port imports where it is absent."""
 
 import numpy as np
@@ -43,3 +44,38 @@ def plot_multi_attn(data, titles=None):
         fig.tight_layout()
         figs.append(fig)
     return figs[0] if len(figs) == 1 else figs
+
+
+def plot_embedding(out_dir, embedding, embedding_speaker_id, gender_dict,
+                   filename="embedding.png"):
+    """t-SNE speaker-embedding plot colored by gender
+    (`utils/tools.py:305-331`), saved under `out_dir`."""
+    import os
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+    from sklearn.manifold import TSNE
+
+    colors = "r", "b"
+    labels = "Female", "Male"
+    embedding = np.asarray(embedding)
+    data_x = embedding
+    data_y = np.array([
+        gender_dict.get(spk_id, "M") == "M"
+        for spk_id in embedding_speaker_id], dtype=int)
+    tsne_model = TSNE(n_components=2, random_state=0, init="random",
+                      perplexity=min(30.0, max(1.0, len(data_x) - 1)))
+    tsne_all_data = tsne_model.fit_transform(data_x)
+
+    plt.figure(figsize=(10, 10))
+    for i, (c, label) in enumerate(zip(colors, labels)):
+        plt.scatter(tsne_all_data[data_y == i, 0],
+                    tsne_all_data[data_y == i, 1],
+                    c=c, label=label, alpha=0.5)
+    plt.grid(True)
+    plt.legend(loc="upper left")
+    plt.tight_layout()
+    plt.savefig(os.path.join(out_dir, filename))
+    plt.close()

@@ -68,3 +68,33 @@ def resolve_device(device=None):
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(model_config):
+    """The torch dtype of model.yaml's `tpu.compute_dtype` (float32 by
+    default).  The port takes float32 or bfloat16; any other name raises
+    (the JAX package takes any floating dtype)."""
+    name = (model_config.get("tpu", {}) or {}).get("compute_dtype", "float32")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"tpu.compute_dtype {name!r}: one of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def cast_param(name, p, dtype, rounded=(), lowered=()):
+    """The copy of parameter `name` that a forward in `dtype` runs on: `p`
+    in `dtype`, or, inside the submodules named in `rounded` ("" names the
+    whole module) and outside those named in `lowered`, rounded to `dtype`
+    and kept in its own type, so that the submodule computes in that type
+    on `dtype` values.  Non-float parameters as they are."""
+    if not p.is_floating_point() or p.dtype == dtype:
+        return p
+    if _inside(name, rounded) and not _inside(name, lowered):
+        return p.to(dtype).to(p.dtype)
+    return p.to(dtype)
+
+
+def _inside(name, modules):
+    return any(m == "" or name.startswith(f"{m}.") for m in modules)

@@ -280,6 +280,9 @@ def test_port_imports_no_jax():
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "mixgantts_tpu"}
     files = list(port_files())
     assert len(files) > 10
+    rel = {os.path.relpath(f, os.path.join(REPO, "mixgantts_tpu_torch")) for f in files}
+    assert {"audio/stft.py", "audio/f0.py", "models/speaker_embedder.py",
+            "data/preprocessor.py", "cli/preprocess.py", "cli/prepare_align.py"} <= rel
     offenders = []
     for path in files:
         with open(path) as f:

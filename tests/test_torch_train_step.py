@@ -255,16 +255,18 @@ def test_training_never_runs_the_inference_kernel(mode, monkeypatch):
 @pytest.mark.parametrize("flag,mode", [("reuse_g_forward", "naive"),
                                        ("reuse_aux_forward", "shallow"),
                                        ("compute_dtype", "naive"), ("compute_dtype", "aux")])
-def test_unported_flags_raise(flag, mode):
-    """The opt-in step variants not ported yet raise NotImplementedError
-    naming the ROADMAP item, never run a plain fp32 step; the JAX
-    package's own checks keep their errors and warnings."""
+def test_step_flag_checks(flag, mode):
+    """The opt-in step variants build a step; the JAX package's own checks
+    keep their errors and warnings: the two reuse flags together, and
+    reuse_aux_forward in naive mode, raise ValueError; a reuse flag in aux
+    mode is inert and warns.  The port's own check: a compute_dtype other
+    than float32 or bfloat16 raises ValueError (the JAX package takes any
+    floating dtype)."""
     port, port_d = port_setup(mode)
     tc = train_config()
     mc = copy.deepcopy(MODEL_CONFIG)
     mc["tpu"] = {flag: "bfloat16" if flag == "compute_dtype" else True}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        make_train_step(mode, port, port_d, mc, tc)
+    assert callable(make_train_step(mode, port, port_d, mc, tc))
     if flag == "reuse_g_forward":
         mc["tpu"]["reuse_aux_forward"] = True
         with pytest.raises(ValueError, match="mutually exclusive"):
@@ -275,6 +277,10 @@ def test_unported_flags_raise(flag, mode):
         aux, aux_d = port_setup("aux")
         with pytest.warns(UserWarning, match="inert"):
             make_train_step("aux", aux, aux_d, mc, tc)
+    if flag == "compute_dtype":
+        mc["tpu"]["compute_dtype"] = "float16"
+        with pytest.raises(ValueError, match="compute_dtype"):
+            make_train_step(mode, port, port_d, mc, tc)
 
 
 def test_check_finite_metrics_and_debug_nans():

@@ -17,6 +17,11 @@ from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator as TorchHiFiGAN
 from mixgantts_tpu_torch.models.mixgantts import MixGANTTS as TorchMixGANTTS
 from test_pipeline import text_batch, tiny_model  # noqa: F401  (re-exported)
 
+# torch on one thread in every test process: the suite runs several
+# processes at once (pytest-xdist), where torch's default of a thread per
+# core oversubscribes the cores, and these models are small
+torch.set_num_threads(1)
+
 # frames per word the duration predictor's bias is set to, so that random
 # weights give utterances of a realistic length
 DURATION_FRAMES = 6.0
