@@ -3,8 +3,10 @@ H100: shallow-mode LJSpeech and AISHELL3 text -> wav through
 `mixgantts_tpu_torch`, in fp32 and bf16, with HiFi-GAN and MelGAN, a few
 training steps in each mode (aux, naive, shallow) and each opt-in step
 variant, the train CLI from aux through the aux -> shallow handoff to a
-resumed shallow run, and a raw corpus through prepare_align and preprocess
-into the train CLI.
+resumed shallow run, a raw corpus through prepare_align and preprocess
+into the train CLI, and the multi-device path: data- and tensor-parallel
+steps on two ranks, the train CLI under torchrun, sharded serving and the
+multi-device dryrun.
 
     python3 chip_smoke.py                  # needs one CUDA device
     python3 chip_smoke.py --profile DIR    # keeps the request and train-step traces in DIR
@@ -142,10 +144,38 @@ phase 9's weights; every serving kernel must launch;
    one save a run: finite log lines, the checkpoint reloads, the shallow
    panel launches the denoiser and MRF kernels and no step any;
    utterances/s of preprocessing and its wall split by part (host clock),
-   the train CLI's steps/s.
+   the train CLI's steps/s;
+16. the multi-device path (`mixgantts_tpu_torch.parallel`), printing its
+   topology (`K cards`, nccl or gloo) and wall time: (a) one
+   data-parallel step per mode (naive B=8, shallow B=4, bucket 1000, full
+   width, dropout on) on two ranks of this script (`--multi-worker`,
+   started through `parallel.launch.start_ranks`), against the
+   one-process step on the same batch, injected noise and dropout seed:
+   the metrics at rtol 1e-4, the parameters within Adam's sign-flip
+   envelope; each rank's step time (median of 3 after the compared step,
+   CUDA events, with nothing but the ranks on the card) and peak memory;
+   (b) the same steps at tp2, with each rank's parameter and moment bytes
+   against one GPU's, and one traced tp2 naive step on rank 0 (its
+   collectives counted, the device's busy share of its wall); (c) the
+   train CLI's `cli()` under `torchrun --nproc_per_node 2` (this script's
+   `--train-cli-rank`) with `--data_parallel --tensor_parallel 2
+   --profile_dir` for 2 shallow steps from a handoff checkpoint: a trace
+   per rank, rank 0 alone launching the serving kernels for the panel and
+   validation on the gathered weights, the first log line equal to a
+   one-process run's (rtol 1e-3) and the rest in family (rtol 0.05), and
+   `cli.evaluate` in one process on the run's checkpoint equal to its
+   validation line (rtol 1e-3); (d) B=4 at bucket 512 through
+   `TTSPipeline(mesh=[cuda:0, cuda:0])`: lengths equal, the mel at rtol
+   1e-4 (atol 2e-2), int16 within 2 of the single replica's, every
+   replica launching the serving kernels, latency beside one replica's;
+   (e) `dryrun_multigpu(2, device="cuda")`, beside (c); (c) and (e) run
+   while the ranks of (a) and (b) take their compared steps, and their
+   timed steps follow with nothing else on the card; (f) with two or
+   more cards, (a), (b) and (d) again over min(count, 4) cards and nccl.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
-phase 4, or phase 7 for `mrf_stack_streamed`; max error in phase 3 or 7;
+phase 4 plus phase 16's replicas and train CLI ranks, or phase 7 for
+`mrf_stack_streamed`; max error in phase 3 or 7;
 and the time, plain time and bound of one B=1 request at frame bucket
 1000); the last line is {"ok": true, "device": {...}}.
 """
@@ -787,22 +817,12 @@ def trace_request(torch, pipe, batch, path, tag="profile", top=15):
     device's busy share of the wall time, from the chrome trace at `path`.
     Returns {kernel name: device us}."""
     pipe(batch)
-    return trace(torch, lambda: pipe(batch, return_mel=False), path, tag, top)
+    return trace(torch, lambda: pipe(batch, return_mel=False), path, tag, top).by_name
 
 
-def trace(torch, fn, path, tag, top=15):
-    """One traced call of fn: kernel time by name and the device's busy
-    share of the wall time (the union of kernel spans), from the chrome
-    trace at `path`.  Returns {kernel name: device us}."""
-    from torch.profiler import ProfilerActivity, profile
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    prof.export_chrome_trace(path)
+def read_trace(path):
+    """(every event, {kernel name: device us}, the device's busy us: the
+    union of the kernels' spans) of the chrome trace at `path`."""
     with open(path) as f:
         events = json.load(f)
     events = events["traceEvents"] if isinstance(events, dict) else events
@@ -815,11 +835,32 @@ def trace(torch, fn, path, tag, top=15):
     for s, e in spans:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-    log(f"[{tag}] wall {1e3 * wall:.2f} ms, {len(kernels)} kernels, device busy "
+    return events, by_name, busy
+
+
+def trace(torch, fn, path, tag, top=15):
+    """One traced call of fn: kernel time by name and the device's busy
+    share of the wall time (the union of kernel spans), from the chrome
+    trace at `path`.  Returns a namespace of by_name ({kernel name: device
+    us}), kernels (launches), busy_ms, wall_ms and events."""
+    import types
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    events, by_name, busy = read_trace(path)
+    kernels = sum(1 for e in events if e.get("cat") == "kernel" and "dur" in e)
+    log(f"[{tag}] wall {1e3 * wall:.2f} ms, {kernels} kernels, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / 1e6 / wall:.1f}% of wall), trace {path}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us / 1e3:9.3f} ms  {name[:110]}")
-    return by_name
+    return types.SimpleNamespace(by_name=by_name, kernels=kernels, busy_ms=busy / 1e3,
+                                 wall_ms=1e3 * wall, events=events)
 
 
 def profile_request(torch, pipe, one, out_dir):
@@ -2042,12 +2083,534 @@ def preprocessing_phase(torch):
         raise AssertionError(f"the shallow panel did not launch {missing} ({panel})")
 
 
+# Phase 16: the multi-device path.  The steps of (a) and (b): (mode, global
+# batch) at phase 12's buckets; each rank's timed steps after the compared one.
+MULTI_STEPS = (("naive", 8), ("shallow", 4))
+MULTI_TIMED = 3
+MULTI_CLI_STEPS = {"total_step_aux": 4, "total_step_shallow": 6, "log_step": 1,
+                   "synth_step": 6, "val_step": 6, "save_step": 6}
+MULTI_CLI_CORPUS = (("train.txt", 16, (600, 1000)), ("val.txt", 4, (600, 1000)))
+# the tensors whose gradient is zero by symmetry (phase 12): rounding noise
+# decides their Adam step's sign on each side
+SYMMETRIC_ZERO = r"(conv_k|w_ks)\.bias$|^postnet\.convolutions\.\d\.0\.conv\.bias$"
+
+
+def multi_noise(torch, mode, B, M=80, T=1000, S=None, seed=16):
+    """Phase 16's injected t and noise for the global batch (numpy, from
+    `seed`), one dict per diffusion branch of a GAN step."""
+    import numpy as np
+    r = np.random.RandomState(seed)
+    return [{"t": torch.as_tensor(r.randint(0, S, B)),
+             **{k: torch.as_tensor(r.randn(B, T, M).astype(np.float32))
+                for k in ("x_t_noise", "x_t_prev_noise", "posterior_noise")}}
+            for _ in range(2)]
+
+
+def multi_reference(torch, pre, cfg, tc, out_dir):
+    """The one-process steps (a) and (b) are held against: phase 12's
+    build (seed 0) and batch (seed 12), the injected noise of
+    `multi_noise`, torch's default generator seeded 1 before the step
+    (dropout on, as shipped).  Writes G's and D's parameters after each
+    step to `out_dir/ref_<mode>.pt`; returns {mode: metrics}."""
+    metrics = {}
+    for mode, B in MULTI_STEPS:
+        model, disc, state, step_fn = build_training(torch, mode, pre, cfg, tc)
+        batch = train_batch(torch, pre, B, 128, 64, 1000, (600, 1000), seed=12)
+        noise = multi_noise(torch, mode, B, S=model.diffusion.num_timesteps)
+        torch.manual_seed(1)
+        out = step_fn(state, batch, noise_overrides=[{k: v.to(DEVICE) for k, v in n.items()}
+                                                     for n in noise])
+        metrics[mode] = {k: float(v) for k, v in out.items()}
+        path = os.path.join(out_dir, f"ref_{mode}.pt")
+        torch.save({"G": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "D": {k: v.cpu() for k, v in disc.state_dict().items()}}, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        del model, disc, state, step_fn, batch
+        torch.cuda.empty_cache()
+    return metrics
+
+
+def param_envelope(ref, got, lr):
+    """(worst max|diff| / lr, worst share of elements past 1e-2 * lr) of
+    the parameters after a step against the one-process step's: Adam's
+    first update is +-lr, so a gradient within rounding of 0 may flip it
+    (2 * lr); the symmetric-zero tensors count for the first only."""
+    import re
+    worst, worst_frac, bad = 0.0, 0.0, []
+    for name, want in ref.items():
+        if "running" in name or "num_batches" in name:
+            continue
+        diff = (got[name].float() - want.float()).abs()
+        worst = max(worst, float(diff.max()) / lr)
+        if float(diff.max()) > 2 * lr * (1 + 1e-3) + 1e-6:
+            bad.append(f"{name} max|diff| {float(diff.max()):.3g}")
+        if not re.search(SYMMETRIC_ZERO, name):
+            frac = float((diff > 1e-2 * lr).float().mean())
+            worst_frac = max(worst_frac, frac)
+            if frac > 1e-2:
+                bad.append(f"{name} {frac:.2%} of elements past 1e-2 * lr")
+    return worst, worst_frac, bad
+
+
+def wait_for(path, limit=300):
+    """Wait up to `limit` seconds for the file at `path`."""
+    deadline = time.time() + limit
+    while not os.path.exists(path) and time.time() < deadline:
+        time.sleep(0.1)
+
+
+def multi_rank_worker(args):
+    """A rank of phase 16 (a) and (b) (`--multi-worker`): the dp (model
+    axis 1) and tp2 (model axis 2) steps of `MULTI_STEPS` at full width on
+    this rank's card.  First each compared step (beside whatever else the
+    parent runs), its metrics, peak memory, state bytes and, on rank 0, the
+    parameters' envelope against `multi_reference`; then, once the parent
+    has left the card to the ranks (its `quiet` file) and the ranks have
+    met at a barrier, MULTI_TIMED timed steps of each (CUDA events) and
+    one traced tp2 naive step (collectives and the device's busy share).
+    Writes rank<r>.json."""
+    import collections
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from mixgantts_tpu_torch.config import get_configs_of
+    from mixgantts_tpu_torch.parallel import (
+        gather_state, init_distributed, make_mesh, replicate_state, shard_batch, shard_state,
+        shard_train_step,
+    )
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world, dev = init_distributed("cuda", rank=args.rank, world_size=args.world,
+                                        init_method=args.init, timeout=600)
+    pre, cfg, tc = get_configs_of("LJSpeech")
+    runs = []
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        float(out["total_loss"])
+        return out, start.elapsed_time(end)
+
+    try:
+        for model_axis in (1, 2):
+            mesh = make_mesh(model_axis=model_axis)
+            for mode, B in MULTI_STEPS:
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                model, disc, state, step_fn = build_training(torch, mode, pre, cfg, tc, dev)
+                replicate_state(mesh, state)
+                if model_axis > 1:
+                    shard_state(mesh, state)
+                step = shard_train_step(step_fn, mesh)
+                batch = shard_batch(mesh, train_batch(torch, pre, B, 128, 64, 1000, (600, 1000),
+                                                      seed=12, device=dev))
+                noise = [{k: v.to(dev) for k, v in n.items()}
+                         for n in multi_noise(torch, mode, B, S=model.diffusion.num_timesteps)]
+                torch.manual_seed(1)
+                metrics, first_ms = timed(lambda: step(state, batch, noise_overrides=noise))
+                res = {"mode": mode, "B": B, "mesh": [mesh.shape["data"], model_axis],
+                       "metrics": {k: float(v) for k, v in metrics.items()},
+                       "first_ms": first_ms,
+                       "peak": torch.cuda.max_memory_allocated(dev) - base,
+                       "param_bytes": sum(p.numel() * p.element_size()
+                                          for p in model.parameters()),
+                       "moment_bytes": sum(m.numel() * m.element_size()
+                                           for m in state.opt_g.mu + state.opt_g.nu)}
+                with gather_state(state):
+                    res["full_bytes"] = sum(p.numel() * p.element_size()
+                                            for p in model.parameters())
+                    if rank == 0:
+                        path = os.path.join(args.workdir, f"ref_{mode}.pt")
+                        wait_for(path)
+                        ref = torch.load(path)
+                        res["envelope"] = {tag: param_envelope(
+                            ref[tag], {k: v.cpu() for k, v in module.state_dict().items()}, lr)
+                            for tag, module, lr in (("G", model, tc["optimizer"]["init_lr_G"]),
+                                                    ("D", disc, tc["optimizer"]["init_lr_D"]))}
+                runs.append((res, step, state, batch))
+        wait_for(os.path.join(args.workdir, "quiet"), limit=600)
+        for res, step, state, batch in runs:
+            dist.barrier()   # the ranks start each timed run together
+            res["times"] = [timed(lambda: step(state, batch))[1] for _ in range(MULTI_TIMED)]
+            if res["mesh"][1] > 1 and res["mode"] == "naive":
+                # one traced step (rank 0's; the other rank steps beside it)
+                if rank == 0:
+                    path = os.path.join(args.workdir, "tp2_naive_step_trace.json")
+                    summary = trace(torch, lambda: float(step(state, batch)["total_loss"]),
+                                    path, "multi tp2 trace")
+                    ops = collections.Counter(
+                        e["name"] for e in summary.events if e.get("ph") == "X" and
+                        e.get("name", "").startswith(("gloo:", "nccl:", "c10d::")))
+                    res["trace"] = {"collectives": dict(ops), "kernels": summary.kernels,
+                                    "busy_ms": summary.busy_ms, "wall_ms": summary.wall_ms}
+                else:
+                    float(step(state, batch)["total_loss"])
+        with open(os.path.join(args.workdir, f"rank{rank}.json"), "w") as f:
+            json.dump([res for res, *_ in runs], f)
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_train_steps(torch, world, topology, workdir, meanwhile=None):
+    """Phase 16 (a) and (b): one data-parallel step per mode on `world`
+    ranks (naive B=8, shallow B=4, bucket 1000, full width), then the same
+    at tp2, against the one-process step on the same batch, noise and
+    dropout draws: the metrics at phase 12's rtol 1e-4, the parameters
+    after the step within Adam's sign-flip envelope (every element within
+    2 * lr, >= 99% within 1e-2 * lr outside the symmetric-zero tensors).
+    The ranks take their compared steps while this process runs the
+    one-process reference and then `meanwhile` (other work of the phase),
+    and time theirs after it, with the card to themselves.  Prints each
+    rank's step time (median of MULTI_TIMED, CUDA events), peak memory,
+    parameter and moment bytes against one GPU's, and the traced tp2
+    step's collectives and device busy share."""
+    from mixgantts_tpu_torch.config import get_configs_of
+    from mixgantts_tpu_torch.parallel.launch import start_ranks
+    pre, cfg, tc = get_configs_of("LJSpeech")
+    t0 = time.perf_counter()
+    ranks = start_ranks([sys.executable, "-u", os.path.abspath(__file__), "--multi-worker",
+                         "--workdir", workdir], world, workdir, cwd=REPO,
+                        label="phase 16 train ranks")
+    try:
+        ref = multi_reference(torch, pre, cfg, tc, workdir)
+        t_ref = time.perf_counter() - t0
+        if meanwhile is not None:
+            meanwhile()
+    finally:
+        open(os.path.join(workdir, "quiet"), "w").close()
+        t_quiet = time.perf_counter()
+        ranks.join(600)
+    log(f"[multi] {world} ranks ({topology}): the one-process reference took {t_ref:.1f} s "
+        f"of the ranks' start, the ranks' timed steps {time.perf_counter() - t_quiet:.1f} s "
+        f"after the rest of the phase had left the card")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    failed = []
+    for i, res0 in enumerate(ranks[0]):
+        mode, (D, M) = res0["mode"], res0["mesh"]
+        label = f"{mode} B={res0['B']} bucket 1000, mesh data {D} x model {M}"
+        want = ref[mode]
+        for r, rank in enumerate(ranks):
+            got = rank[i]["metrics"]
+            bad = [k for k in want if abs(got[k] - want[k]) > 1e-4 * abs(want[k]) + 1e-6]
+            if bad:
+                failed.append(f"{label} rank {r}: metrics {bad}")
+        env = res0["envelope"]
+        log(f"[multi] {label}: metrics against one process "
+            + ", ".join(f"{k} {res0['metrics'][k]:.6f}/{want[k]:.6f}" for k in
+                        ("total_loss", "D_loss", "G_loss", "mel_loss"))
+            + "; parameters: " + ", ".join(
+                f"{tag} worst max|diff| {e[0]:.3f} lr, worst share past 1e-2 lr {e[1]:.2e}"
+                for tag, e in env.items()))
+        for tag, (_, _, bad) in env.items():
+            if bad:
+                failed.append(f"{label} {tag}: {bad[:4]}")
+        for r, rank in enumerate(ranks):
+            res = rank[i]
+            log(f"  rank {r}: step median {statistics.median(res['times']):.2f} ms "
+                f"({', '.join(f'{x:.2f}' for x in res['times'])}; CUDA events), the compared "
+                f"first step {res['first_ms']:.2f} ms, its peak memory "
+                f"{res['peak'] / 2**30:.2f} GiB, parameters {res['param_bytes'] / 2**20:.1f} MiB "
+                f"of one GPU's {res['full_bytes'] / 2**20:.1f} MiB, G's Adam moments "
+                f"{res['moment_bytes'] / 2**20:.1f} MiB of {2 * res['full_bytes'] / 2**20:.1f}")
+        if "trace" in res0:
+            t = res0["trace"]
+            log(f"  rank 0's traced step: wall {t['wall_ms']:.2f} ms, {t['kernels']} kernels, "
+                f"device busy {t['busy_ms']:.2f} ms ({100 * t['busy_ms'] / t['wall_ms']:.1f}% of "
+                f"wall; this rank's kernels), collectives "
+                f"{sum(n for k, n in t['collectives'].items() if not k.startswith('c10d::'))} "
+                f"({t['collectives']})")
+    if failed:
+        raise AssertionError("phase 16: sharded steps disagree with one process: "
+                             + "; ".join(failed[:6]))
+
+
+def read_log_lines(path):
+    import re
+    with open(path) as f:
+        return [(line.split(",")[0], [float(x) for x in re.findall(r"-?\d+\.\d+", line)])
+                for line in f.read().splitlines()]
+
+
+def same_losses(label, got, want, rtol=1e-3, atol=5e-5):
+    """Log lines of two train CLI runs: the same steps, every number within
+    rtol (phase 13's resume bar) plus atol (printing's 5e-5)."""
+    if [g[0] for g in got] != [w[0] for w in want]:
+        raise AssertionError(f"{label}: steps {[g[0] for g in got]} vs {[w[0] for w in want]}")
+    worst = 0.0
+    for (_, a), (_, b) in zip(got, want):
+        for x, y in zip(a, b):
+            worst = max(worst, abs(x - y) / (abs(y) + 1e-9))
+            if abs(x - y) > rtol * abs(y) + atol:
+                raise AssertionError(f"{label}: {a} against {b}")
+    return worst
+
+
+def train_cli_rank(out_dir, argv):
+    """A rank of phase 16 (c), started by torchrun: the train CLI's
+    `cli(argv)` (what `python -m mixgantts_tpu_torch.cli.train argv` runs),
+    with the serving kernels' launches counted (set to 0 just before, read
+    just after) into out_dir/launches<rank>.json."""
+    import torch
+    sys.path.insert(0, REPO)
+    from mixgantts_tpu_torch.cli import train as cli_train
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    cli_train.cli(argv)
+    torch.cuda.synchronize()
+    with open(os.path.join(out_dir, f"launches{os.environ['RANK']}.json"), "w") as f:
+        json.dump({name: c.launches for name, c in counters.items()}, f)
+
+
+def multi_cli(torch, world, workdir, records):
+    """Phase 16 (c): the train CLI under `torchrun --nproc_per_node <world>`
+    (each rank `train_cli_rank`) with `--data_parallel --tensor_parallel
+    <world> --profile_dir` for 2 shallow steps (4 -> 6, from a handoff
+    checkpoint of phase 12's aux weights) on a synthetic corpus
+    (`write_corpus`), with a panel, validation and a save at 6; the same
+    run in one process beside it; then `cli.evaluate` (one process) from
+    the torchrun run's checkpoint.  Every rank's trace file exists; rank 0
+    alone runs the panel and validation, on the gathered weights, and
+    launches the serving kernels there (added to `records`); the torchrun
+    run's first train line equals the one-process run's (rtol 1e-3), its
+    other lines stay in family (rtol 0.05, atol 0.05); the evaluate run's
+    loss line equals the torchrun run's validation line (rtol 1e-3)."""
+    import glob
+    import re
+    import socket
+    import yaml
+    from mixgantts_tpu_torch.checkpoint import save_checkpoint
+    from mixgantts_tpu_torch.cli import common, evaluate
+    from mixgantts_tpu_torch.cli import train as cli_train
+    from mixgantts_tpu_torch.config import get_configs_of
+    pre, cfg, tc = get_configs_of("LJSpeech")
+    tc["step"].update(MULTI_CLI_STEPS)
+    ws = os.path.join(workdir, "cli")
+    cfg_dir = os.path.join(ws, "config", "LJSpeech")
+    os.makedirs(cfg_dir)
+    for name, c in (("preprocess.yaml", pre), ("model.yaml", cfg), ("train.yaml", tc)):
+        with open(os.path.join(cfg_dir, name), "w") as f:
+            yaml.safe_dump(c, f)
+    cwd = os.getcwd()
+    os.chdir(ws)
+    try:
+        write_corpus(pre["path"]["preprocessed_path"],
+                     pre["preprocessing"]["mel"]["n_mel_channels"], MULTI_CLI_CORPUS)
+        handoff = MULTI_CLI_STEPS["total_step_aux"]
+
+        def configs_of(tag, restore):
+            return common.load_configs(argparse.Namespace(
+                model="shallow", dataset="LJSpeech", restore_step=restore, path_tag=tag))
+
+        model, disc, state, _ = build_training(torch, "aux", pre, cfg, tc)
+        state.step = handoff
+        for tag in ("tp", "one"):
+            save_checkpoint(configs_of(tag, handoff)[2]["path"]["ckpt_path"], state, tc)
+        del model, disc, state
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        prof = os.path.join(ws, "profile")
+        env = dict(os.environ, PYTHONPATH=REPO)
+        argv = [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={world}",
+                "--master_addr=localhost", f"--master_port={port}", os.path.abspath(__file__),
+                "--train-cli-rank", ws, "--model", "shallow", "--dataset", "LJSpeech",
+                "--restore_step", str(handoff), "--path_tag", "tp", "--data_parallel",
+                "--tensor_parallel", str(world), "--profile_dir", prof]
+        t0 = time.perf_counter()
+        out_path = os.path.join(ws, "torchrun.log")
+        with open(out_path, "w") as out:
+            proc = subprocess.Popen(argv, env=env, stdout=out, stderr=subprocess.STDOUT)
+            try:
+                # the one-process run of the same steps, meanwhile
+                cli_train.main(argparse.Namespace(
+                    model="shallow", dataset="LJSpeech", restore_step=handoff, path_tag="one",
+                    seed=0, data_parallel=False, tensor_parallel=1, steps_per_call=0,
+                    profile_dir=None, profile_port=0), configs_of("one", handoff), DEVICE)
+                proc.wait(timeout=400)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        with open(out_path) as f:
+            text = f.read()
+        if proc.returncode:
+            raise AssertionError(f"torchrun train CLI failed ({proc.returncode}):\n{text[-4000:]}")
+        log(f"[multi cli] torchrun, {world} ranks (tp{world}), and the one-process run beside "
+            f"it: {wall:.1f} s (process start included); the torchrun run printed:")
+        for line in text.splitlines():
+            if line.startswith(("torch.distributed", "Step", "saved", "profiler")):
+                log(f"  {line[:150]}")
+        traces = {r: glob.glob(os.path.join(prof, f"rank{r}", "*.pt.trace.json"))
+                  for r in range(world)}
+        if not all(traces.values()):
+            raise AssertionError(f"--profile_dir: a rank wrote no trace: {traces}")
+        launches = []
+        for r in range(world):
+            with open(os.path.join(ws, f"launches{r}.json")) as f:
+                launches.append(json.load(f))
+        panel = launches[0]
+        if not all(panel.values()) or any(any(n.values()) for n in launches[1:]):
+            raise AssertionError(f"the panel and validation ran the serving kernels on ranks "
+                                 f"{launches} (all on rank 0, none elsewhere expected)")
+        for name, n in panel.items():
+            records[name]["launches"] += n
+        logs = {tag: {part: read_log_lines(os.path.join(
+            configs_of(tag, handoff)[2]["path"]["log_path"], part, "log.txt"))
+            for part in ("train", "val")} for tag in ("tp", "one")}
+        # the first line is two steps from the same state; later ones have
+        # met Adam's sign-like first updates of near-zero gradients, which
+        # reduction order flips, so they are held in family (the JAX
+        # package's bar for a step past the first, test_parallel_dp.py:174-178)
+        first = same_losses("torchrun train log, first line", logs["tp"]["train"][:1],
+                            logs["one"]["train"][:1])
+        later = max(same_losses(f"torchrun {part} log", logs["tp"][part], logs["one"][part],
+                                rtol=0.05, atol=0.05) for part in ("train", "val"))
+        # the torchrun run's checkpoint restores in a one-process CLI run
+        end = MULTI_CLI_STEPS["total_step_shallow"]
+        message = evaluate.cli(["--restore_step", str(end), "--model", "shallow", "--dataset",
+                                "LJSpeech", "--path_tag", "tp"], device=DEVICE)
+        again = same_losses("cli.evaluate on the torchrun checkpoint",
+                            [(message.split(",")[0], [float(x) for x in re.findall(
+                                r"-?\d+\.\d+", message)])], logs["tp"]["val"])
+        log(f"[multi cli] against the one-process run: the first train line worst relative "
+            f"diff {first:.2e} (allowed 1e-3), the train and val lines {later:.2e} (in family: "
+            f"rtol 0.05); cli.evaluate on the torchrun checkpoint against its validation line "
+            f"{again:.2e} (allowed 1e-3); trace files per rank "
+            f"{ {r: len(t) for r, t in traces.items()} }; the serving kernels' launches per "
+            f"rank (the panel and validation, on rank 0's gathered weights) {launches}")
+    finally:
+        os.chdir(cwd)
+
+
+def multi_serving(torch, pre, cfg, model, vocoder, records, devices):
+    """Phase 16 (d): B=4 at bucket 512 through `TTSPipeline(mesh=devices)`,
+    one replica per entry, against the single-replica pipeline with the
+    same generator seed: equal lengths, the mel at rtol 1e-4 (atol 2e-2,
+    `tests/test_parallel_serving.py`'s bars), int16 within 2; every replica
+    launches the serving kernels (counts set to 0 just before, read just
+    after, added to the kernels line); latency (host clock, median of 5)
+    beside the single replica's."""
+    import numpy as np
+    from mixgantts_tpu_torch.pipeline import TTSPipeline
+    four = text_batch(4, 32, 12, seed=1)
+    single = TTSPipeline(model, vocoder, pre, cfg, mel_dtype=torch.float32)
+    sharded = TTSPipeline(model, vocoder, pre, cfg, mesh=devices, mel_dtype=torch.float32)
+    gen = lambda: torch.Generator(DEVICE).manual_seed(5)
+    want = single(four, generator=gen())
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    got = sharded(four, generator=gen())
+    sync(torch)
+    launches = {name: c.launches for name, c in counters.items()}
+    for name, n in launches.items():
+        records[name]["launches"] += n
+    n = len(devices)
+    if launches["fused_residual_stack"] < n or launches["mrf_stack"] < 18 * n or \
+            launches["mrf_stack_folded"] < 18 * n:
+        raise AssertionError(f"a replica did not launch the serving kernels: {launches}")
+    if not np.array_equal(got[2], want[2]):
+        raise AssertionError(f"sharded serving lengths {got[2]} against {want[2]}")
+    mel_err = float(np.abs(got[1] - want[1]).max())
+    if not np.allclose(got[1], want[1], rtol=1e-4, atol=2e-2):
+        raise AssertionError(f"sharded serving mel off the single pipeline's by {mel_err}")
+    wav_err = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+                  for a, b in zip(got[0], want[0]))
+    if wav_err > 2:
+        raise AssertionError(f"sharded serving wav off the single pipeline's by {wav_err} LSB")
+    times = {}
+    for label, pipe in (("single", single), (f"{n} replicas", sharded)):
+        pipe(four)
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pipe(four, return_mel=False)
+            ts.append(time.perf_counter() - t0)
+        times[label] = statistics.median(ts)
+    log(f"[multi serve] B=4 bucket 512 over {[str(d) for d in devices]}: launches {launches}; "
+        f"mel max|diff| {mel_err:.2e}, int16 max|diff| {wav_err}; latency (host clock, "
+        f"median of 5) " + ", ".join(f"{k} {1e3 * v:.2f} ms" for k, v in times.items()))
+
+
+def multi_device_phase(torch, pre, cfg, model, vocoder, records):
+    """Phase 16: the multi-device path on the card(s): (a) and (b) on two
+    ranks (`multi_train_steps`), with (c) the train CLI under torchrun
+    (`multi_cli`) and (e) `dryrun_multigpu(2)` run while those ranks take
+    their compared steps, (d) sharded serving over two replicas of cuda:0;
+    with >= 2 cards, (f): (a), (b) and (d) again over min(count, 4) cards
+    and nccl.  Prints its topology and wall time."""
+    import threading
+    from mixgantts_tpu_torch.dryrun import dryrun_multigpu
+    from mixgantts_tpu_torch.parallel import choose_backend
+    t_start = time.perf_counter()
+    count = torch.cuda.device_count()
+    backend, _, topology = choose_backend("cuda", 0, 2)
+    log(f"[multi] {count} card(s) visible; two ranks: {topology}")
+    with tempfile.TemporaryDirectory() as tmp:
+        dry = {}
+
+        def run_dryrun():
+            try:
+                dryrun_multigpu(2, device="cuda", timeout=300)
+            except Exception as e:   # re-raised below
+                dry["error"] = e
+
+        def cli_and_dryrun():
+            t0 = time.perf_counter()
+            thread = threading.Thread(target=run_dryrun)   # (e), beside (c)
+            thread.start()
+            try:
+                multi_cli(torch, 2, tmp, records)
+            finally:
+                thread.join()
+            if "error" in dry:
+                raise dry["error"]
+            log(f"[multi] (c) and (e) took {time.perf_counter() - t0:.1f} s, beside the "
+                f"compared steps of (a) and (b)")
+
+        # (a) and (b), with (c) and (e) run while their ranks take the
+        # compared steps, and nothing beside their timed ones
+        multi_train_steps(torch, 2, topology, tmp, meanwhile=cli_and_dryrun)
+        multi_serving(torch, pre, cfg, model, vocoder, records, [torch.device(DEVICE)] * 2)
+        if count >= 2:
+            n = min(count, 4)
+            _, _, topology = choose_backend("cuda", 0, n)
+            log(f"[multi] (f) {n} cards: {topology}")
+            with tempfile.TemporaryDirectory() as tmp_f:
+                multi_train_steps(torch, n, topology, tmp_f)
+            multi_serving(torch, pre, cfg, model, vocoder, records,
+                          [torch.device(f"cuda:{i}") for i in range(n)])
+        else:
+            log("[multi] (f) skipped: one card visible, so no nccl run across cards")
+    log(f"[multi] phase 16 took {time.perf_counter() - t_start:.1f} s")
+
+
 def main():
+    if sys.argv[1:2] == ["--train-cli-rank"]:   # a torchrun rank of phase 16 (c)
+        train_cli_rank(sys.argv[2], sys.argv[3:])
+        return 0
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also trace one B=1 request into DIR, and keep phases 10-14's "
                              "traces there")
+    # a rank of phase 16's multi-process steps (started by the script itself)
+    parser.add_argument("--multi-worker", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--workdir", help=argparse.SUPPRESS)
+    parser.add_argument("--init", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.multi_worker:
+        multi_rank_worker(args)
+        return 0
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -2116,6 +2679,9 @@ def main():
     t0 = time.perf_counter()
     preprocessing_phase(torch)                                    # phase 15
     log(f"[prep] phase 15 took {time.perf_counter() - t0:.1f} s")
+    log("[multi] the multi-device path: data and tensor parallel steps, the train CLI under "
+        "torchrun, sharded serving, the dryrun")
+    multi_device_phase(torch, pre, cfg, model, vocoder, records)  # phase 16
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

@@ -21,6 +21,13 @@ weights and the epoch and leaves the optimizers, step and learning rates
 fresh, so a file with only {epoch, G, D}, as `python -m mixgantts_tpu.export`
 writes from an orbax checkpoint, restores there.  The port reads no orbax
 directory.
+
+A state replicated or sharded over a process mesh (`parallel`) saves and
+restores as a one-device state: every rank gathers the tensor-parallel
+shards (parameters and moments, `parallel.gather_state`), rank 0 alone
+writes, and a restore loads the full tensors on every rank and keeps each
+rank's shard.  So a checkpoint of a dp x tp run restores in a one-GPU run,
+and the other way round.
 """
 
 import os
@@ -28,6 +35,7 @@ import os
 import torch
 
 from .convert import load_reference_generator
+from .parallel.tp import gather_state
 
 WEIGHT_KEYS = ("epoch", "G", "D")
 RESUME_KEYS = ("step", "optG_fs2", "optG", "optD", "lr_g", "lr_d", "rng", "stream_start")
@@ -64,7 +72,15 @@ def _exponential_lr_state(init_lr, gamma, epoch, lr):
 def save_checkpoint(ckpt_path, state, train_config, stream_start=0):
     """Write `state` as `{ckpt_path}/{state.step}.pth.tar` and mark it the
     latest; returns the file's path.  `train_config` gives the schedulers'
-    initial learning rates and gamma."""
+    initial learning rates and gamma.  Every rank of a mesh calls it; rank
+    0 writes."""
+    with gather_state(state):
+        if state.mesh is not None and state.mesh.rank:
+            return checkpoint_path(ckpt_path, state.step)
+        return _save(ckpt_path, state, train_config, stream_start)
+
+
+def _save(ckpt_path, state, train_config, stream_start):
     opt = train_config["optimizer"]
     rng = {"generator": state.generator.get_state(), "cpu": torch.get_rng_state(),
            "cuda": torch.cuda.get_rng_state_all() if torch.cuda.is_available() else []}
@@ -110,7 +126,13 @@ def restore_checkpoint(ckpt_path, state, restore_step, reset_optimizers=False):
     Returns the step after which the restored run's batch stream began:
     `restore_step` itself with `reset_optimizers` (the aux -> shallow
     handoff: weights and epoch load, the optimizers, step and learning
-    rates stay fresh), else the checkpoint's `stream_start`."""
+    rates stay fresh), else the checkpoint's `stream_start`.  Every rank of
+    a mesh calls it and keeps its shard."""
+    with gather_state(state):
+        return _restore(ckpt_path, state, restore_step, reset_optimizers)
+
+
+def _restore(ckpt_path, state, restore_step, reset_optimizers):
     path = checkpoint_path(ckpt_path, restore_step)
     if not os.path.isfile(path):
         raise FileNotFoundError(
@@ -136,6 +158,11 @@ def restore_checkpoint(ckpt_path, state, restore_step, reset_optimizers=False):
     rng = ckpt["rng"]
     state.generator.set_state(rng["generator"])
     torch.set_rng_state(rng["cpu"])
-    for i, s in enumerate(rng["cuda"][:torch.cuda.device_count()]):
-        torch.cuda.set_rng_state(s, i)
+    mesh = state.mesh
+    if mesh is not None and mesh.device.type == "cuda" and rng["cuda"]:
+        # every rank draws its dropout as rank 0 does, on its own card
+        torch.cuda.set_rng_state(rng["cuda"][0], mesh.device)
+    else:
+        for i, s in enumerate(rng["cuda"][:torch.cuda.device_count()]):
+            torch.cuda.set_rng_state(s, i)
     return int(ckpt["stream_start"])

@@ -11,6 +11,8 @@ comes from `{ckpt_path}/{restore_step}.pth.tar` (the reference's format;
 restore_step 0 keeps the random init), the vocoder from `get_vocoder`, and
 results go to `{result_path}/{restore_step}/`.  As in the reference, the
 `--energy_control` value reaches the model but energy follows p_control.
+`--data_parallel` serves text batches over a mesh of every visible card
+(one replica each; the CPU alone where `device` is the CPU).
 """
 
 import argparse
@@ -23,6 +25,7 @@ import torch
 from ..data.dataset import AcousticDataset, TextOnlyDataset
 from ..frontend import preprocess_english, preprocess_mandarin
 from ..models.vocoder import get_vocoder
+from ..parallel import make_mesh, visible_devices
 from ..pipeline import TTSPipeline
 from ..train.step import model_kwargs
 from ..utils.synth import synth_samples, write_results
@@ -31,11 +34,16 @@ from .common import build_model, load_configs, model_batch_of, restore_generator
 
 def synthesize(model, args, configs, vocoder, batches, control_values):
     """Every batch through `TTSPipeline.stream` (batch i draws its noise
-    from seed i), written by `write_results`.  Returns (wav path, mel
+    from seed i; over a mesh of every visible card with
+    `--data_parallel`), written by `write_results`.  Returns (wav path, mel
     length) per utterance."""
     preprocess_config, model_config, train_config = configs
     pitch_control, energy_control, duration_control = control_values
-    pipeline = TTSPipeline(model, vocoder, preprocess_config, model_config)
+    mesh = None
+    if getattr(args, "data_parallel", False):
+        device = next(model.parameters()).device
+        mesh = make_mesh(visible_devices() if device.type == "cuda" else [device])
+    pipeline = TTSPipeline(model, vocoder, preprocess_config, model_config, mesh=mesh)
     results = pipeline.stream(
         [model_batch_of(b) for b in batches], p_control=pitch_control,
         e_control=energy_control, d_control=duration_control, return_mel=True)
@@ -117,7 +125,7 @@ def build_argparser():
     parser.add_argument("--duration_control", type=float, default=1.0)
     parser.add_argument(
         "--data_parallel", action="store_true",
-        help="shard batched synthesis over all devices (not ported yet)")
+        help="shard batched synthesis over all visible GPUs, one replica each")
     return parser
 
 
@@ -134,11 +142,6 @@ def cli(argv=None, device=None):
     if args.mode == "single" and (args.source is not None or args.text is None
                                   or args.teacher_forced):
         raise AssertionError("single mode takes --text only")
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel synthesis over several GPUs is not ported yet "
-            "(ROADMAP item 8)")
-
     configs = load_configs(args)
     preprocess_config, model_config, train_config = configs
     model, _ = build_model(args.model, preprocess_config, model_config, device=device)

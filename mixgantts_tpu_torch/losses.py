@@ -3,12 +3,20 @@ MSE and the weighted mel L1, guided attention, the CTC forward sum over
 the word-to-phoneme attention, feature matching, and the per-mode
 generator loss.  Reductions are mask-aware sums over means, as the JAX
 package takes them; the CTC forward sum is the JAX package's recursion, a
-loop over frames vectorised over batch and states (not `F.ctc_loss`)."""
+loop over frames vectorised over batch and states (not `F.ctc_loss`).
+
+Under data parallelism each mask-weighted mean (`masked_mean`, so
+`masked_mse` and `guided_attention_loss`, and `weighted_mel_l1`) is a mean
+over the global batch: its numerator and denominator are summed over the
+data ranks.  The plain means over equal shards need only the averaging of
+the gradients over the data ranks (`collectives.average_gradients`)."""
 
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from .parallel.collectives import data_size, data_sum
 
 NEG_INF = -1e9
 
@@ -41,9 +49,17 @@ def get_adversarial_losses_fn(mode):
 
 # --- reconstruction helpers -----------------------------------------------------
 
+def _global_ratio(num, den):
+    """num / max(den, 1) with both sums taken over the global batch under
+    data parallelism (`parallel.collectives.data_sum`)."""
+    if data_size() > 1:
+        num, den = data_sum(torch.stack([num, den.to(num.dtype)]))
+    return num / torch.clamp(den, min=1.0)
+
+
 def masked_mean(x, mask):
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    return _global_ratio(torch.sum(x * m), torch.sum(m))
 
 
 def masked_mse(pred, target, mask):
@@ -58,7 +74,7 @@ def weighted_mel_l1(pred, target, mel_mask):
     target = target * maskf
     nonzero = torch.sum(torch.abs(target), dim=-1, keepdim=True) != 0
     w = nonzero.expand(target.shape).to(pred.dtype)
-    return torch.sum(torch.abs(pred - target) * w) / torch.clamp(torch.sum(w), min=1.0)
+    return _global_ratio(torch.sum(torch.abs(pred - target) * w), torch.sum(w))
 
 
 # --- guided attention --------------------------------------------------------------

@@ -3,8 +3,8 @@
 
 Dropout follows the module's training mode, as in `blocks.py`.  The
 PostNet's BatchNorm follows flax's `BatchNorm`, which the JAX package
-trains: in training mode it normalises with the batch's statistics and
-moves the running ones by momentum 0.99 with the biased batch variance
+trains: in training mode it normalises with the (global) batch's
+statistics and moves the running ones by momentum 0.99 with the biased batch variance
 (E[x^2] - E[x]^2, flax's fast variance); in eval mode it uses the running
 statistics."""
 
@@ -14,16 +14,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import NEG_INF, ConvNorm, conv_last, same_conv1d, sinusoid_position_table
+from ..parallel.collectives import (
+    copy_to_model, data_size, data_sum, gather_from_model, scatter_to_model,
+)
+from .blocks import (
+    NEG_INF, ConvNorm, Dropout, conv_last, row_parallel, same_conv1d,
+    sinusoid_position_table,
+)
 
 
 class MultiHeadAttention(nn.Module):
-    """Post-LN multi-head self-attention (LayerNorm eps 1e-5)."""
+    """Post-LN multi-head self-attention (LayerNorm eps 1e-5).  Under tensor
+    parallelism `w_qs`, `w_ks` and `w_vs` are column-parallel and `fc`
+    row-parallel, as in `blocks.RelativeSelfAttention`."""
 
     def __init__(self, n_heads, d_model, dropout=0.0):
         super().__init__()
         self.n_heads = n_heads
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.w_qs = nn.Linear(d_model, d_model)
         self.w_ks = nn.Linear(d_model, d_model)
         self.w_vs = nn.Linear(d_model, d_model)
@@ -33,31 +41,46 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, attn_mask):
         B, L, C = x.shape
         d = C // self.n_heads
+        local = self.w_qs.weight.shape[0]            # C, or a column shard of it
+        tp = local != self.w_qs.out_features
+        whole_heads = local % d == 0
+        xin = copy_to_model(x) if tp else x
 
-        def split(t):
-            return t.reshape(B, L, self.n_heads, d).transpose(1, 2)
+        def split(linear):
+            y = linear(xin)
+            if tp and not whole_heads:
+                y = gather_from_model(y)
+            return y.reshape(B, L, -1, d).transpose(1, 2)
 
-        q, k, v = split(self.w_qs(x)), split(self.w_ks(x)), split(self.w_vs(x))
+        q, k, v = split(self.w_qs), split(self.w_ks), split(self.w_vs)
         scores = (q @ k.transpose(-1, -2)) / math.sqrt(d)
         scores = torch.where(attn_mask[:, None], scores, NEG_INF)
-        out = torch.softmax(scores, dim=-1) @ v
-        out = self.drop(self.fc(out.transpose(1, 2).reshape(B, L, C)))
-        return self.layer_norm(out + x)
+        out = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(B, L, -1)
+        if not tp:
+            out = self.fc(out)
+        else:
+            out = row_parallel(self.fc, out if whole_heads else scatter_to_model(out))
+        return self.layer_norm(self.drop(out) + x)
 
 
 class PositionwiseFeedForward(nn.Module):
-    """conv(k) -> ReLU -> conv(1), post-residual LayerNorm."""
+    """conv(k) -> ReLU -> conv(1), post-residual LayerNorm.  Under tensor
+    parallelism the Megatron MLP: `w_1` column-parallel, `w_2`
+    row-parallel (one all-reduce)."""
 
     def __init__(self, d_model, d_inner, kernel_size, dropout=0.0):
         super().__init__()
         self.w_1 = same_conv1d(d_model, d_inner, kernel_size)
         self.w_2 = nn.Conv1d(d_inner, d_model, 1)
         self.layer_norm = nn.LayerNorm(d_model)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
-        y = self.drop(conv_last(self.w_2, F.relu(conv_last(self.w_1, x))))
-        return self.layer_norm(y + x)
+        if self.w_1.weight.shape[0] != self.w_1.out_channels:   # d_inner sharded
+            y = row_parallel(self.w_2, F.relu(conv_last(self.w_1, copy_to_model(x))))
+        else:
+            y = conv_last(self.w_2, F.relu(conv_last(self.w_1, x)))
+        return self.layer_norm(self.drop(y) + x)
 
 
 class FFTBlock(nn.Module):
@@ -109,7 +132,7 @@ class PostNet(nn.Module):
             nn.Sequential(ConvNorm(dims[i], dims[i + 1], kernel_size),
                           nn.BatchNorm1d(dims[i + 1]))
             for i in range(n_convs))
-        self.drop = nn.Dropout(0.5)
+        self.drop = Dropout(0.5)
 
     def forward(self, x, update_stats=True):
         """x [B, T, n_mels].  In training mode the batch statistics
@@ -131,10 +154,16 @@ class PostNet(nn.Module):
 
     def _batch_norm(self, y, bn, update_stats):
         """flax's training-mode BatchNorm over the batch and time axes of
-        y [B, C, T]."""
+        y [B, C, T]; under data parallelism over the global batch (the sums
+        of x and x^2 over the data ranks), so every rank normalises and
+        moves its running statistics as one device does."""
         yf = y.float()
-        mean = yf.mean(dim=(0, 2))
-        var = torch.clamp(yf.square().mean(dim=(0, 2)) - mean.square(), min=0.0)
+        if data_size() > 1:
+            sums = data_sum(torch.stack([yf.sum(dim=(0, 2)), yf.square().sum(dim=(0, 2))]))
+            mean, ex2 = sums / (yf.shape[0] * yf.shape[2] * data_size())
+        else:
+            mean, ex2 = yf.mean(dim=(0, 2)), yf.square().mean(dim=(0, 2))
+        var = torch.clamp(ex2 - mean.square(), min=0.0)
         if update_stats:
             with torch.no_grad():
                 m = self.MOMENTUM

@@ -11,9 +11,15 @@ their input to their weight's type, so a model whose parameters were cast
 to bf16 (`pipeline.TTSPipeline` under `compute_dtype: bfloat16`) computes
 in bf16, and an fp32 one exactly as before.
 
-Dropout sits where the flax blocks have it, at the same rates, as plain
-`nn.Dropout` modules: active in training mode (`module.train()`), the
-identity in eval mode.
+Dropout sits where the flax blocks have it, at the same rates, as
+`Dropout` modules (`nn.Dropout` on one device): active in training mode
+(`module.train()`), the identity in eval mode.
+
+Tensor parallelism (`parallel.tp`): the attention and FFN layers hold the
+local shard of their sharded weights after `shard_state` and run the
+Megatron collectives of `parallel.collectives` while a mesh is active; a
+layer reads whether it is sharded from its weights' shapes.  With no mesh
+(or one of one process) the collectives are the identity.
 """
 
 import math
@@ -22,6 +28,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.collectives import (
+    copy_to_model, data_rank, data_size, gather_from_model, model_rank, model_size,
+    reduce_from_model, scatter_to_model,
+)
 
 # Large-negative logit used instead of -inf, so a fully masked row gives a
 # uniform (then zeroed) distribution rather than NaNs.
@@ -39,13 +50,55 @@ def sinusoid_position_table(n_position, d_hid):
     return table.astype(np.float32)
 
 
-def conv_last(conv, x):
+def conv_last(conv, x, bias=True):
     """Apply a torch `nn.Conv1d` to channel-last x [B, T, C] (cast to the
-    weight's type)."""
+    weight's type); `bias=False` leaves its bias out."""
     x = x.to(conv.weight.dtype)
+    b = conv.bias if bias else None
     if conv.kernel_size[0] == 1 and conv.stride[0] == 1:
-        return F.linear(x, conv.weight[:, :, 0], conv.bias)
-    return conv(x.transpose(1, 2)).transpose(1, 2)
+        return F.linear(x, conv.weight[:, :, 0], b)
+    return F.conv1d(x.transpose(1, 2), conv.weight, b, conv.stride, conv.padding,
+                    conv.dilation).transpose(1, 2)
+
+
+def row_parallel(layer, x):
+    """A `nn.Conv1d` or `nn.Linear` whose input channels are sharded over
+    the mesh's `model` axis, on the matching shard of channel-last x: the
+    partial products all-reduced, then the (replicated) bias added once."""
+    if isinstance(layer, nn.Linear):
+        y = F.linear(x.to(layer.weight.dtype), layer.weight)
+    else:
+        y = conv_last(layer, x, bias=False)
+    y = reduce_from_model(y)
+    return y if layer.bias is None else y + layer.bias
+
+
+class Dropout(nn.Dropout):
+    """`nn.Dropout` that keeps a sharded step's draws equal to one
+    device's: while a mesh's data axis is active it draws the mask for the
+    global batch (dim 0 times the data size) and keeps this rank's rows,
+    and `heads_dim` names a dimension sharded over `model` whose mask is
+    drawn whole and sliced.  Every rank holds torch's default generator in
+    the same state, so the ranks draw what the one-device step draws."""
+
+    def forward(self, x, heads_dim=None):
+        n_data = data_size()
+        n_model = model_size() if heads_dim is not None else 1
+        if not self.training or self.p == 0 or (n_data == 1 and n_model == 1):
+            return super().forward(x)
+        shape = list(x.shape)
+        shape[0] *= n_data
+        if n_model > 1:
+            shape[heads_dim] *= n_model
+        # ones in x's memory layout, which sets the order the mask is drawn in
+        order = sorted(range(x.dim()), key=lambda i: -x.stride(i))
+        ones = torch.ones([shape[i] for i in order], dtype=x.dtype, device=x.device)
+        ones = ones.permute([order.index(i) for i in range(x.dim())])
+        mask = F.dropout(ones, self.p, True)
+        mask = mask.narrow(0, data_rank() * x.shape[0], x.shape[0])
+        if n_model > 1:
+            mask = mask.narrow(heads_dim, model_rank() * x.shape[heads_dim], x.shape[heads_dim])
+        return x * mask
 
 
 def same_conv1d(c_in, c_out, kernel_size=1, dilation=1, bias=True, stride=1):
@@ -108,15 +161,26 @@ def diffusion_embedding(t, dim):
 
 class FFN(nn.Module):
     """Masked conv + ReLU feed-forward of RelativeFFTBlock (hidden ->
-    hidden, as the reference builds it)."""
+    hidden, as the reference builds it).  Under tensor parallelism the conv
+    is column-parallel and its output is gathered before the residual
+    LayerNorm (and before the dropout, so the mask is drawn whole)."""
 
     def __init__(self, channels, kernel_size, dropout=0.0):
         super().__init__()
         self.conv = same_conv1d(channels, channels, kernel_size)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x, mask):
-        return self.drop(F.relu(conv_last(self.conv, x * mask))) * mask
+        x = x * mask
+        if self.conv.weight.shape[0] != self.conv.out_channels:   # a column shard
+            y = F.relu(conv_last(self.conv, copy_to_model(x)))
+            # gathered in the conv's [B, C, T] layout, which the dropout's
+            # mask follows, as on one device
+            y = (gather_from_model(y) if y.is_contiguous() else
+                 gather_from_model(y.transpose(1, 2), dim=1).transpose(1, 2))
+        else:
+            y = F.relu(conv_last(self.conv, x))
+        return self.drop(y) * mask
 
 
 def _rel_to_abs(x):
@@ -146,12 +210,15 @@ def _window_to_length(emb, length, window_size):
 
 class RelativeSelfAttention(nn.Module):
     """Multi-head self-attention with windowed relative position embeddings
-    shared by the heads."""
+    shared by the heads.  Under tensor parallelism q, k and v are
+    column-parallel and the output projection row-parallel: a rank attends
+    with its whole heads, or, where a shard splits a head, gathers q, k and
+    v first and takes its input channels of the output projection after."""
 
     def __init__(self, channels, n_heads, window_size, dropout=0.0):
         super().__init__()
         self.n_heads, self.window_size = n_heads, window_size
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         k_channels = channels // n_heads
         self.conv_q = nn.Conv1d(channels, channels, 1)
         self.conv_k = nn.Conv1d(channels, channels, 1)
@@ -167,22 +234,38 @@ class RelativeSelfAttention(nn.Module):
         # x [B, L, C]; attn_mask [B, 1, L, L] bool, True = valid
         B, L, C = x.shape
         d = C // self.n_heads
+        local = self.conv_q.weight.shape[0]          # C, or a column shard of it
+        tp = local != self.conv_q.out_channels
+        whole_heads = local % d == 0
+        if tp:
+            x = copy_to_model(x)
 
         def heads(conv):   # fp32, as the JAX einsums' preferred_element_type
-            return conv_last(conv, x).float().reshape(B, L, self.n_heads, d).transpose(1, 2)
+            y = conv_last(conv, x).float()
+            if tp and not whole_heads:
+                y = gather_from_model(y)
+            return y.reshape(B, L, -1, d).transpose(1, 2)
 
         q, k, v = heads(self.conv_q), heads(self.conv_k), heads(self.conv_v)
+        emb_k, emb_v = self.emb_rel_k, self.emb_rel_v
+        if tp and whole_heads:   # the shared tables meet this rank's heads only
+            emb_k, emb_v = copy_to_model(emb_k), copy_to_model(emb_v)
         scale = 1.0 / math.sqrt(d)
         scores = (q @ k.transpose(-1, -2)) * scale
-        rel_k = _window_to_length(self.emb_rel_k, L, self.window_size)
+        rel_k = _window_to_length(emb_k, L, self.window_size)
         scores = scores + _rel_to_abs(q @ rel_k[0].t()) * scale
         scores = torch.where(attn_mask, scores, NEG_INF)
-        p_attn = self.drop(torch.softmax(scores, dim=-1))
+        p_attn = self.drop(torch.softmax(scores, dim=-1), heads_dim=1 if tp and whole_heads
+                           else None)
         out = p_attn @ v
-        rel_v = _window_to_length(self.emb_rel_v, L, self.window_size)
+        rel_v = _window_to_length(emb_v, L, self.window_size)
         out = out + _abs_to_rel(p_attn) @ rel_v[0]
-        out = out.transpose(1, 2).reshape(B, L, C)
-        return conv_last(self.conv_o, out)
+        out = out.transpose(1, 2).reshape(B, L, -1)
+        if not tp:
+            return conv_last(self.conv_o, out)
+        if not whole_heads:
+            out = scatter_to_model(out)
+        return row_parallel(self.conv_o, out)
 
 
 class RelativeFFTBlock(nn.Module):
@@ -198,7 +281,7 @@ class RelativeFFTBlock(nn.Module):
         self.ffn_layers = nn.ModuleList(FFN(hidden, kernel_size, dropout)
                                         for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(LayerNorm(hidden) for _ in range(n_layers))
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x, mask):
         valid = mask[:, None, :, 0] > 0
@@ -259,10 +342,10 @@ class VariancePredictor(nn.Module):
         self.conv_layer = nn.ModuleDict({
             "conv1d_1": ConvNorm(c_in, filter_size, kernel_size),
             "layer_norm_1": nn.LayerNorm(filter_size),
-            "dropout_1": nn.Dropout(dropout),
+            "dropout_1": Dropout(dropout),
             "conv1d_2": ConvNorm(filter_size, filter_size, kernel_size),
             "layer_norm_2": nn.LayerNorm(filter_size),
-            "dropout_2": nn.Dropout(dropout),
+            "dropout_2": Dropout(dropout),
         })
         self.linear_layer = nn.Linear(filter_size, 1)
 

@@ -22,7 +22,9 @@ Training takes the blocks one by one on their live parameters
 package's training does: the kernel has no backward, and its weights are
 detached bf16 copies.  `Denoiser.forward` takes that route whenever
 autograd records the stack or the caller asks for it (`fused=False`, the
-generator's training branch).
+generator's training branch).  Under tensor parallelism (`parallel.tp`)
+the blocks' convs are row-parallel over the residual channels; only
+training runs sharded blocks, so the kernel always sees whole weights.
 """
 
 import math
@@ -35,7 +37,8 @@ from ..ops.denoiser_stack import (
     denoiser_kernel_weights, fused_residual_stack, speaker_projections,
     stack_denoiser_params,
 )
-from .blocks import ConvNorm, LinearNorm, Mish, diffusion_embedding
+from ..parallel.collectives import scatter_to_model
+from .blocks import ConvNorm, LinearNorm, Mish, diffusion_embedding, row_parallel
 
 
 class ResidualBlock(nn.Module):
@@ -59,8 +62,17 @@ class ResidualBlock(nn.Module):
         y = y0 + self.conditioner_projection(cond)
         if spk_emb is not None:
             y = y + self.speaker_projection(spk_emb)[:, None, :]
-        gate, filt = self.conv_layer(y).chunk(2, dim=-1)
-        out, skip = self.output_projection(torch.sigmoid(gate) * torch.tanh(filt)).chunk(2, dim=-1)
+        if self.conv_layer.conv.weight.shape[1] != self.conv_layer.conv.in_channels:
+            # row-parallel over the residual channels (parallel.tp): each rank
+            # contracts its channels of y and of g, the partial 2C outputs
+            # are all-reduced and the biases added once
+            gate, filt = row_parallel(self.conv_layer.conv, scatter_to_model(y)).chunk(2, dim=-1)
+            g = scatter_to_model(torch.sigmoid(gate) * torch.tanh(filt))
+            out, skip = row_parallel(self.output_projection.conv, g).chunk(2, dim=-1)
+        else:
+            gate, filt = self.conv_layer(y).chunk(2, dim=-1)
+            out, skip = self.output_projection(
+                torch.sigmoid(gate) * torch.tanh(filt)).chunk(2, dim=-1)
         return (out + y0) / math.sqrt(2.0), skip
 
 

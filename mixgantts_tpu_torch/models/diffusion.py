@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.schedules import get_noise_schedule_list
+from ..parallel.collectives import global_rows
 
 
 def schedule_betas(denoiser_config, mode):
@@ -86,39 +87,34 @@ class GaussianDiffusion(nn.Module):
 
     # --- inference ----------------------------------------------------------
 
-    def sampling(self, cond, spk_emb=None, noise=None, step_noises=None, generator=None,
-                 return_trace=False):
-        """Reverse process from `noise` (x_T; drawn when None) to the
-        normalised x0 [B, T, n_mels], conditioned on cond [B, T, H] and a
-        multi-speaker model's speaker embedding spk_emb [B, H].
-        `step_noises` [S, B, T, n_mels] injects the per-step posterior
-        noises, consumed t = S-1 .. 0; drawn noise is in cond's type.
-        With `return_trace`, the whole trajectory x_T .. x_0 [S+1, B, T,
-        n_mels]."""
-        B, T_mel, _ = cond.shape
-        shape = (B, T_mel, self.spec_min.shape[0])
-        x = noise if noise is not None else torch.randn(
-            shape, generator=generator, device=cond.device, dtype=cond.dtype)
+    def sampling(self, cond, spk_emb, noise, step_noises, return_trace=False):
+        """Reverse process from `noise` (x_T [B, T, n_mels]) to the
+        normalised x0, conditioned on cond [B, T, H] and a multi-speaker
+        model's speaker embedding spk_emb [B, H]; `step_noises` [S, B, T,
+        n_mels] are the per-step posterior noises, consumed t = S-1 .. 0
+        (`MixGANTTS.inference_noise` draws both).  With `return_trace`, the
+        whole trajectory x_T .. x_0 [S+1, B, T, n_mels]."""
+        B = cond.shape[0]
+        x = noise
         trace = [x]
         for k, i in enumerate(reversed(range(self.num_timesteps))):
             t = torch.full((B,), i, dtype=torch.long, device=cond.device)
             x0_pred = torch.clamp(self.denoise_fn(x, t, cond, spk_emb), -1.0, 1.0)
-            step_noise = (step_noises[k] if step_noises is not None else
-                          torch.randn(x.shape, generator=generator, device=x.device,
-                                      dtype=cond.dtype))
-            x = self.q_posterior_sample(x0_pred, x, t, step_noise)
+            x = self.q_posterior_sample(x0_pred, x, t, step_noises[k])
             trace.append(x)
         return torch.stack(trace) if return_trace else x
 
     def diffuse_trace(self, mel, mel_mask, generator=None, noises=None):
         """[S+1, B, T, n_mels]: the clamped normalised mel, then its
         diffusion at t = 0 .. S-1, all masked (aux mode's output).
-        `noises` [S, B, T, n_mels] injects the noise of each step."""
+        `noises` [S, B, T, n_mels] injects the noise of each step; drawn
+        noise is drawn for the global batch under data parallelism."""
         maskf = mel_mask[..., None].to(mel.dtype)
         trace = [torch.clamp(self.norm_spec(mel), -1.0, 1.0) * maskf]
         for i in range(self.num_timesteps):
-            noise = noises[i] if noises is not None else torch.randn(
-                mel.shape, generator=generator, device=mel.device)
+            noise = noises[i] if noises is not None else global_rows(
+                lambda shape: torch.randn(shape, generator=generator, device=mel.device),
+                mel.shape)
             t = torch.full((mel.shape[0],), i, dtype=torch.long, device=mel.device)
             trace.append(self.diffuse(mel, t, noise) * maskf)
         return torch.stack(trace)

@@ -31,7 +31,10 @@ train step can run the aux stack once and the diffusion branch twice
 (`tpu.reuse_aux_forward`).
 
 Randomness comes from `noise_override` or from an explicit
-`torch.Generator`.  Keys: inference {"start_noise": [B, T, M],
+`torch.Generator`; a data-parallel training step draws for the global
+batch and keeps its rows (`parallel.collectives.global_rows`), so it
+draws what the one-device step draws.  Inference draws its noise up front
+(`inference_noise`).  Keys: inference {"start_noise": [B, T, M],
 "step_noises": [S, B, T, M]}; training {"t": [B], "x_t_noise",
 "x_t_prev_noise", "posterior_noise": [B, T, M]}, and aux mode's
 {"trace_noises": [S, B, T, M]}.
@@ -43,6 +46,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import sequence_mask
+from ..parallel.collectives import global_rows
 from ..utils.tools import resolve_device
 from .aux_decoder import Decoder, PostNet
 from .denoiser import Denoiser
@@ -236,29 +240,31 @@ class MixGANTTS(nn.Module):
             mel_pred = diffusion.diffuse_trace(coarse_mel, mel_mask, generator,
                                                noises=ov.get("trace_noises"))
         elif mels is None:
-            start = ov.get("start_noise")
+            if ov.get("start_noise") is None or ov.get("step_noises") is None:
+                drawn = self.inference_noise(B, cond.shape[1], generator, cond.device)
+                ov = {k: drawn[k] if ov.get(k) is None else ov[k] for k in drawn}
+            start = ov["start_noise"]
             if shallow:
-                if start is None:
-                    start = torch.randn(coarse_mel.shape, generator=generator,
-                                        device=coarse_mel.device, dtype=coarse_mel.dtype)
                 t_start = torch.full((B,), diffusion.num_timesteps - 1,
                                      dtype=torch.long, device=cond.device)
                 start = diffusion.diffuse(coarse_mel, t_start, start) * maskf
-            x0 = diffusion.sampling(cond, spk, noise=start,
-                                    step_noises=ov.get("step_noises"),
-                                    generator=generator, return_trace=return_trace)
+            x0 = diffusion.sampling(cond, spk, start, ov["step_noises"],
+                                    return_trace=return_trace)
             mel_pred = diffusion.denorm_spec(x0) * (maskf[None] if return_trace else maskf)
         else:
             # training: one random diffusion step per utterance
+            # drawn for the global batch under data parallelism (global_rows)
             def noise(key):
                 n = ov.get(key)
-                return n if n is not None else torch.randn(
-                    mels.shape, generator=generator, device=mels.device, dtype=cond.dtype)
+                return n if n is not None else global_rows(lambda shape: torch.randn(
+                    shape, generator=generator, device=mels.device, dtype=cond.dtype),
+                    mels.shape)
 
             t = ov.get("t")
             if t is None:
-                t = torch.randint(0, diffusion.num_timesteps, (B,), generator=generator,
-                                  device=mels.device)
+                t = global_rows(lambda shape: torch.randint(
+                    0, diffusion.num_timesteps, shape, generator=generator,
+                    device=mels.device), (B,))
             x_ts = diffusion.diffuse(mels, t, noise("x_t_noise")) * maskf
             x_t_prevs = diffusion.diffuse(mels, t - 1, noise("x_t_prev_noise")) * maskf
             x0_pred = diffusion.denoise_fn(
@@ -280,6 +286,25 @@ class MixGANTTS(nn.Module):
             src_w_mask=sequence_mask(src_w_lens, word_boundaries.shape[1]),
             src_lens=src_lens, attn=aux.attn, attn_logprob=aux.attn_logprob,
             postnet_output=aux.postnet_output)
+
+    def inference_noise(self, B, T, generator, device):
+        """The noise naive and shallow inference sample a B-row request of T
+        frames from, where `noise_override` does not give it: drawn from
+        `generator` in this order and these types, {"start_noise": [B, T,
+        M] (shallow: in the coarse mel's type, naive: in the features'),
+        "step_noises": [S, B, T, M] (one posterior noise a reverse step, in
+        the features' type)}.  The sharded pipeline draws it once for its
+        padded batch and splits it over the replicas."""
+        features = self.linguistic_encoder.w2p_attn.fc.linear.weight.dtype
+        start = self.mel_linear.weight.dtype if self.mode == "shallow" else features
+
+        def draw(dtype):
+            return torch.randn((B, T, self.n_mels), generator=generator, device=device,
+                               dtype=dtype)
+
+        start_noise = draw(start)
+        steps = [draw(features) for _ in range(self.diffusion.num_timesteps)]
+        return {"start_noise": start_noise, "step_noises": torch.stack(steps)}
 
     def _aux_stage(self, texts, src_lens, word_boundaries, src_w_lens, max_mel_len,
                    p_control, d_control, speakers, spker_embeds, mel_lens, attn_priors,

@@ -12,9 +12,16 @@ The clip scales by max/|g| only when |g| >= max, as `optax.clip_by_global_norm`
 does (torch's `clip_grad_norm_` divides by |g| + 1e-6).  A parameter that
 received no gradient takes a zero one, as in a JAX gradient tree: its
 moments decay and weight decay still applies.
+
+Under tensor parallelism the moments live on the shards (they are made
+like the parameters, which `parallel.tp.shard_state` shards, or are
+sharded with them), and the clip's global norm sums the sharded
+parameters' squared norms over the model ranks.
 """
 
 import torch
+
+from ..parallel.collectives import model_size, model_sum
 
 
 def fs2_lr_schedule(d_model, warmup_steps, anneal_steps, anneal_rate):
@@ -77,8 +84,8 @@ class Adam:
                 return False
             grads, self.acc = self.acc, None
         if self.clip is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-            grads = torch._foreach_div(grads, torch.clamp(norm / self.clip, min=1.0))
+            grads = torch._foreach_div(grads, torch.clamp(self._global_norm(grads) / self.clip,
+                                                          min=1.0))
         if self.mu is None:
             self.mu = [torch.zeros_like(p) for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
@@ -99,6 +106,19 @@ class Adam:
         torch._foreach_add_(self.params, update, alpha=-float(lr))
         self.count = t
         return True
+
+    def _global_norm(self, grads):
+        """The norm of all the gradients.  Under tensor parallelism
+        (`parallel.tp`) the squared norms of the sharded parameters' local
+        gradients are summed over the model ranks, and the replicated ones
+        are counted once."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        sharded = [getattr(p, "tp_dim", None) is not None for p in self.params]
+        if model_size() == 1 or not any(sharded):
+            return torch.linalg.vector_norm(norms)
+        mask = torch.tensor(sharded, device=norms.device)
+        sq = norms.square()
+        return torch.sqrt(sq[~mask].sum() + model_sum(sq[mask].sum()))
 
     def state_dict(self, lr=None):
         """The state in `torch.optim.Adam.state_dict()`'s shape: per

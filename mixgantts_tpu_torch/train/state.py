@@ -1,7 +1,9 @@
 """Train state (`mixgantts_tpu/train/state.py`): the generator and the
 discriminator, the three optimizers, the per-epoch GAN learning rates, the
 step and epoch counters, and the `torch.Generator` the steps draw their
-diffusion randomness from.  The steps update it in place."""
+diffusion randomness from.  The steps update it in place.  A state
+replicated or sharded over a process mesh (`parallel.replicate_state`,
+`parallel.shard_state`) holds the mesh and the partition specs."""
 
 from dataclasses import dataclass
 
@@ -23,6 +25,8 @@ class TrainState:
     step: int
     epoch: int
     generator: torch.Generator
+    mesh: object = None         # parallel.Mesh once replicated or sharded over one
+    specs: dict = None          # parallel.tp.partition_specs once sharded
 
 
 def create_train_state(model, discriminator, train_config, model_config, restore_step=0,

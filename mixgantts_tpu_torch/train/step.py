@@ -49,6 +49,12 @@ the diffusion noises come from `state.generator`, or from
 the plain GAN step and `reuse_aux_forward`, one for aux mode and
 `reuse_g_forward`; keys in `models/mixgantts.py`); dropout draws from
 torch's default generator.
+
+Inside `parallel.shard_train_step` (a mesh active) the same step is the
+sharded one: the gradients are averaged over the data ranks between each
+`backward()` and its optimizer's update, the losses' masked means and
+the PostNet's statistics are global-batch ones, the draws are the global
+batch's rows, and the tensor-parallel layers run their collectives.
 """
 
 import contextlib
@@ -57,6 +63,7 @@ import warnings
 import torch
 
 from ..losses import LossConfig, generator_loss, get_adversarial_losses_fn
+from ..parallel.collectives import average_gradients
 from ..utils.tools import cast_param, compute_dtype
 
 BATCH_MODEL_KEYS = (
@@ -150,6 +157,14 @@ def _frozen(module):
             p.requires_grad_(flag)
 
 
+def _update(opt, lr=None):
+    """The optimizer's step on the gradients averaged over the data ranks
+    (`parallel.collectives.average_gradients`; nothing to average on one
+    device)."""
+    average_gradients(opt.params)
+    opt.step(lr)
+
+
 def _check_flags(mode, model_config):
     """The JAX package's checks of its opt-in step variants (conflicts
     raise; a GAN-only flag is inert in aux mode and warns, since one
@@ -235,7 +250,7 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
                 losses = recon_losses(state, batch, out)
                 state.opt_g_fs2.zero_grad()
                 losses["recon_loss"].backward()
-                state.opt_g_fs2.step()
+                _update(state.opt_g_fs2)
             zero = torch.zeros_like(losses["recon_loss"])
             metrics = dict(losses, total_loss=losses["recon_loss"], G_loss=losses["recon_loss"],
                            D_loss=zero, adv_loss=zero)
@@ -251,7 +266,7 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
         D_loss = r_loss + f_loss
         state.opt_d.zero_grad()
         D_loss.backward()
-        state.opt_d.step(state.lr_d)
+        _update(state.opt_d, state.lr_d)
         return D_loss
 
     def g_phase(state, batch, out):
@@ -264,7 +279,7 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
             G_loss = adv_loss + losses["recon_loss"] + losses["fm_loss"]
             state.opt_g.zero_grad()
             G_loss.backward()
-        state.opt_g.step(state.lr_g)
+        _update(state.opt_g, state.lr_g)
         return losses, adv_loss, G_loss
 
     def gan_step(state, batch, noise_overrides):

@@ -10,9 +10,10 @@ CPU, at test_cli.py's small config (TINY_MODEL_YAML):
 - `--model aux`, which draws no noise, agrees with the JAX package's
   `TTSPipeline` on the same weights within test_torch_pipeline.py's
   tolerance (int16 within 1 LSB, mel mean |diff| < 1e-3);
+- `--data_parallel` batch synthesis over a mesh of the visible devices
+  writes the same wavs;
 - the probes: single mode without text, shallow below total_step_aux,
-  teacher-forced synthesis from a source file, data-parallel synthesis, no
-  GPU, no checkpoint.
+  teacher-forced synthesis from a source file, no GPU, no checkpoint.
 
 The vocoder is test_torch_pipeline.py's tiny HiFi-GAN on both sides.
 """
@@ -195,6 +196,21 @@ def test_batch_mode_writes_the_pipeline_wavs(workspace, port_vocoder):
         np.testing.assert_array_equal(wav, want)
 
 
+def test_batch_mode_data_parallel_writes_the_pipeline_wavs(workspace, port_vocoder):
+    """`--data_parallel` serves the batch over a mesh of every visible
+    device (the CPU here: one replica), drawing the noise the plain
+    pipeline draws: the same wavs."""
+    written = run_cli("shallow", "--mode", "batch", "--source", "source.txt",
+                      "--data_parallel")
+    batch = next(JTextOnlyDataset("source.txt", workspace["pre"], workspace["mc"]).batches(8))
+    wants, _, lens = port_pipeline(workspace, "shallow", port_vocoder)(batch)
+    assert len(written) == len(wants) == 3
+    for (path, mel_len), want, n in zip(written, wants, lens):
+        wav = read_wav(path)
+        assert mel_len == int(n) > 0
+        np.testing.assert_array_equal(wav, want)
+
+
 def test_aux_mode_matches_the_jax_pipeline(workspace, port_vocoder):
     text = "hello brave world"
     (path, mel_len), = run_cli("aux", "--mode", "single", "--text", text)
@@ -232,8 +248,6 @@ def test_write_results_without_matplotlib(workspace, monkeypatch, tmp_path):
      AssertionError, "finished aux checkpoint"),
     (["--restore_step", "4", "--model", "naive", "--mode", "batch", "--teacher_forced",
       "--source", "source.txt"], AssertionError, None),
-    (["--restore_step", "4", "--model", "naive", "--mode", "batch", "--source", "source.txt",
-      "--data_parallel"], NotImplementedError, "ROADMAP"),
     (["--restore_step", "6", "--model", "naive", "--mode", "single", "--text", "hi"],
      FileNotFoundError, "pth.tar"),
 ])

@@ -13,8 +13,8 @@
   and mel mean |diff| < 5% of max|mel| (tests/test_pipeline.py's bar), and
   the bf16 vocoder against the fp32 one on that mel at SNR > 30 dB
   (tests/test_vocoder.py's bar).
-- `submit`/`collect`/`stream`, the frame-budget warning, the option not
-  ported yet (a mesh), speaker embeddings reaching the model, and HiFi-GAN
+- `submit`/`collect`/`stream`, the frame-budget warning, a malformed
+  mesh, speaker embeddings reaching the model, and HiFi-GAN
   configs with per-branch dilations (the eager route, against flax at
   rtol 1e-4 / atol 1e-5).
 - No module of the port imports JAX, flax or the JAX package (an AST scan),
@@ -203,15 +203,16 @@ def test_pipeline_warns_when_frame_budget_saturates():
 
 
 def test_pipeline_options_not_ported_raise():
-    """Sharded serving over a mesh is not ported and raises, as does an
-    unknown compute_dtype; bfloat16 serves bf16 copies (BatchNorm
+    """A mesh that is neither a serving mesh nor a list of devices raises
+    (sharded serving itself: tests/test_torch_parallel_serving.py), as does
+    an unknown compute_dtype; bfloat16 serves bf16 copies (BatchNorm
     statistics and the diffusion tables stay fp32) and leaves the caller's
     modules in fp32; spker_embeds reach a model with an external speaker
     embedder."""
     model, variables, _ = jax_generator("shallow")
     port = torch_generator_like(model, variables)
     _, tvoc = vocoders()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         TTSPipeline(port, tvoc, PRE_CONFIG, MODEL_CONFIG, mesh=object())
     cfg = copy.deepcopy(MODEL_CONFIG)
     cfg["tpu"]["compute_dtype"] = "float16"
@@ -282,7 +283,10 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     rel = {os.path.relpath(f, os.path.join(REPO, "mixgantts_tpu_torch")) for f in files}
     assert {"audio/stft.py", "audio/f0.py", "models/speaker_embedder.py",
-            "data/preprocessor.py", "cli/preprocess.py", "cli/prepare_align.py"} <= rel
+            "data/preprocessor.py", "cli/preprocess.py", "cli/prepare_align.py",
+            "parallel/__init__.py", "parallel/mesh.py", "parallel/tp.py",
+            "parallel/collectives.py", "parallel/launch.py", "dryrun.py",
+            "utils/profiling.py"} <= rel
     offenders = []
     for path in files:
         with open(path) as f:

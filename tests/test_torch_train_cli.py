@@ -18,14 +18,21 @@ at test_cli.py's tiny configs over a corpus preprocessed by the JAX
 - the aux -> shallow handoff end to end: the "finished aux checkpoint"
   refusal, shallow training with sample panels (test_torch_pipeline.py's
   tiny HiFi-GAN) and validation, and synthesis from the shallow checkpoint;
-- the options not ported yet (ROADMAP item 8) raise.
+- at one rank, --data_parallel and --tensor_parallel run unsharded,
+  --profile_dir writes a trace and --profile_port arms a window over
+  HTTP; two ranks (dp2, and tp2) follow the one-process run, rank 0
+  alone draws the sample panel, the one-process run's, and their
+  checkpoint resumes in one process.
 """
 
+import glob
 import os
 import re
 import shutil
+import socket
 import sys
 import types
+import urllib.request
 
 import numpy as np
 import pytest
@@ -40,8 +47,10 @@ from mixgantts_tpu_torch.cli import synthesize as tsyn
 from mixgantts_tpu_torch.cli import train as ttrain
 from mixgantts_tpu_torch.convert import discriminator_state_dict, generator_state_dict
 from mixgantts_tpu_torch.train import create_train_state
+from mixgantts_tpu_torch.utils import profiling
 from mixgantts_tpu_torch.utils.logging import LOSS_KEYS
 from test_torch_pipeline import vocoders
+from torch_parallel_helpers import recording_panels, run_ranks
 from torch_port_helpers import numpy_tree
 from torch_train_helpers import (
     cli_workspace, jax_dropout_off, jit_generator_init, patch_trace_by_shape, port_dropout_off,
@@ -252,12 +261,102 @@ def test_aux_to_shallow_handoff(workspace, monkeypatch):
     assert os.path.isfile(path) and mel_len > 0
 
 
-@pytest.mark.parametrize("option", [
-    {"data_parallel": True}, {"tensor_parallel": 2}, {"profile_dir": "trace"},
-    {"profile_port": 9012}], ids=["data_parallel", "tensor_parallel", "profile_dir",
-                                  "profile_port"])
-def test_options_not_ported_raise(workspace, option):
-    args = cli_args("naive", "")
-    args.__dict__.update(option)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        ttrain.main(args, tcommon.load_configs(args), device="cpu")
+@pytest.fixture(scope="module")
+def plain_naive(workspace):
+    """A one-process naive run 0 -> 4 (path tag "plain") with a panel and
+    validation at step 4: its configs, its train and val logs, and its
+    panels (`recording_panels`)."""
+    _, vocoder = vocoders()
+    args = cli_args("naive", "plain")
+    configs = panel_configs(tcommon.load_configs(args))
+    panels = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttrain, "synth_one_sample", recording_panels(ttrain, panels))
+        run_port(mp, args, configs, vocoder=vocoder)
+    return configs, read_log(configs), read_log(configs, "val"), panels
+
+
+def panel_configs(configs):
+    configs[2]["step"].update(synth_step=4, val_step=4)
+    return configs
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def close_logs(got, want):
+    """Log lines of two runs: the same steps, every number within rtol 1e-4
+    plus the 5e-5 of printing to four decimals."""
+    assert [line.split(",")[0] for line in got.splitlines()] == \
+        [line.split(",")[0] for line in want.splitlines()]
+    for a, b in zip(log_numbers(got), log_numbers(want)):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("option", ["data_parallel", "tensor_parallel", "profile_dir",
+                                    "profile_port"])
+def test_parallel_and_profiling_options_at_one_rank(workspace, monkeypatch, tmp_path,
+                                                     plain_naive, option):
+    """With one rank --data_parallel and --tensor_parallel 2 run unsharded
+    (the plain run's logs, exactly); --profile_dir traces the steady-state
+    window; --profile_port serves captures: a request before the first step
+    arms a window of 2 steps into the directory it names."""
+    armed = str(tmp_path / "armed")
+    value = {"data_parallel": True, "tensor_parallel": 2, "profile_dir": str(tmp_path / "trace"),
+             "profile_port": free_port()}[option]
+    if option == "profile_port":
+        def arming(port, profiler, default_dir):
+            server = profiling.start_server(port, profiler, default_dir)
+            direct = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+            with direct.open(f"http://localhost:{port}/?steps=2&dir={armed}") as r:
+                assert r.status == 200
+            return server
+
+        monkeypatch.setattr(ttrain, "start_server", arming)
+    args = cli_args("naive", f"opt_{option}")
+    setattr(args, option, value)
+    configs = panel_configs(tcommon.load_configs(args))
+    run_port(monkeypatch, args, configs, vocoder=vocoders()[1])
+    assert read_log(configs) == plain_naive[1] and read_log(configs, "val") == plain_naive[2]
+    trace_dir = {"profile_dir": value, "profile_port": armed}.get(option)
+    if trace_dir:
+        assert glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+
+
+PANEL_RTOL, PANEL_ATOL, PANEL_WAV_ATOL = 1e-4, 1e-4, 2   # the log bar; int16 within 2
+
+
+@pytest.mark.parametrize("flags,world", [({"data_parallel": True}, 2),
+                                         ({"data_parallel": True, "tensor_parallel": 2}, 2)],
+                         ids=["dp2", "tp2"])
+def test_multi_rank_run_follows_one_process(workspace, tmp_path, plain_naive, flags, world):
+    """Two ranks of the train CLI (gloo on the CPU, as torchrun starts them,
+    dropout on): rank 0's train and validation logs are the one-process
+    run's (`close_logs`); rank 0 alone draws the step-4 sample panels (the
+    training panel and validation's), on the full weights (tp2: gathered),
+    and their inference traces are the one-process panels' at the logs'
+    rtol 1e-4 (atol 1e-4), their wavs within 2 int16 steps (the sharded
+    serving bar); the run's step-2 checkpoint resumes in one process to the
+    one-process run's step-4 line."""
+    tag = "_".join(sorted(flags)) + str(world)
+    args = dict(vars(cli_args("naive", tag)), **flags)
+    configs = panel_configs(tcommon.load_configs(types.SimpleNamespace(**args)))
+    ranks = run_ranks(tmp_path, "train_cli", world, dict(
+        root=workspace, args=args, configs=configs, vocoder=vocoders()[1]))
+    close_logs(ranks[0]["train"], plain_naive[1])
+    close_logs(ranks[0]["val"], plain_naive[2])
+    assert [len(r["panels"]) for r in ranks] == [len(plain_naive[3])] + [0] * (world - 1)
+    for got, want in zip(ranks[0]["panels"], plain_naive[3]):
+        np.testing.assert_allclose(got["trace"], want["trace"], rtol=PANEL_RTOL, atol=PANEL_ATOL)
+        np.testing.assert_allclose(got["wav"].astype(np.int32), want["wav"].astype(np.int32),
+                                   rtol=0, atol=PANEL_WAV_ATOL)
+
+    resume = cli_args("naive", tag + "_resumed", restore_step=2)
+    resumed = panel_configs(tcommon.load_configs(resume))
+    shutil.copytree(configs[2]["path"]["ckpt_path"], resumed[2]["path"]["ckpt_path"])
+    with pytest.MonkeyPatch.context() as mp:
+        run_port(mp, resume, resumed, vocoder=vocoders()[1])
+    close_logs(read_log(resumed), plain_naive[1].splitlines()[-1] + "\n")
