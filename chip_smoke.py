@@ -171,11 +171,20 @@ phase 9's weights; every serving kernel must launch;
    (e) `dryrun_multigpu(2, device="cuda")`, beside (c); (c) and (e) run
    while the ranks of (a) and (b) take their compared steps, and their
    timed steps follow with nothing else on the card; (f) with two or
-   more cards, (a), (b) and (d) again over min(count, 4) cards and nccl.
+   more cards, (a), (b) and (d) again over min(count, 4) cards and nccl;
+17. the port's benchmark and measuring tools: (a) `python -m
+   mixgantts_tpu_torch.bench` in a subprocess (its RTF line; a non-zero
+   exit, a null value or a serving kernel launched no time fails); (b) one
+   request at the bench's shapes (B=1, 64 phone slots, 24 words, the
+   whole 864-frame mel vocoded, no bucket) on phase 4's weights, its
+   kernel launches counted, against the CPU at phase 5's bars with the
+   same injected noise; (c) `tests/bench_torch_serving.py` at B=1 (call)
+   and B=8 (stream), `tests/bench_torch_step_parts.py` and
+   `tests/bench_torch_denoiser_grad.py`, once each at 5 calls a round.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
-phase 4 plus phase 16's replicas and train CLI ranks, or phase 7 for
-`mrf_stack_streamed`; max error in phase 3 or 7;
+phase 4 plus phase 16's replicas and train CLI ranks and phase 17's
+request, or phase 7 for `mrf_stack_streamed`; max error in phase 3 or 7;
 and the time, plain time and bound of one B=1 request at frame bucket
 1000); the last line is {"ok": true, "device": {...}}.
 """
@@ -743,37 +752,60 @@ def np_isfinite(a):
     return bool(np.isfinite(a).all())
 
 
-def cpu_reference(torch, pre, cfg, model, vocoder, label="reference"):
-    """Phase 5 (and 9): one small request on the GPU (kernels) and on the
-    CPU (plain versions), same weights and injected noise (and, for a
-    multi-speaker model, speaker embedding): the CPU once with its denoiser
-    stack and MRF weights in bf16 (the GPU's arithmetic), once in fp32."""
-    import numpy as np
+def cpu_copy(torch, pre, cfg, model, vocoder):
+    """The serving model and vocoder with the same weights on the CPU."""
     from mixgantts_tpu_torch.config import NormStats
     from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
     from mixgantts_tpu_torch.models.vocoder import get_vocoder
-    from mixgantts_tpu_torch.pipeline import TTSPipeline
     cpu_model = MixGANTTS.from_configs(
         "shallow", pre, cfg, NormStats.default(model.n_mels),
         n_speakers=N_SPEAKERS if cfg["multi_speaker"] else 1, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     cpu_voc = get_vocoder(cfg, device="cpu")
     cpu_voc.generator.load_state_dict(vocoder.generator.state_dict())
-    batch = with_speakers(text_batch(1, 8, 4, seed=2), cfg, seed=2)
-    T, M = 128, model.n_mels           # the frame bucket of 8 phone slots
-    r = np.random.RandomState(3)
-    noise = {"start_noise": r.randn(1, T, M).astype(np.float32),
-             "step_noises": r.randn(model.diffusion.num_timesteps, 1, T, M).astype(np.float32)}
+    return cpu_model, cpu_voc
+
+
+def on_gpu_and_cpu(torch, model, vocoder, cpu_model, cpu_voc, serve):
+    """serve(model, vocoder) on the GPU (kernels), then on the CPU with its
+    denoiser stack and MRF weights in bf16 (the GPU's arithmetic), then in
+    fp32: three (int16 waves, mel, lengths)."""
     outs = []
     for m, v, dtype in ((model, vocoder, None), (cpu_model, cpu_voc, torch.bfloat16),
                         (cpu_model, cpu_voc, torch.float32)):
         v.generator.mrf_dtype = dtype
         m.diffusion.denoise_fn.stack_dtype = dtype
-        pipe = TTSPipeline(m, v, pre, cfg, mel_dtype=torch.float32)
-        outs.append(pipe(batch, noise_override=noise))
+        outs.append(serve(m, v))
     cpu_voc.generator.mrf_dtype = None
     cpu_model.diffusion.denoise_fn.stack_dtype = None
-    (gw, gm, gl), (bw, bm, bl), (fw, fm, fl) = outs
+    return outs
+
+
+def cpu_reference(torch, pre, cfg, model, vocoder, label="reference"):
+    """Phase 5 (and 9): one small request on the GPU (kernels) and on the
+    CPU (plain versions), same weights and injected noise (and, for a
+    multi-speaker model, speaker embedding): the CPU once with its denoiser
+    stack and MRF weights in bf16 (the GPU's arithmetic), once in fp32."""
+    import numpy as np
+    from mixgantts_tpu_torch.pipeline import TTSPipeline
+    cpu_model, cpu_voc = cpu_copy(torch, pre, cfg, model, vocoder)
+    batch = with_speakers(text_batch(1, 8, 4, seed=2), cfg, seed=2)
+    T, M = 128, model.n_mels           # the frame bucket of 8 phone slots
+    r = np.random.RandomState(3)
+    noise = {"start_noise": r.randn(1, T, M).astype(np.float32),
+             "step_noises": r.randn(model.diffusion.num_timesteps, 1, T, M).astype(np.float32)}
+    outs = on_gpu_and_cpu(torch, model, vocoder, cpu_model, cpu_voc, lambda m, v: TTSPipeline(
+        m, v, pre, cfg, mel_dtype=torch.float32)(batch, noise_override=noise))
+    check_against_cpu(label, T, M, *outs)
+
+
+def check_against_cpu(label, T, M, gpu, bf16, fp32):
+    """Phase 5's bars on (int16 waves, mel, lengths) served on the GPU and
+    on the CPU in bf16 and fp32: mel mean |diff| < 1e-3 and the wave within
+    16 LSB against bf16; mel mean |diff| / max|mel| < 0.02 and SNR > 30 dB
+    against fp32."""
+    import numpy as np
+    (gw, gm, gl), (bw, bm, bl), (fw, fm, fl) = gpu, bf16, fp32
     if gm.shape != (1, T, M) or not list(gl) == list(bl) == list(fl):
         raise AssertionError(f"GPU/CPU shapes or lengths differ: {gm.shape} {gl} {bl} {fl}")
     mae = float(np.abs(gm - bm).mean())
@@ -2593,6 +2625,80 @@ def multi_device_phase(torch, pre, cfg, model, vocoder, records):
     log(f"[multi] phase 16 took {time.perf_counter() - t_start:.1f} s")
 
 
+BENCH_SCRIPT_ITERS = 5     # calls a round of phase 17's runs of the tests/bench_torch_*.py
+
+
+def bench_phase(torch, pre, cfg, model, vocoder, records):
+    """Phase 17: the port's benchmark and measuring tools.  (a) `python -m
+    mixgantts_tpu_torch.bench` in a subprocess: a non-zero exit, a null
+    value or a serving kernel launched no time fails; (b) one request at
+    the bench's shapes (`example_text_batch(1, 64, 24)`, max_mel_len 864,
+    the whole mel vocoded: `bench.synthesize`) on phase 4's weights, the
+    serving kernels' launches counted, against the CPU at phase 5's bars
+    with the same injected noise; (c) `tests/bench_torch_serving.py` at B=1
+    (call) and B=8 (stream), `tests/bench_torch_step_parts.py` and
+    `tests/bench_torch_denoiser_grad.py`, in this process, each once with
+    BENCH_SCRIPT_ITERS calls a round.  Prints the wall time."""
+    import re
+    import numpy as np
+    from mixgantts_tpu_torch import bench
+    from mixgantts_tpu_torch.flagship import example_text_batch
+    t_start = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "mixgantts_tpu_torch.bench"], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    for line in out.stderr.splitlines():
+        if line.startswith("[bench]") or out.returncode:
+            log(f"  {line}")
+    result = json.loads(out.stdout.strip().splitlines()[-1]) if out.stdout.strip() else {}
+    log(f"[bench] (a) rc {out.returncode}: {json.dumps(result)}")
+    launched = re.search(r"launches per request (\{.*\})", out.stderr)
+    launched = json.loads(launched.group(1)) if launched else {}
+    if out.returncode or result.get("value") is None or sorted(launched) != sorted(
+            kernel_counters()) or not all(launched.values()):
+        raise AssertionError(f"the benchmark failed: rc {out.returncode}, {result}, "
+                             f"launches per request {launched}")
+
+    cpu_model, cpu_voc = cpu_copy(torch, pre, cfg, model, vocoder)
+    arrays = example_text_batch(B=1, P=bench.P, W=bench.W, rng=0)
+    T, M = bench.MAX_MEL_LEN, model.n_mels
+    r = np.random.RandomState(17)
+    noise = {"start_noise": r.randn(1, T, M).astype(np.float32),
+             "step_noises": r.randn(model.diffusion.num_timesteps, 1, T, M).astype(np.float32)}
+    max_wav = pre["preprocessing"]["audio"]["max_wav_value"]
+
+    def serve(m, v):
+        device = next(m.parameters()).device
+        wav, mel, lens = bench.synthesize(
+            m, v, {k: torch.as_tensor(a, device=device) for k, a in arrays.items()}, T,
+            noise_override={k: torch.as_tensor(a, device=device) for k, a in noise.items()})
+        wav = torch.clamp(wav * max_wav, -max_wav, max_wav - 1).to(torch.int16)
+        return wav.cpu().numpy(), mel.float().cpu().numpy(), lens.cpu().numpy()
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs = on_gpu_and_cpu(torch, model, vocoder, cpu_model, cpu_voc, serve)   # the CPU counts none
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[bench] (b) one request at the bench's shapes (B=1, P={bench.P}, W={bench.W}, "
+        f"T={T}, the whole mel vocoded): launches {launches}")
+    for name, n in launches.items():
+        records[name]["launches"] += n
+        if n == 0:
+            raise AssertionError(f"{name} was not launched at the bench's shapes")
+    check_against_cpu("bench (b)", T, M, *outs)
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import bench_torch_denoiser_grad
+    import bench_torch_serving
+    import bench_torch_step_parts
+    log(f"[bench] (c) the manual benches, {BENCH_SCRIPT_ITERS} calls a round")
+    for B, variant in ((1, "call"), (8, "stream")):
+        bench_torch_serving.main(B, variant, iters=BENCH_SCRIPT_ITERS)
+    bench_torch_step_parts.main(iters=BENCH_SCRIPT_ITERS)
+    bench_torch_denoiser_grad.main(iters=BENCH_SCRIPT_ITERS)
+    log(f"[bench] phase 17 took {time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     if sys.argv[1:2] == ["--train-cli-rank"]:   # a torchrun rank of phase 16 (c)
         train_cli_rank(sys.argv[2], sys.argv[3:])
@@ -2682,6 +2788,8 @@ def main():
     log("[multi] the multi-device path: data and tensor parallel steps, the train CLI under "
         "torchrun, sharded serving, the dryrun")
     multi_device_phase(torch, pre, cfg, model, vocoder, records)  # phase 16
+    log(f"[bench] the port's benchmark and measuring tools; {gpu}")
+    bench_phase(torch, pre, cfg, model, vocoder, records)         # phase 17
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

@@ -34,11 +34,14 @@ run unsharded.  `--profile_dir` traces a few steady-state
 steps (each rank into `<dir>/rank<r>`) and `--profile_port` serves
 on-demand captures (`utils/profiling.py`).  A resumed run replays its batch stream from the
 checkpoint's `stream_start` without training on it, so it sees the batches
-the uninterrupted run saw; the JAX CLI restarts its stream instead.
+the uninterrupted run saw; the JAX CLI restarts its stream instead.  The
+replayed batches are built from the `.npy` headers alone
+(`replayed_batches`): a resume reads none of their arrays.
 """
 
 import argparse
 import os
+import sys
 
 import numpy as np
 import torch
@@ -65,6 +68,7 @@ from .evaluate import evaluate
 
 # the training targets, which inference does without
 TARGET_KEYS = ("mels", "mel_lens", "p_targets", "e_targets", "d_targets", "attn_priors")
+GROUP_SIZE = 4   # batches of a draw from the shuffled corpus (`AcousticDataset.batches`)
 
 
 def synthesize_sample(mode, model, state, batch, vocoder, model_config, preprocess_config):
@@ -132,9 +136,20 @@ def main(args, configs, device=None):
     if mesh is not None and mesh.shape["model"] > 1:
         shard_state(mesh, state)
 
+    tpu_cfg = model_config.get("tpu", {}) or {}
+    k = max(1, int(getattr(args, "steps_per_call", 0) or tpu_cfg.get("steps_per_call", 1)))
+    strict = bool(tpu_cfg.get("strict_batch_order", False))
+    total_step = cfg_step[f"total_step_{mode}"]
+    periods = [cfg_step["log_step"], cfg_step["synth_step"], cfg_step["val_step"],
+               cfg_step["save_step"]]
+
     dataset = AcousticDataset("train.txt", mode, preprocess_config, model_config,
                               train_config, sort=True, drop_last=True)
-    batch_gen = prefetch(dataset.batches(group_size=4, shuffle=True, seed=args.seed))
+    # what a resume replays untrained is built from the arrays' headers alone
+    replayed = replayed_batches(dataset, args.seed, k, strict, stream_start,
+                                args.restore_step, total_step, periods)
+    batch_gen = prefetch(dataset.batches(group_size=GROUP_SIZE, shuffle=True, seed=args.seed,
+                                         replayed=replayed))
     # the JAX CLI initialises its state on the stream's first batch and
     # trains from the second: step n sees its batch n here too
     next(b for b in batch_gen if b is not None)
@@ -144,9 +159,6 @@ def main(args, configs, device=None):
     if mesh is not None:
         chunk_fn = shard_train_step(chunk_fn, mesh)
     eval_fn = make_eval_step(mode, model, discriminator, model_config, train_config)
-    tpu_cfg = model_config.get("tpu", {}) or {}
-    k = max(1, int(getattr(args, "steps_per_call", 0) or tpu_cfg.get("steps_per_call", 1)))
-    strict = bool(tpu_cfg.get("strict_batch_order", False))
 
     vocoder = None
     if lead:
@@ -174,15 +186,12 @@ def main(args, configs, device=None):
         print("Number of MixGAN-TTS Parameters     :", param_count(model))
         print("          JCUDiscriminator Parameters:", param_count(discriminator))
 
-    total_step = cfg_step[f"total_step_{mode}"]
     gamma = train_config["optimizer"]["gamma"]
     fs2 = train_config["optimizer_fs2"]
     fs2_sched = fs2_lr_schedule(model_config["transformer"]["encoder_hidden"],
                                 fs2["warm_up_step"], fs2["anneal_steps"], fs2["anneal_rate"])
     sr = preprocess_config["preprocessing"]["audio"]["sampling_rate"]
     meter = ThroughputMeter()
-    periods = [cfg_step["log_step"], cfg_step["synth_step"], cfg_step["val_step"],
-               cfg_step["save_step"]]
 
     profile_dir = getattr(args, "profile_dir", None)
     if profile_dir and mesh is not None:
@@ -282,6 +291,43 @@ def main(args, configs, device=None):
         server.shutdown()
     train_logger.close()
     val_logger.close()
+
+
+def replayed_batches(dataset, seed, k, strict, stream_start, restore_step, total_step,
+                     periods):
+    """The stream positions (counting batches from 0) of the batches a run
+    resumed at `restore_step` takes without training on them: the first,
+    which the JAX CLI initialises on, and those of the steps after
+    `stream_start` up to `restore_step`.  With k > 1 the scheduler takes
+    batches out of arrival order, so which ones these are follows from
+    replaying it, here on batches built from the `.npy` headers alone (it
+    reads only their shapes), as the run then replays it."""
+    replayed = {0}
+    if restore_step <= stream_start:
+        return replayed
+
+    def numbered():
+        position = 0
+        for batch in dataset.batches(group_size=GROUP_SIZE, shuffle=True, seed=seed,
+                                     replayed=range(sys.maxsize)):
+            if batch is None:
+                yield None
+            else:
+                yield position, batch
+                position += 1
+
+    stream = numbered()
+    next(item for item in stream if item is not None)
+    done = stream_start
+    for event, payload in schedule_segments(stream, k, stream_start + 1, total_step, periods,
+                                            strict=strict, key_fn=lambda item: shape_key(item[1])):
+        if event == "epoch":
+            continue
+        done += len(payload)
+        if done > restore_step:
+            break
+        replayed.update(position for position, _ in payload)
+    return replayed
 
 
 def shape_key(batch):

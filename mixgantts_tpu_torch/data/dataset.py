@@ -54,29 +54,50 @@ class AcousticDataset:
     def __len__(self):
         return len(self.text)
 
-    def _load(self, kind, speaker, basename):
-        return np.load(os.path.join(self.preprocessed_path, kind,
-                                    f"{speaker}-{kind}-{basename}.npy"))
+    @staticmethod
+    def _load(path):
+        return np.load(path)
+
+    @staticmethod
+    def _header(path):
+        """Zeros of the shape and type of the `.npy` array at `path`, read
+        from the file's header alone (a read-only broadcast view)."""
+        array = np.load(path, mmap_mode="r")
+        return np.broadcast_to(np.zeros((), array.dtype), array.shape)
 
     def __getitem__(self, idx):
+        return self.item(idx, self._load)
+
+    def item(self, idx, read):
+        """Utterance `idx` with its `.npy` artifacts through `read(path)`:
+        `_load` for the arrays, `_header` for their shapes alone."""
         basename = self.basename[idx]
         speaker = self.speaker[idx]
+
+        def artifact(kind):
+            return read(os.path.join(self.preprocessed_path, kind,
+                                     f"{speaker}-{kind}-{basename}.npy"))
+
         sample = {
             "id": basename,
             "speaker": self.speaker_map[speaker],
             "raw_text": self.raw_text[idx],
-            "text": np.array(text_to_sequence(self.text[idx], self.cleaners)),
-            "mel": self._load("mel", speaker, basename),
-            "pitch": self._load("pitch", speaker, basename),
-            "energy": self._load("energy", speaker, basename),
-            "duration": self._load("duration", speaker, basename),
-            "word_boundary": self._load("phones_per_word", speaker, basename),
-            "attn_prior": self._load("attn_prior", speaker, basename),
+            "text": self.sequence(idx),
+            "mel": artifact("mel"),
+            "pitch": artifact("pitch"),
+            "energy": artifact("energy"),
+            "duration": artifact("duration"),
+            "word_boundary": artifact("phones_per_word"),
+            "attn_prior": artifact("attn_prior"),
         }
         if self.load_spker_embed:
-            sample["spker_embed"] = np.load(os.path.join(
+            sample["spker_embed"] = read(os.path.join(
                 self.preprocessed_path, "spker_embed", f"{speaker}-spker_embed.npy"))
         return sample
+
+    def sequence(self, idx):
+        """Utterance `idx`'s phone ids."""
+        return np.array(text_to_sequence(self.text[idx], self.cleaners))
 
     def reprocess(self, data, idxs):
         """idxs -> one padded batch dict (the reference's 17-field batch)."""
@@ -107,27 +128,33 @@ class AcousticDataset:
                 [np.asarray(d["spker_embed"]).reshape(-1) for d in items]).astype(np.float32)
         return batch
 
-    def collate(self, data):
-        """Grouped sorted batching: sort by text length, longest first, and
-        cut into batches of batch_size (the rest is one more batch unless
-        drop_last)."""
+    def groups(self, text_lens):
+        """Grouped sorted batching: positions in a draw sorted by text
+        length, longest first, and cut into batches of batch_size (the rest
+        is one more batch unless drop_last)."""
         if self.sort:
-            idx_arr = np.argsort(-np.array([len(d["text"]) for d in data]))
+            idx_arr = np.argsort(-np.array(text_lens))
         else:
-            idx_arr = np.arange(len(data))
+            idx_arr = np.arange(len(text_lens))
         n_full = len(idx_arr) - len(idx_arr) % self.batch_size
         groups = idx_arr[:n_full].reshape(-1, self.batch_size).tolist()
         if not self.drop_last and n_full < len(idx_arr):
             groups.append(idx_arr[n_full:].tolist())
-        return [self.reprocess(data, g) for g in groups]
+        return groups
 
-    def batches(self, group_size=4, shuffle=True, seed=0, epochs=None):
+    def batches(self, group_size=4, shuffle=True, seed=0, epochs=None, replayed=()):
         """Padded batch dicts without end (or for `epochs`), each epoch
         followed by None.  Each draw of batch_size * group_size utterances
         yields group_size batches; a corpus smaller than one draw shrinks
-        the draw so that an epoch still yields a batch."""
+        the draw so that an epoch still yields a batch.
+
+        The batches at the stream positions in `replayed` (counting batches
+        from 0, not the None markers) are built from the `.npy` headers
+        alone: their shapes and types, zeros for values, and no array read.
+        A resumed training run replays the batches it has trained on so
+        (`cli/train.py`); the draws are the same either way."""
         rng = np.random.RandomState(seed)
-        epoch = 0
+        epoch = position = 0
         chunk = self.batch_size * group_size
         if len(self) < chunk:
             chunk = max((len(self) // self.batch_size) * self.batch_size,
@@ -137,7 +164,12 @@ class AcousticDataset:
             if shuffle:
                 rng.shuffle(order)
             for i in range(0, len(order) - chunk + 1, chunk):
-                yield from self.collate([self[j] for j in order[i:i + chunk]])
+                draw = order[i:i + chunk]
+                for group in self.groups([len(self.sequence(j)) for j in draw]):
+                    read = self._header if position in replayed else self._load
+                    items = [self.item(draw[n], read) for n in group]
+                    yield self.reprocess(items, range(len(items)))
+                    position += 1
             epoch += 1
             yield None
 

@@ -273,11 +273,17 @@ def port_files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the test files and benches that run on the card, where there is no JAX
+    for name in sorted(os.listdir(os.path.join(REPO, "tests"))):
+        if name.startswith("bench_torch_") or name in ("test_torch_gpu_perf.py",
+                                                         "test_torch_gpu_kernels.py"):
+            yield os.path.join(REPO, "tests", name)
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax, flax or the
-    JAX package (`mixgantts_tpu`; the port is `mixgantts_tpu_torch`)."""
+    """No module of the port, nor chip_smoke.py, nor the test files and
+    benches that run on the card, imports jax, flax or the JAX package
+    (`mixgantts_tpu`; the port is `mixgantts_tpu_torch`)."""
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "mixgantts_tpu"}
     files = list(port_files())
     assert len(files) > 10
@@ -286,7 +292,11 @@ def test_port_imports_no_jax():
             "data/preprocessor.py", "cli/preprocess.py", "cli/prepare_align.py",
             "parallel/__init__.py", "parallel/mesh.py", "parallel/tp.py",
             "parallel/collectives.py", "parallel/launch.py", "dryrun.py",
-            "utils/profiling.py"} <= rel
+            "utils/profiling.py", "bench.py", "flagship.py"} <= rel
+    assert {f"../tests/{name}.py" for name in (
+        "bench_torch_serving", "bench_torch_step_parts", "bench_torch_denoiser_grad",
+        "bench_torch_mrf", "bench_torch_denoiser", "test_torch_gpu_perf",
+        "test_torch_gpu_kernels")} <= rel
     offenders = []
     for path in files:
         with open(path) as f:

@@ -22,7 +22,9 @@ at test_cli.py's tiny configs over a corpus preprocessed by the JAX
   --profile_dir writes a trace and --profile_port arms a window over
   HTTP; two ranks (dp2, and tp2) follow the one-process run, rank 0
   alone draws the sample panel, the one-process run's, and their
-  checkpoint resumes in one process.
+  checkpoint resumes in one process;
+- a run resumed at step 2 loads no array of the batches it replays untrained
+  (`AcousticDataset._load` counted) and logs the uninterrupted run's step 4.
 """
 
 import glob
@@ -46,6 +48,7 @@ from mixgantts_tpu_torch.cli import common as tcommon
 from mixgantts_tpu_torch.cli import synthesize as tsyn
 from mixgantts_tpu_torch.cli import train as ttrain
 from mixgantts_tpu_torch.convert import discriminator_state_dict, generator_state_dict
+from mixgantts_tpu_torch.data.dataset import AcousticDataset
 from mixgantts_tpu_torch.train import create_train_state
 from mixgantts_tpu_torch.utils import profiling
 from mixgantts_tpu_torch.utils.logging import LOSS_KEYS
@@ -360,3 +363,43 @@ def test_multi_rank_run_follows_one_process(workspace, tmp_path, plain_naive, fl
     with pytest.MonkeyPatch.context() as mp:
         run_port(mp, resume, resumed, vocoder=vocoders()[1])
     close_logs(read_log(resumed), plain_naive[1].splitlines()[-1] + "\n")
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_resume_loads_no_array_of_the_replayed_batches(workspace, plain_naive, monkeypatch, k):
+    """`plain_naive`'s step-2 checkpoint resumed with steps_per_call k: the
+    stream's first three batches (the untrained first one and those of
+    steps 1 and 2) come from the `.npy` headers alone, so every array the
+    run loads up to its last step belongs to a batch it trains on, each
+    loaded before its step; the step-4 line is the uninterrupted run's.
+    The stream is read without the prefetch thread here, so that loads and
+    steps fall in one order."""
+    events = []
+    load = AcousticDataset._load
+    monkeypatch.setattr(AcousticDataset, "_load",
+                        staticmethod(lambda path: events.append("load") or load(path)))
+    chunk = ttrain.chunk_train_step
+
+    def counted_chunk(step_fn):
+        chunk_fn = chunk(step_fn)
+
+        def run(state, batches):
+            events.append(len(batches["mel_lens"]))   # a segment of this many steps
+            return chunk_fn(state, batches)
+        return run
+
+    monkeypatch.setattr(ttrain, "chunk_train_step", counted_chunk)
+    monkeypatch.setattr(ttrain, "prefetch", lambda stream: stream)
+    args = cli_args("naive", f"resumed_k{k}", restore_step=2, steps_per_call=k)
+    configs = panel_configs(tcommon.load_configs(args))
+    shutil.copytree(plain_naive[0][2]["path"]["ckpt_path"], configs[2]["path"]["ckpt_path"])
+    run_port(monkeypatch, args, configs, vocoder=vocoders()[1])
+
+    per_batch = 6 * configs[2]["optimizer"]["batch_size"]   # six .npy files an utterance
+    segments = [i for i, e in enumerate(events) if e != "load"]
+    assert sum(events[i] for i in segments) == 2
+    start = 0
+    for i in segments:   # each segment's batches loaded just before it
+        assert events[start:i] == ["load"] * per_batch * events[i], events
+        start = i + 1
+    close_logs(read_log(configs), plain_naive[1].splitlines()[-1] + "\n")

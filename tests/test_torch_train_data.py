@@ -12,7 +12,12 @@ Against the JAX package:
 - the train CLI's `schedule_segments` yields the same events as
   `mixgantts_tpu.cli.train.schedule_segments` on seeded random streams
   (plain and strict order, k in {1, 2, 3, 8}, several period sets,
-  streams with and without epoch markers).
+  streams with and without epoch markers);
+- a resume's replay (`replayed_batches`, `AcousticDataset.batches(
+  replayed=)`): the batches it skips come from the `.npy` headers (their
+  shapes and types, zero mels), and it trains on the uninterrupted run's
+  batches, every field equal, where the scheduler takes batches out of
+  arrival order too.
 
 Steps and checkpoints at test_cli.py's tiny configs (the port's own random
 init), dropout on (it draws from torch's default generator, which the
@@ -210,6 +215,44 @@ def test_schedule_segments_matches_jax(k, strict):
     assert n_cases == 36
 
 
+
+
+def resumed_run(stream, k, strict, restore_step, total_step, periods):
+    """The train CLI's loop over `stream` (its first batch consumed
+    untrained) resumed at `restore_step`: (the batches it skips, the
+    batches it trains on)."""
+    next(b for b in stream if b is not None)
+    done, skipped, trained = 0, [], []
+    for event, payload in ttrain.schedule_segments(stream, k, 1, total_step, periods,
+                                                   strict=strict):
+        if event == "run":
+            done += len(payload)
+            (skipped if done <= restore_step else trained).extend(payload)
+    return skipped, trained
+
+
+@pytest.mark.parametrize("k,strict", [(1, False), (3, False), (3, True)])
+def test_resume_replays_headers_and_trains_on_the_loaded_batches(corpus, k, strict):
+    ds = AcousticDataset("train.txt", "naive", *configs(corpus, False), sort=True,
+                         drop_last=True)
+    periods, total = [3, 1000, 1000, 6], 24
+    reordered = False
+    for restore in (6, 12, 18):
+        replayed = ttrain.replayed_batches(ds, 0, k, strict, 0, restore, total, periods)
+        assert len(replayed) == restore + 1 and 0 in replayed
+        reordered |= replayed != set(range(restore + 1))
+        runs = [resumed_run(ds.batches(group_size=ttrain.GROUP_SIZE, seed=0, replayed=r),
+                            k, strict, restore, total, periods) for r in ((), replayed)]
+        (want_skipped, want), (got_skipped, got) = runs
+        assert len(got) == total - restore
+        assert_streams_equal(got, want)
+        assert len(got_skipped) == len(want_skipped) == restore
+        for g, w in zip(got_skipped, want_skipped):
+            assert ttrain.shape_key(g) == ttrain.shape_key(w)
+            assert all(g[key].dtype == v.dtype for key, v in w.items() if key not in (
+                "ids", "raw_texts"))
+            assert not g["mels"].any() and w["mels"].any()
+    assert reordered == (k > 1 and not strict)
 
 
 def batches():
