@@ -180,13 +180,32 @@ phase 9's weights; every serving kernel must launch;
    kernel launches counted, against the CPU at phase 5's bars with the
    same injected noise; (c) `tests/bench_torch_serving.py` at B=1 (call)
    and B=8 (stream), `tests/bench_torch_step_parts.py` and
-   `tests/bench_torch_denoiser_grad.py`, once each at 5 calls a round.
+   `tests/bench_torch_denoiser_grad.py`, once each at 5 calls a round;
+18. the denoiser kernel below C = 256 and the long-horizon drive's stages:
+   (a) the kernel against its plain version (the bf16 tolerance) at every
+   C in NARROW_WIDTHS (run at 64, 128 or 256 with zero channels above C),
+   B in {1, 4}, T = 300, 20 layers, with and without a speaker term, its
+   launch count rising at each call; its time at C = 16 and C = 64 (B=1,
+   T=1000, 20 layers) beside the bound of each; (b) `tests/
+   train_horizon_torch.py`'s stages at HORIZON_STEPS in a temporary
+   workspace: its 24-utterance corpus through the preprocess CLI, aux 50
+   steps, shallow 25 from the aux checkpoint and synthesis, each CLI in a
+   subprocess on the card: every logged metric finite, a wav written (the
+   drive's trend bars need its 1500 + 1000 steps and are not held here);
+   (c) the synthesis CLI in process on that checkpoint (residual_channels
+   16): the denoiser kernel and the MRF kernels must launch (counts set to
+   0 just before, read just after); then the restored model and the CLI's
+   random HiFi-GAN V1 on the same text against the CPU at phase 5's bars
+   with injected noise, each MRF kernel against its plain version at the
+   stages of that request's frame bucket, and the denoiser's stack there
+   against its plain version, timed.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
-phase 4 plus phase 16's replicas and train CLI ranks and phase 17's
-request, or phase 7 for `mrf_stack_streamed`; max error in phase 3 or 7;
-and the time, plain time and bound of one B=1 request at frame bucket
-1000); the last line is {"ok": true, "device": {...}}.
+phase 4 plus phase 16's replicas and train CLI ranks and phase 17's and
+phase 18 (c)'s requests, or phase 7 for `mrf_stack_streamed`, or phase
+18 (c) for the denoiser at C = 16; max error in phase 3, 7 or 18; and the
+time, plain time and bound of one B=1 request at frame bucket 1000, or of
+phase 18 (c)'s stack); the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -212,6 +231,8 @@ DEVICE = "cuda"             # the card every phase runs on
 # kernel launches of one request of the main path's shapes (B, frame bucket):
 # (denoiser, mrf_stack, mrf_stack_folded), as phase 4's requests launch them
 REQUEST_LAUNCHES = {(1, 1000): (1, 18, 18), (4, 512): (2, 18, 18)}
+NARROW_WIDTHS = (16, 32, 48, 64, 80, 192, 256)   # phase 18 (a): the denoiser kernel's widths
+HORIZON_STEPS = (50, 25)    # phase 18 (b): aux steps, then shallow steps from the aux checkpoint
 
 
 def log(*args):
@@ -372,7 +393,7 @@ def build_kernels():
         if name == "denoiser_stack":
             from mixgantts_tpu_torch.ops import denoiser_stack as den
             smem.argtypes = [ctypes.c_int]
-            for c in (128, 256):
+            for c in den.KERNEL_WIDTHS:
                 ctas, cluster, resident = den.launch_shape(1, 1000, c)
                 log(f"  residual_stack_mma<{c}>: {smem(c)} B of shared memory per CTA, "
                     f"clusters of {cluster} CTAs, {resident} clusters resident at once; "
@@ -2699,6 +2720,180 @@ def bench_phase(torch, pre, cfg, model, vocoder, records):
     log(f"[bench] phase 17 took {time.perf_counter() - t_start:.1f} s")
 
 
+def random_stack(torch, L, C, Hc, g, speaker_dim=0):
+    """Stacked denoiser weights [L, ...] at width C from generator g,
+    scaled like an initialised layer's."""
+    def t(*shape, scale):
+        return torch.randn(*shape, device=g.device, generator=g) * scale
+    st = {"conv_w": t(L, 3, C, 2 * C, scale=(3 * C) ** -0.5), "conv_b": t(L, 2 * C, scale=0.1),
+          "cond_w": t(L, Hc, C, scale=Hc ** -0.5), "cond_b": t(L, C, scale=0.1),
+          "step_w": t(L, C, C, scale=C ** -0.5),
+          "out_w": t(L, C, 2 * C, scale=C ** -0.5), "out_b": t(L, 2 * C, scale=0.1)}
+    if speaker_dim:
+        st["spk_w"] = t(L, speaker_dim, C, scale=speaker_dim ** -0.5)
+    return st
+
+
+def time_denoiser(torch, label, B, T, stacked):
+    """The kernel's and the plain version's time (CUDA events) on random
+    inputs, and the bound of the stack's own work at width C (bf16 peak);
+    returns (kernel ms, plain ms, bound ms, bound by)."""
+    from mixgantts_tpu_torch.ops import denoiser_stack as den
+    L, _, C, _ = stacked["conv_w"].shape
+    Hc = stacked["cond_w"].shape[1]
+    g = torch.Generator("cuda").manual_seed(T)
+    x, cond, step = (torch.randn(*shape, device="cuda", generator=g)
+                     for shape in ((B, T, C), (B, T, Hc), (B, C)))
+    with torch.no_grad():
+        warm_up(lambda: den.fused_residual_stack(x, cond, step, stacked))
+        ms1 = time_ms(lambda: den.fused_residual_stack(x, cond, step, stacked), 20)
+        plain = time_ms(lambda: den.fused_residual_stack_plain(x, cond, step, stacked), 20)
+        ms2 = time_ms(lambda: den.fused_residual_stack(x, cond, step, stacked), 20)
+    b, by = bound_ms(*denoiser_work(B, T, C, Hc, L, weight_bytes=2), PEAK_BF16_FLOPS)
+    ctas, cluster, _ = den.launch_shape(B, T, C)
+    log(f"  {label} B={B} T={T} C={C} (run at {den.kernel_width(C)}) L={L} Hc={Hc}: kernel "
+        f"{ms1:.4f}/{ms2:.4f} ms, plain (bf16) {plain:.4f} ms, bound {b:.5f} ms at bf16 "
+        f"({by}) for the C={C} stack; {ctas} CTAs in clusters of {cluster}")
+    return (ms1 + ms2) / 2, plain, b, by
+
+
+def narrow_widths(torch, records):
+    """Phase 18 (a): the denoiser kernel at every C in NARROW_WIDTHS."""
+    from mixgantts_tpu_torch.ops import denoiser_stack as den
+    rec = records["fused_residual_stack_c16"]
+    g = torch.Generator("cuda").manual_seed(18)
+    L, Hc, H, T = 20, 64, 64, 300
+    for C in NARROW_WIDTHS:
+        kw = den.denoiser_kernel_weights(random_stack(torch, L, C, Hc, g, speaker_dim=H))
+        for B in (1, 4):
+            x = torch.randn(B, T, C, device="cuda", generator=g)
+            cond = torch.randn(B, T, Hc, device="cuda", generator=g)
+            step = torch.randn(B, C, device="cuda", generator=g)
+            emb = torch.randn(B, H, device="cuda", generator=g)
+            for spk in (None, den.speaker_projections(emb, kw)):
+                n0 = den.fused_residual_stack.launches
+                with torch.no_grad():
+                    got = den.fused_residual_stack(x, cond, step, kw, spk)
+                    sync(torch)
+                    if den.fused_residual_stack.launches == n0:
+                        raise AssertionError(f"C={C} B={B}: the denoiser kernel did not launch")
+                    want = den.fused_residual_stack_plain(x, cond, step, kw, spk)
+                for part, a, b in zip(("x", "skip"), got, want):
+                    rec["err"] = max(rec["err"], check_close(
+                        f"fused_residual_stack C={C} (at {den.kernel_width(C)}) B={B} T={T} "
+                        f"{'speaker ' if spk is not None else ''}{part} (bf16)", a, b, BF16_TOL))
+    for C in (16, 64):
+        time_denoiser(torch, "fused_residual_stack", 1, 1000,
+                      den.denoiser_kernel_weights(random_stack(torch, L, C, 256, g)))
+
+
+def horizon_phase(torch, records):
+    """Phase 18: (a) `narrow_widths`; (b) the long-horizon drive's stages
+    at HORIZON_STEPS; (c) the synthesis CLI in process on its checkpoint,
+    launches counted; then the restored model and the CLI's vocoder on the
+    same text against the CPU at phase 5's bars with injected noise
+    (`check_against_cpu`), each MRF kernel against its plain version at
+    the stages this request gives it, and the denoiser's stack against its
+    plain version, timed (the `fused_residual_stack_c16` record)."""
+    import types
+
+    import numpy as np
+    from mixgantts_tpu_torch.cli.common import build_model, restore_generator
+    from mixgantts_tpu_torch.cli.synthesize import build_single_batch, cli
+    from mixgantts_tpu_torch.config import get_configs_of
+    from mixgantts_tpu_torch.models.vocoder import get_vocoder
+    from mixgantts_tpu_torch.ops import denoiser_stack as den
+    from mixgantts_tpu_torch.ops import mrf
+    from mixgantts_tpu_torch.pipeline import TTSPipeline
+    from mixgantts_tpu_torch.utils.tools import bucket_length
+    t_start = time.perf_counter()
+    narrow_widths(torch, records)
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import train_horizon_torch as horizon
+    aux_steps, shallow_steps = HORIZON_STEPS
+    final = aux_steps + shallow_steps
+    rec = records["fused_residual_stack_c16"]
+    counters = kernel_counters()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        drive = horizon.Drive(os.path.join(tmp, "ws"))
+        aux, sh, rdir = horizon.aux_shallow(drive, aux_steps, shallow_steps)
+        pcm = horizon.read_wav(rdir)
+        log(f"[horizon] (b) aux {aux_steps} -> shallow {shallow_steps} -> synthesize: "
+            f"{len(aux)} + {len(sh)} log rows, wall by CLI run "
+            f"{ {k: round(v, 1) for k, v in drive.walls.items()} } s; wav {len(pcm)} samples, "
+            f"std {np.std(pcm):.4f}; last aux row {aux[-1]}, last shallow row {sh[-1]}")
+        if not horizon.all_finite(aux + sh) or len(pcm) == 0 or not np.isfinite(pcm).all():
+            raise AssertionError("the horizon's stages logged a non-finite metric or wrote "
+                                 "no wav")
+        os.chdir(drive.ws)
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            written = cli(["--restore_step", str(final), "--model", "shallow", "--mode",
+                           "single", "--text", "hello world", "--dataset", "TestCorpus"])
+            sync(torch)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            pre, cfg, tc = get_configs_of("TestCorpus")
+            batch = build_single_batch(types.SimpleNamespace(text="hello world", speaker_id=0),
+                                       pre, cfg)
+        finally:
+            os.chdir(cwd)
+        models = {}
+        for device in ("cuda", "cpu"):   # the CLI's model and vocoder, and their CPU copies
+            m, _ = build_model("shallow", pre, cfg, device=device)
+            restore_generator(m, f"{tc['path']['ckpt_path']}_shallow", final)
+            models[device] = m, get_vocoder(
+                cfg, num_mels=pre["preprocessing"]["mel"]["n_mel_channels"], device=device)
+        (model, vocoder), (cpu_model, cpu_voc) = models["cuda"], models["cpu"]
+        cpu_voc.generator.load_state_dict(vocoder.generator.state_dict())
+    log(f"[horizon] (c) the synthesis CLI in process at residual_channels "
+        f"{cfg['denoiser']['residual_channels']}: mel length {written[0][1]}, launches "
+        f"{launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched by the horizon's synthesis")
+        records[name if name != "fused_residual_stack" else rec["name"]]["launches"] += n
+
+    # the request the CLI served, at the frame budget `TTSPipeline.submit` gives its text
+    T = bucket_length(min(cfg["max_seq_len"], max(64, batch["texts"].shape[1] * 16)),
+                      cfg["tpu"]["length_buckets"])
+    M = model.n_mels
+    r = np.random.RandomState(18)
+    noise = {"start_noise": r.randn(1, T, M).astype(np.float32),
+             "step_noises": r.randn(model.diffusion.num_timesteps, 1, T, M).astype(np.float32)}
+    outs = on_gpu_and_cpu(torch, model, vocoder, cpu_model, cpu_voc, lambda m, v: TTSPipeline(
+        m, v, pre, cfg, mel_dtype=torch.float32)(batch, noise_override=noise))
+    check_against_cpu("horizon (c)", T, M, *outs)
+    g = torch.Generator("cuda").manual_seed(19)
+    gen = vocoder.generator
+    dils = gen.resblock_dilation_sizes[0]
+    with torch.no_grad():
+        for stage, (C, Tw, call) in enumerate(mrf_calls(gen, gen.resblock_kernel_sizes, dils,
+                                                        T_mel=T)):
+            x = torch.randn(1, Tw, C, device="cuda", generator=g)
+            for name, st, ks, run in call:
+                got = run(x)
+                want = mrf.mrf_stack_plain(x, st, ks, dils)
+                sync(torch)
+                records[name]["err"] = max(records[name]["err"], check_close(
+                    f"{name}, the horizon's vocoder at frame bucket {T}: stage {stage} C={C} "
+                    f"T={Tw} k={ks} (bf16)", got, want, BF16_TOL))
+    stacked = model.diffusion.denoise_fn.stacked()
+    C, Hc = stacked["conv_w"].shape[-2], stacked["cond_w"].shape[1]
+    x, cond, step = (torch.randn(*shape, device="cuda", generator=g)
+                     for shape in ((1, T, C), (1, T, Hc), (1, C)))
+    with torch.no_grad():
+        for part, a, b in zip(("x", "skip"), den.fused_residual_stack(x, cond, step, stacked),
+                              den.fused_residual_stack_plain(x, cond, step, stacked)):
+            rec["err"] = max(rec["err"], check_close(
+                f"fused_residual_stack, the horizon's denoiser at B=1 T={T} {part} (bf16)",
+                a, b, BF16_TOL))
+    ms, plain, b, by = time_denoiser(torch, "the horizon's denoiser", 1, T, stacked)
+    rec.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    log(f"[horizon] phase 18 took {time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     if sys.argv[1:2] == ["--train-cli-rank"]:   # a torchrun rank of phase 16 (c)
         train_cli_rank(sys.argv[2], sys.argv[3:])
@@ -2742,7 +2937,9 @@ def main():
                "mrf_stack_folded": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
                                     "mixgantts_tpu/ops/pallas_vocoder.py:303"),
                "mrf_stack_streamed": ("mixgantts_tpu_torch/csrc/mrf_stack_streamed.cu",
-                                      "mixgantts_tpu/ops/pallas_vocoder.py:461")}
+                                      "mixgantts_tpu/ops/pallas_vocoder.py:461"),
+               "fused_residual_stack_c16": ("mixgantts_tpu_torch/csrc/denoiser_stack.cu",
+                                            "mixgantts_tpu/ops/pallas.py:122")}
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "err": 0.0}
                for name, (src, rep) in sources.items()}
@@ -2790,6 +2987,8 @@ def main():
     multi_device_phase(torch, pre, cfg, model, vocoder, records)  # phase 16
     log(f"[bench] the port's benchmark and measuring tools; {gpu}")
     bench_phase(torch, pre, cfg, model, vocoder, records)         # phase 17
+    log("[horizon] the denoiser kernel below C=256, and the long-horizon drive's stages")
+    horizon_phase(torch, records)                                 # phase 18
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

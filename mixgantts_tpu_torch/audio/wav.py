@@ -6,7 +6,6 @@ from math import gcd
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 
 def load_wav(path, sr=22050):
@@ -23,6 +22,7 @@ def load_wav(path, sr=22050):
     if wav.ndim > 1:
         wav = wav.mean(axis=1)
     if sr is not None and file_sr != sr:
+        from scipy.signal import resample_poly   # slow to import: only where a file needs it
         g = gcd(int(sr), int(file_sr))
         wav = resample_poly(wav, sr // g, file_sr // g).astype(np.float32)
     return wav, (sr or file_sr)

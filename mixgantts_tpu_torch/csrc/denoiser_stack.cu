@@ -33,6 +33,9 @@
 //   batch row; CTA `rank` owns gate channels [32 rank, 32 rank + 32) with
 //   the matching filter channels, and the same 32 channels of x' and of
 //   skip.  At B = 1, T = 1000, C = 256 that is 16 clusters of 8: 128 CTAs.
+//   C is 64, 128 or 256 (clusters of 2, 4 or 8); ops/denoiser_stack.py runs
+//   a narrower stack at the next of them, with zero channels above its own
+//   (a zero gate channel gives sigmoid(0) * tanh(0) = 0, so they stay zero).
 //   A CTA takes 107,648 bytes of shared memory, so two fit an SM and the
 //   card holds 30 clusters at once (with a CTA a whole SM it holds 15).
 // - One launch runs all L layers while a batch row's clusters fit the card
@@ -100,7 +103,7 @@ constexpr int kInFlight = 2;             // wgmma groups (chunks) in flight
 
 template <int C>
 struct Layout {
-  static_assert(C == 128 || C == 256, "C must be 128 or 256");
+  static_assert(C == 64 || C == 128 || C == 256, "C must be 64, 128 or 256");
   static constexpr int kRanks = C / kGroup;        // CTAs per cluster
   static constexpr int kConvSteps = 3 * C / 16;    // K = 3C
   static constexpr int kOutSteps = C / 16;         // K = C
@@ -594,6 +597,9 @@ int denoiser_stack_bf16(const float* x, const float* condp, const float* step_pr
                         int C, int L, void* stream, int* launches) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
+    case 64:
+      return run_stack<64>(x, condp, step_proj, conv_w, conv_b, out_w, out_b, x_out, skip,
+                           scratch, halo, B, T, L, s, launches);
     case 128:
       return run_stack<128>(x, condp, step_proj, conv_w, conv_b, out_w, out_b, x_out, skip,
                             scratch, halo, B, T, L, s, launches);
@@ -608,6 +614,7 @@ int denoiser_stack_bf16(const float* x, const float* condp, const float* step_pr
 // Dynamic shared memory a CTA of the C-channel kernel uses, or -1.
 int denoiser_stack_smem_bytes(int C) {
   switch (C) {
+    case 64: return Layout<64>::kBytes;
     case 128: return Layout<128>::kBytes;
     case 256: return Layout<256>::kBytes;
     default: return -1;
@@ -617,6 +624,7 @@ int denoiser_stack_smem_bytes(int C) {
 // CTAs per cluster (one cluster per 64-frame tile) at width C, or -1.
 int denoiser_stack_cluster_size(int C) {
   switch (C) {
+    case 64: return Layout<64>::kRanks;
     case 128: return Layout<128>::kRanks;
     case 256: return Layout<256>::kRanks;
     default: return -1;
@@ -627,6 +635,7 @@ int denoiser_stack_cluster_size(int C) {
 // *out; returns the CUDA error, or 0.
 int denoiser_stack_max_active_clusters(int C, int* out) {
   switch (C) {
+    case 64: return resident_clusters<64>(out);
     case 128: return resident_clusters<128>(out);
     case 256: return resident_clusters<256>(out);
     default: return (int)cudaErrorInvalidValue;

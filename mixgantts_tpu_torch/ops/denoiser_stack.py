@@ -28,6 +28,17 @@ Activations (x, cond, step_emb) may be fp32 or bf16, as the TPU kernel
 reads them: bf16 ones are upcast exactly, the hoisted projections are
 rounded to bf16 (as the JAX package's bf16 products are), the layers keep
 fp32 state, and the outputs come back in x's type.
+
+Widths: the TPU kernel takes any C (its blocks span the whole channel
+axis).  The CUDA kernel is built for C in KERNEL_WIDTHS (a cluster of C / 32
+CTAs, each owning 32 channels, with whole 8 KB weight chunks), so a stack
+of any C <= 256 runs there at the next of them, Cp, with zero channels
+above C (`pad_denoiser_width`, `pad_channels`), and its outputs are cut
+back to C.  The zero channels are exact: a zero gate channel gives
+sigmoid(0) * tanh(0) = 0, and zero weight rows add nothing to the fp32
+sums.  The weights are padded once, in `denoiser_kernel_weights`; x, the
+step projections and the conditioner projections come at Cp per call.
+Wider than 256 would take clusters of more than 8 CTAs, and raises.
 """
 
 import ctypes
@@ -40,6 +51,7 @@ from . import cuda_build
 from .mrf import no_tf32, upcast
 
 GROUP = 32   # gate channels per CTA of the CUDA kernel (`kGroup` in the source)
+KERNEL_WIDTHS = (64, 128, 256)   # the C the CUDA kernel is built for (`Layout<C>`)
 
 
 def stack_denoiser_params(denoiser):
@@ -84,10 +96,11 @@ def _step_projections(step_emb, stacked, dtype=torch.float32):
                   dtype).contiguous()
 
 
-def _projections(cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
+def hoisted_projections(cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
     """Step projections [L, B, C] and conditioner projections [L, B, T, C]
     of every layer (the products the TPU kernel's caller hoists too), the
-    speaker term added to the latter, both rounded to `dtype`."""
+    speaker term added to the latter, both rounded to `dtype`.  (Each has
+    the width of its own weights: `pad_denoiser_width` leaves step_w at C.)"""
     condp = torch.einsum("bth,lhc->lbtc", cond, stacked["cond_w"].float())
     condp = condp + stacked["cond_b"].float()[:, None, None, :]
     if spk_proj is not None:
@@ -102,10 +115,17 @@ def fused_residual_stack_plain(x, cond, step_emb, stacked, spk_proj=None):
     type (bf16: `_layers_bf16`)."""
     dtype = x.dtype
     x, cond, step_emb = upcast(x), upcast(cond), upcast(step_emb)
-    step_proj, condp = _projections(cond, step_emb, stacked, spk_proj, dtype)
-    layers = _layers_bf16 if stacked["conv_w"].dtype == torch.bfloat16 else _layers
-    x, skip = layers(x, step_proj, condp, stacked)
+    step_proj, condp = hoisted_projections(cond, step_emb, stacked, spk_proj, dtype)
+    x, skip = residual_layers_plain(x, step_proj, condp, stacked)
     return x.to(dtype), skip.to(dtype)
+
+
+def residual_layers_plain(x, step_proj, condp, stacked):
+    """The L layers on the hoisted projections, what the CUDA kernel
+    runs: fp32 x [B, T, C], step_proj [L, B, C] and condp [L, B, T, C] ->
+    (x_final, skip_sum), in the arithmetic of conv_w's type."""
+    layers = _layers_bf16 if stacked["conv_w"].dtype == torch.bfloat16 else _layers
+    return layers(x, step_proj, condp, stacked)
 
 
 def _layers(x, step_proj, condp, stacked):
@@ -149,6 +169,53 @@ def _layers_bf16(x, step_proj, condp, stacked):
     return x, skip
 
 
+def kernel_width(C):
+    """The width Cp at which the CUDA kernel runs a C-channel stack: the
+    least of KERNEL_WIDTHS that is >= C.  Raises above the widest."""
+    for Cp in KERNEL_WIDTHS:
+        if C <= Cp:
+            return Cp
+    raise ValueError(f"denoiser_stack kernel: C={C}; it takes C <= {KERNEL_WIDTHS[-1]} "
+                     f"(a wider stack would need clusters of more than "
+                     f"{KERNEL_WIDTHS[-1] // GROUP} CTAs)")
+
+
+def pad_channels(t, Cp):
+    """t [..., C] with zero channels appended up to [..., Cp] (t itself
+    where C = Cp)."""
+    return t if t.shape[-1] == Cp else F.pad(t, (0, Cp - t.shape[-1]))
+
+
+def _pad_halves(w, C, Cp):
+    """[..., 2C] holding two halves of C -> [..., 2Cp], each half padded
+    on its own ([:C] -> [:Cp], [C:] -> [Cp:Cp + C])."""
+    return torch.cat([pad_channels(w[..., :C], Cp), pad_channels(w[..., C:], Cp)], dim=-1)
+
+
+def pad_denoiser_width(stacked, Cp):
+    """Stacked weights of width C (`stack_denoiser_params`' layout) -> the
+    weights the CUDA kernel reads at width Cp >= C, with zero channels:
+    conv_w [L, 3, Cp, 2Cp], conv_b [L, 2Cp], out_w [L, Cp, 2Cp] and out_b
+    [L, 2Cp] with each half (gate | filter, residual | skip) padded on its
+    own, cond_w [L, Hc, Cp] and cond_b [L, Cp].  step_w and spk_w stay at
+    C: `_launch` projects at C and pads the projections (`pad_channels`).
+    The layers at Cp (`residual_layers_plain`) of x, the step projections
+    and the speaker term padded so, equal on their first C channels the
+    layers at C: the zero channels stay zero."""
+    C = stacked["conv_w"].shape[-2]
+
+    def rows(w):   # the input channels, the axis before the last
+        return F.pad(w, (0, 0, 0, Cp - C))
+
+    return dict(stacked,
+                conv_w=_pad_halves(rows(stacked["conv_w"]), C, Cp),
+                conv_b=_pad_halves(stacked["conv_b"], C, Cp),
+                out_w=_pad_halves(rows(stacked["out_w"]), C, Cp),
+                out_b=_pad_halves(stacked["out_b"], C, Cp),
+                cond_w=pad_channels(stacked["cond_w"], Cp),
+                cond_b=pad_channels(stacked["cond_b"], Cp))
+
+
 def _pack(w):
     """[L, K, 2C] -> bf16 [L, C / GROUP, K * 2 GROUP], in the order the CUDA
     kernel's CTA `rank` reads its B operand: columns [rank GROUP, +GROUP)
@@ -164,30 +231,36 @@ def _pack(w):
 
 
 def denoiser_kernel_weights(stacked):
-    """Stacked weights as the CUDA kernel takes them: conv_w/out_w in bf16
-    (the TPU kernel's operand type, `pallas.py:133-138`), conv_b/out_b in
-    fp32, the conditioner projection's weights side by side, `cond_w_cat`
-    [Hc, L * C] and `cond_b_cat` [L * C] (one product gives condp in the
-    [B, T, L, C] layout the kernel reads), `step_w` (and a multi-speaker
-    stack's `spk_w`) in fp32, and, where C is a multiple of
-    GROUP, the bf16 copies `conv_w_mma` [L, C / 32, 3C * 64] (K = tap * C +
-    input channel) and `out_w_mma` [L, C / 32, C * 64] in the kernel's
-    order (`_pack`).  `models.denoiser.Denoiser.stacked` makes them once;
+    """Stacked weights as the CUDA kernel takes them.  The stack itself,
+    for the plain version: conv_w/out_w in bf16 (the TPU kernel's operand
+    type, `pallas.py:133-138`), conv_b/out_b, cond_w/cond_b, step_w (and a
+    multi-speaker stack's spk_w) in fp32.  And, where C <= 256, the
+    kernel's own tensors at its width Cp (`kernel_width`; zero channels
+    above C, `pad_denoiser_width`): the bf16 copies `conv_w_mma` [L, Cp / 32,
+    3Cp * 64] (K = tap * Cp + input channel) and `out_w_mma` [L, Cp / 32,
+    Cp * 64] in the kernel's order (`_pack`), `conv_b_mma`/`out_b_mma`
+    [L, 2Cp] fp32, and the conditioner projection's weights side by side,
+    `cond_w_cat` [Hc, L * Cp] and `cond_b_cat` [L * Cp] (one product gives
+    condp in the [B, T, L, Cp] layout the kernel reads).
+    `models.denoiser.Denoiser.stacked` makes them once;
     `fused_residual_stack` makes them per call for weights that lack them."""
     conv_w = stacked["conv_w"].to(torch.bfloat16).contiguous()
     out_w = stacked["out_w"].to(torch.bfloat16).contiguous()
     L, _, C, _ = conv_w.shape
-    Hc = stacked["cond_w"].shape[1]
-    out = dict(stacked, conv_w=conv_w, out_w=out_w,
-               conv_b=stacked["conv_b"].float().contiguous(),
-               out_b=stacked["out_b"].float().contiguous(),
-               cond_w_cat=stacked["cond_w"].permute(1, 0, 2).reshape(Hc, L * C).float().contiguous(),
-               cond_b_cat=stacked["cond_b"].reshape(L * C).float().contiguous())
-    for key in ("step_w", "spk_w"):
+    out = dict(stacked, conv_w=conv_w, out_w=out_w)
+    for key in ("conv_b", "out_b", "cond_w", "cond_b", "step_w", "spk_w"):
         if key in stacked:
             out[key] = stacked[key].float().contiguous()
-    if C % GROUP == 0:
-        out.update(conv_w_mma=_pack(conv_w.reshape(L, 3 * C, 2 * C)), out_w_mma=_pack(out_w))
+    if C <= KERNEL_WIDTHS[-1]:
+        Cp = kernel_width(C)
+        padded = pad_denoiser_width(out, Cp)
+        Hc = padded["cond_w"].shape[1]
+        out.update(
+            conv_w_mma=_pack(padded["conv_w"].reshape(L, 3 * Cp, 2 * Cp)),
+            out_w_mma=_pack(padded["out_w"]),
+            conv_b_mma=padded["conv_b"].contiguous(), out_b_mma=padded["out_b"].contiguous(),
+            cond_w_cat=padded["cond_w"].permute(1, 0, 2).reshape(Hc, L * Cp).contiguous(),
+            cond_b_cat=padded["cond_b"].reshape(L * Cp).contiguous())
     return out
 
 
@@ -207,8 +280,7 @@ def _check(x, cond, step_emb, stacked, spk_proj=None):
     L = stacked["conv_w"].shape[0]
     want = {"conv_w": (L, 3, C, 2 * C), "conv_b": (L, 2 * C),
             "out_w": (L, C, 2 * C), "out_b": (L, 2 * C)}
-    if C not in (128, 256):
-        raise ValueError(f"denoiser_stack kernel: C={C}; built for 128 and 256")
+    kernel_width(C)   # raises above the widest the kernel takes
     tensors = {"x": x, "cond": cond, "step_emb": step_emb,
                **{k: stacked[k] for k in want}}
     if spk_proj is not None:
@@ -232,19 +304,23 @@ def _check(x, cond, step_emb, stacked, spk_proj=None):
 
 
 def _launch(x, cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
-    """Run csrc/denoiser_stack.cu on CUDA tensors with bf16 operands; fp32
-    weights are cast (`denoiser_kernel_weights`) for this call, and the
+    """Run csrc/denoiser_stack.cu on CUDA tensors with bf16 operands, at
+    the kernel's width Cp (`kernel_width`: x, the step and conditioner
+    projections with zero channels above C, the outputs cut back to C);
+    fp32 weights are cast (`denoiser_kernel_weights`) for this call, and the
     hoisted projections are rounded to `dtype`, the activations' type.
     Returns (x_final, skip_sum, launches)."""
     _check(x, cond, step_emb, stacked, spk_proj)
     B, T, C = x.shape
+    Cp = kernel_width(C)
     L = stacked["conv_w"].shape[0]
     if "conv_w_mma" not in stacked:
         stacked = denoiser_kernel_weights(stacked)
     Hc = cond.shape[-1]
-    packed = {"conv_w_mma": (torch.bfloat16, (L, C // GROUP, 3 * C * 2 * GROUP)),
-              "out_w_mma": (torch.bfloat16, (L, C // GROUP, C * 2 * GROUP)),
-              "cond_w_cat": (torch.float32, (Hc, L * C)), "cond_b_cat": (torch.float32, (L * C,))}
+    packed = {"conv_w_mma": (torch.bfloat16, (L, Cp // GROUP, 3 * Cp * 2 * GROUP)),
+              "out_w_mma": (torch.bfloat16, (L, Cp // GROUP, Cp * 2 * GROUP)),
+              "conv_b_mma": (torch.float32, (L, 2 * Cp)), "out_b_mma": (torch.float32, (L, 2 * Cp)),
+              "cond_w_cat": (torch.float32, (Hc, L * Cp)), "cond_b_cat": (torch.float32, (L * Cp,))}
     for key, (want, shape) in packed.items():
         t = stacked.get(key)
         if (t is None or tuple(t.shape) != shape or t.dtype != want or t.device != x.device
@@ -253,35 +329,38 @@ def _launch(x, cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
                              f"{shape} on {x.device}; make it with denoiser_kernel_weights")
     lib = _library()
     with torch.cuda.device(x.device):
-        # the products `_projections` computes, condp as [B * T, L * C] by
-        # one matrix product with its bias (no layout copy); the speaker
-        # term joins the bias, one row of it per batch row
-        step_proj = _step_projections(step_emb, stacked, dtype)
+        # the products `hoisted_projections` computes, at Cp; condp as [B * T,
+        # L * Cp] by one matrix product with its bias (no layout copy); the
+        # speaker term joins the bias, one row of it per batch row
+        step_proj = pad_channels(_step_projections(step_emb, stacked, dtype), Cp).contiguous()
         if spk_proj is None:
             condp = torch.addmm(stacked["cond_b_cat"], cond.reshape(B * T, Hc),
                                 stacked["cond_w_cat"])
         else:
-            bias = stacked["cond_b_cat"] + spk_proj.transpose(0, 1).reshape(B, 1, L * C)
-            condp = torch.baddbmm(bias, cond, stacked["cond_w_cat"].expand(B, Hc, L * C))
+            bias = stacked["cond_b_cat"] + pad_channels(spk_proj, Cp).transpose(0, 1).reshape(
+                B, 1, L * Cp)
+            condp = torch.baddbmm(bias, cond, stacked["cond_w_cat"].expand(B, Hc, L * Cp))
         condp = _round(condp, dtype)
-        x_out = torch.empty_like(x)
-        skip = torch.empty_like(x)
-        scratch = torch.empty_like(x)
-        halo = torch.empty(B * -(-T // 64) * 4 * C, dtype=torch.int64, device=x.device)
+        xp = pad_channels(x, Cp).contiguous()
+        x_out = torch.empty_like(xp)
+        skip = torch.empty_like(xp)
+        scratch = torch.empty_like(xp)
+        halo = torch.empty(B * -(-T // 64) * 4 * Cp, dtype=torch.int64, device=x.device)
         launches = ctypes.c_int(0)
         err = lib.denoiser_stack_bf16(
-            x.data_ptr(), condp.data_ptr(), step_proj.data_ptr(),
-            stacked["conv_w_mma"].data_ptr(), stacked["conv_b"].data_ptr(),
-            stacked["out_w_mma"].data_ptr(), stacked["out_b"].data_ptr(),
+            xp.data_ptr(), condp.data_ptr(), step_proj.data_ptr(),
+            stacked["conv_w_mma"].data_ptr(), stacked["conv_b_mma"].data_ptr(),
+            stacked["out_w_mma"].data_ptr(), stacked["out_b_mma"].data_ptr(),
             x_out.data_ptr(), skip.data_ptr(), scratch.data_ptr(), halo.data_ptr(),
-            B, T, C, L, torch.cuda.current_stream().cuda_stream, ctypes.addressof(launches))
+            B, T, Cp, L, torch.cuda.current_stream().cuda_stream, ctypes.addressof(launches))
         cuda_build.check(lib, "denoiser_stack", err)
-    return x_out, skip, launches.value
+    return x_out[..., :C].contiguous(), skip[..., :C].contiguous(), launches.value
 
 
 def launch_shape(B, T, C):
     """(CTAs of the whole grid, CTAs per cluster, clusters the device holds
-    at once) of the CUDA kernel at B, T and width C."""
+    at once) of the CUDA kernel at B, T and width C (run at `kernel_width`)."""
+    C = kernel_width(C)
     lib = _library()
     lib.denoiser_stack_cluster_size.restype = ctypes.c_int
     lib.denoiser_stack_cluster_size.argtypes = [ctypes.c_int]
@@ -302,8 +381,8 @@ def fused_residual_stack(x, cond, step_emb, stacked, spk_proj=None):
     [B, T, C]) in x's type.  Activations are fp32, or bf16 (upcast exactly,
     the projections rounded to bf16).
 
-    CUDA tensors run the hand-written bf16 tensor-core kernel (C in {128,
-    256}; fp32 weights are cast per call) and add the number of kernel
+    CUDA tensors run the hand-written bf16 tensor-core kernel (any C <=
+    256, at `kernel_width`; fp32 weights are cast per call) and add the number of kernel
     launches (one for all the layers, a few for a batch larger than the
     card holds at once, one per layer for a sequence too long for that) to
     `fused_residual_stack.launches`; CPU tensors run the plain version in

@@ -16,7 +16,8 @@ largest value: the same products summed in another order, plus bf16
 rounding flips of an intermediate (the MRF's conv1 output, the denoiser's y
 and g) where the two sums straddle a rounding boundary.  The denoiser
 kernel with a multi-speaker model's speaker term (in its conditioner
-projection) is held to the same bar.  Fed bf16 activations (a model
+projection) is held to the same bar, and so is every width C <= 256 (the
+kernel runs at the next of 64, 128 and 256 with zero channels above C).  Fed bf16 activations (a model
 computing in bf16), the kernels upcast them exactly and must give the same
 bits as when fed that fp32 upcast, rounded to bf16.
 """
@@ -142,6 +143,55 @@ def test_denoiser_kernel_with_speaker_term_matches_plain(cuda, B, T):
         assert_close(a, b, BF16_TOL)
     without = fused_residual_stack_plain(x, cond, step, kw)
     assert (got[1] - without[1]).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("speaker", [False, True], ids=["one_speaker", "multi_speaker"])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("C", [16, 32, 48, 64, 80, 192, 256])
+def test_denoiser_kernel_at_every_width(cuda, C, B, speaker):
+    """Every C <= 256 runs the kernel, at the next of 64, 128 and 256 with
+    zero channels above C (`kernel_width`), and matches its plain version
+    at C; the launch count rises."""
+    x, cond, step, stacked = denoiser_inputs(B, 300, C=C, Hc=64, seed=C + B)
+    spk = None
+    if speaker:
+        r = np.random.RandomState(C)
+        stacked["spk_w"] = torch.tensor(r.randn(20, 64, C) * 64 ** -0.5, dtype=torch.float32,
+                                        device=cuda)
+    kw = denoiser_kernel_weights(stacked)
+    if speaker:
+        spk = speaker_projections(torch.randn(B, 64, device=cuda), kw)
+    n0 = fused_residual_stack.launches
+    got = fused_residual_stack(x, cond, step, kw, spk)
+    torch.cuda.synchronize()
+    assert fused_residual_stack.launches > n0
+    for a, b in zip(got, fused_residual_stack_plain(x, cond, step, kw, spk)):
+        assert a.shape == (B, 300, C)
+        assert_close(a, b, BF16_TOL)
+
+
+def test_denoiser_of_width_16_runs_the_kernel(cuda):
+    """A `Denoiser` with residual_channels 16 (the tiny configs') runs
+    inference through the kernel, and matches the same module's bf16 plain
+    stack on the CPU."""
+    torch.manual_seed(0)
+    den = Denoiser(n_mels=20, d_encoder=32, residual_channels=16, residual_layers=2).to(cuda)
+    with torch.no_grad():
+        den.output_projection.conv.weight.normal_(0, 0.1)
+    r = np.random.RandomState(16)
+    x_t = torch.tensor(r.randn(2, 150, 20), dtype=torch.float32)
+    t = torch.tensor([0, 1])
+    cond = torch.tensor(r.randn(2, 150, 32), dtype=torch.float32)
+    n0 = fused_residual_stack.launches
+    with torch.no_grad():
+        got = den(x_t.to(cuda), t.to(cuda), cond.to(cuda))
+        torch.cuda.synchronize()
+        assert fused_residual_stack.launches > n0
+        cpu = Denoiser(n_mels=20, d_encoder=32, residual_channels=16, residual_layers=2)
+        cpu.load_state_dict({k: v.cpu() for k, v in den.state_dict().items()})
+        cpu.stack_dtype = torch.bfloat16
+        want = cpu(x_t, t, cond)
+    assert_close(got.cpu(), want, BF16_TOL)
 
 
 def test_kernels_take_bf16_activations_bit_equal(cuda):
@@ -300,8 +350,8 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_residual_stack(x, cond, step, dict(stacked, conv_w=stacked["conv_w"].half()))
     with pytest.raises(ValueError, match="on cuda"):
         fused_residual_stack(x, cond.cpu(), step, stacked)
-    with pytest.raises(ValueError, match="built for"):
-        fused_residual_stack(*denoiser_inputs(1, 64, C=64, Hc=64, L=2))
+    with pytest.raises(ValueError, match="C <= 256"):   # every narrower width runs
+        fused_residual_stack(*denoiser_inputs(1, 64, C=320, Hc=64, L=2))
     kw = denoiser_kernel_weights(stacked)
     with pytest.raises(ValueError, match="denoiser_kernel_weights"):
         fused_residual_stack(x, cond, step, dict(kw, out_w_mma=kw["out_w_mma"].float()))

@@ -275,16 +275,21 @@ def port_files():
     yield os.path.join(REPO, "chip_smoke.py")
     # the test files and benches that run on the card, where there is no JAX
     for name in sorted(os.listdir(os.path.join(REPO, "tests"))):
-        if name.startswith("bench_torch_") or name in ("test_torch_gpu_perf.py",
-                                                         "test_torch_gpu_kernels.py"):
+        if name.startswith("bench_torch_") or name in (
+                "test_torch_gpu_perf.py", "test_torch_gpu_kernels.py",
+                "train_horizon_torch.py", "torch_horizon_helpers.py",
+                "horizon_init_witness_torch.py", "horizon_batches_torch.py"):
             yield os.path.join(REPO, "tests", name)
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, nor the test files and
-    benches that run on the card, imports jax, flax or the JAX package
-    (`mixgantts_tpu`; the port is `mixgantts_tpu_torch`)."""
-    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "mixgantts_tpu"}
+    """No module of the port, nor chip_smoke.py, nor the test files,
+    benches and the long-horizon drive that run on the card, imports jax,
+    flax or the JAX package (`mixgantts_tpu`; the port is
+    `mixgantts_tpu_torch`), or a JAX-side test file the JAX drive takes
+    its corpus and configs from."""
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "mixgantts_tpu",
+              "test_data_pipeline", "test_cli", "test_multispeaker_e2e", "train_horizon"}
     files = list(port_files())
     assert len(files) > 10
     rel = {os.path.relpath(f, os.path.join(REPO, "mixgantts_tpu_torch")) for f in files}
@@ -296,7 +301,8 @@ def test_port_imports_no_jax():
     assert {f"../tests/{name}.py" for name in (
         "bench_torch_serving", "bench_torch_step_parts", "bench_torch_denoiser_grad",
         "bench_torch_mrf", "bench_torch_denoiser", "test_torch_gpu_perf",
-        "test_torch_gpu_kernels")} <= rel
+        "test_torch_gpu_kernels", "train_horizon_torch", "torch_horizon_helpers",
+        "horizon_init_witness_torch", "horizon_batches_torch")} <= rel
     offenders = []
     for path in files:
         with open(path) as f:
