@@ -6,7 +6,9 @@ variant, the train CLI from aux through the aux -> shallow handoff to a
 resumed shallow run, a raw corpus through prepare_align and preprocess
 into the train CLI, and the multi-device path: data- and tensor-parallel
 steps on two ranks, the train CLI under torchrun, sharded serving and the
-multi-device dryrun.
+multi-device dryrun; and the kernels at every width the JAX package's
+configs give them (HiFi-GAN V2, the dryrun's tiny model, the denoiser up
+to 512 channels).
 
     python3 chip_smoke.py                  # needs one CUDA device
     python3 chip_smoke.py --profile DIR    # keeps the request and train-step traces in DIR
@@ -37,14 +39,22 @@ prints no result line):
    `stream` of B=1 and B=4 (32 phone slots, frame bucket 512).  Every
    kernel's launch counter, set to 0 just before, must have moved; the
    waves must be int16 of length mel_len * hop, the mels finite;
-5. hold a small request served on the GPU (kernels) against the same
+5. hold a small request served on the GPU (kernels, G) against the same
    request served on the CPU (plain versions, same weights, same injected
-   noise): with the CPU's denoiser stack and MRF weights also in bf16 (the
-   same arithmetic), mel mean |diff| < 1e-3 and the waveform within 16 LSB
-   of int16; against the CPU's fp32 path, mel mean |diff| / max|mel| < 0.02
-   (the JAX package's bar for its bf16 denoiser, tests/test_pallas.py) and
-   the waveform at an SNR above 30 dB (its bar for its bf16 vocoder,
-   tests/test_vocoder.py);
+   noise): with the CPU's denoiser stack and MRF weights also in bf16 (B,
+   the same arithmetic) and in fp32 (F), the same lengths, mel mean
+   |G - B| <= 2 mean |B - F| and the waveform's max |G - B| <= 2 max |B - F|
+   + 1 LSB of int16 (G and B round at the same points, so each is one
+   rounding's distance from F, and the triangle inequality puts them at
+   most twice that apart; each wave's own truncation to int16 adds at most
+   1 LSB); against F, mel mean |diff| / max|mel| < 0.02 (the JAX package's
+   bar for its bf16 denoiser, tests/test_pallas.py) and the waveform at an
+   SNR above 30 dB (its bar for its bf16 vocoder, tests/test_vocoder.py).
+   It prints each pair's distances, and B's mel vocoded on each side,
+   which splits the wave's distance from the mel's.  (The absolute bars
+   these replaced, mel mean |G - B| < 1e-3 and 16 LSB, are printed beside
+   them: they held only for weights of torch's default scale, and the
+   port's models now draw as the JAX package's);
 6. time each kernel and its plain version with CUDA events, and a request's
    latency and real-time factor with the host clock around work that ends
    in a synchronisation; each bound is taken at the bf16 tensor-core peak
@@ -96,8 +106,11 @@ phase 9's weights; every serving kernel must launch;
    blocks); ms per step, peak memory, one traced shallow step with its
    device busy share; then one shallow and one naive step at B=2, T=128
    with dropout off and the same injected t and noise on the GPU and on
-   the CPU: losses at rtol 1e-4, each gradient tensor within 1e-3 * max|g|
-   on >= 99% of its elements and 1e-2 * max|g| on all (ReLU kinks);
+   the CPU, the CPU's ReLUs passing what the GPU's passed (a ReLU input
+   within rounding of 0 would pass its gradient on one device only):
+   losses at rtol 1e-4, each gradient tensor within 1e-3 * max|g| on >= 99%
+   of its elements and 1e-2 * max|g| on all, each ReLU input of differing
+   sign within 1e-5 of its call's max|x|;
 13. the train CLI (`cli.train.main`, in process) at the full width of the
    LJSpeech configs (batch_size 8, batch_size_shallow 4, steps_per_call 8;
    only the paths and the step periods changed: total_step_aux 16,
@@ -150,9 +163,11 @@ phase 9's weights; every serving kernel must launch;
    data-parallel step per mode (naive B=8, shallow B=4, bucket 1000, full
    width, dropout on) on two ranks of this script (`--multi-worker`,
    started through `parallel.launch.start_ranks`), against the
-   one-process step on the same batch, injected noise and dropout seed:
-   the metrics at rtol 1e-4, the parameters within Adam's sign-flip
-   envelope; each rank's step time (median of 3 after the compared step,
+   one-process step on the same batch, injected noise and dropout seed,
+   the ranks' ReLUs passing what the one-process step's passed (each input
+   of differing sign within 1e-5 of its call's max|x|, as phase 12): the
+   metrics at rtol 1e-4, the parameters within Adam's sign-flip envelope;
+   each rank's step time (median of 3 after the compared step,
    CUDA events, with nothing but the ranks on the card) and peak memory;
    (b) the same steps at tp2, with each rank's parameter and moment bytes
    against one GPU's, and one traced tp2 naive step on rank 0 (its
@@ -198,14 +213,34 @@ phase 9's weights; every serving kernel must launch;
    random HiFi-GAN V1 on the same text against the CPU at phase 5's bars
    with injected noise, each MRF kernel against its plain version at the
    stages of that request's frame bucket, and the denoiser's stack there
-   against its plain version, timed.
+   against its plain version, timed;
+19. the kernels' widths: (a) the MRF kernel against its bf16 plain version
+   at every C in MRF_WIDTHS (run at 32, 64, 128 or 256 with zero channels
+   above C), B in {1, 4}: the whole three-branch stage up to 128 (the
+   folded entry point where `fused_apply` takes it), one branch a call
+   above, the launch count rising at each call; (b) HiFi-GAN V2 (V2_CONFIG,
+   jik876/hifi-gan's config_v2.json: stages 64, 32, 16, 8) from a seed,
+   through `get_vocoder` on a directory holding its config.json, vocoding
+   phase 4's acoustic model: a B=1 request at bucket 1000 must launch the
+   denoiser once, the folded MRF kernel 36 times and `mrf_stack` none; a
+   small request against the CPU at phase 5's bars; its latency beside
+   V1's; its MRF time per request beside V1's and beside the bounds of its
+   unpadded and padded work; (c) `dryrun_multigpu(2)` at the JAX dryrun's
+   widths (denoiser 8, vocoder stages 8 and 4): rank 0's synthesis must
+   launch the denoiser and the folded MRF kernel; (d) the denoiser kernel
+   against its plain version at C in WIDE_WIDTHS (run at 512: clusters of
+   16 CTAs), as phase 18 (a), its resident clusters, and its time at
+   C = 512 (B=1, T=1000, 20 layers) beside the bound.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 phase 4 plus phase 16's replicas and train CLI ranks and phase 17's and
 phase 18 (c)'s requests, or phase 7 for `mrf_stack_streamed`, or phase
-18 (c) for the denoiser at C = 16; max error in phase 3, 7 or 18; and the
-time, plain time and bound of one B=1 request at frame bucket 1000, or of
-phase 18 (c)'s stack); the last line is {"ok": true, "device": {...}}.
+18 (c) for the denoiser at C = 16, or phase 19 (b)'s request for V2's
+folded MRF, or phase 19 (d)'s checks for the denoiser at C = 512; max
+error in phase 3, 7, 18 or 19; and the time, plain time and bound of one
+B=1 request at frame bucket 1000, or of phase 18 (c)'s stack, or of V2's
+MRF calls in one request at bucket 1000, or of the C = 512 stack at B=1,
+T=1000); the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -233,6 +268,13 @@ DEVICE = "cuda"             # the card every phase runs on
 REQUEST_LAUNCHES = {(1, 1000): (1, 18, 18), (4, 512): (2, 18, 18)}
 NARROW_WIDTHS = (16, 32, 48, 64, 80, 192, 256)   # phase 18 (a): the denoiser kernel's widths
 HORIZON_STEPS = (50, 25)    # phase 18 (b): aux steps, then shallow steps from the aux checkpoint
+MRF_WIDTHS = (4, 8, 16, 24, 48, 72, 96, 144, 200)   # phase 19 (a): the MRF kernel's widths
+WIDE_WIDTHS = (288, 384, 512)                       # phase 19 (d): the denoiser above 256
+# phase 19 (b): HiFi-GAN V2, the public config_v2.json of jik876/hifi-gan
+V2_CONFIG = {"resblock": "1", "num_mels": 80, "upsample_rates": [8, 8, 2, 2],
+             "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 128,
+             "resblock_kernel_sizes": [3, 7, 11],
+             "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]]}
 
 
 def log(*args):
@@ -773,8 +815,9 @@ def np_isfinite(a):
     return bool(np.isfinite(a).all())
 
 
-def cpu_copy(torch, pre, cfg, model, vocoder):
-    """The serving model and vocoder with the same weights on the CPU."""
+def cpu_copy(torch, pre, cfg, model, vocoder, ckpt_dir=None):
+    """The serving model and vocoder (`get_vocoder` on `ckpt_dir`) with the
+    same weights on the CPU."""
     from mixgantts_tpu_torch.config import NormStats
     from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
     from mixgantts_tpu_torch.models.vocoder import get_vocoder
@@ -782,7 +825,7 @@ def cpu_copy(torch, pre, cfg, model, vocoder):
         "shallow", pre, cfg, NormStats.default(model.n_mels),
         n_speakers=N_SPEAKERS if cfg["multi_speaker"] else 1, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
-    cpu_voc = get_vocoder(cfg, device="cpu")
+    cpu_voc = get_vocoder(cfg, ckpt_dir=ckpt_dir, device="cpu")
     cpu_voc.generator.load_state_dict(vocoder.generator.state_dict())
     return cpu_model, cpu_voc
 
@@ -802,14 +845,35 @@ def on_gpu_and_cpu(torch, model, vocoder, cpu_model, cpu_voc, serve):
     return outs
 
 
-def cpu_reference(torch, pre, cfg, model, vocoder, label="reference"):
+def vocoded_on_both(torch, vocoder, cpu_voc, served, hop=256):
+    """The mel of `served` (int16 waves, mel [1, T, M], lengths) through
+    the GPU's vocoder (kernels) and the CPU's with its MRF weights in bf16
+    and in fp32, each as `TTSPipeline` makes its int16 wave: {"gpu",
+    "bf16", "fp32": wave}.  Vocoding one mel on both sides splits the
+    wave's distance from the mel's."""
+    import numpy as np
+    _, mel, lens = served
+    out = {}
+    for name, v, dtype in (("gpu", vocoder, None), ("bf16", cpu_voc, torch.bfloat16),
+                           ("fp32", cpu_voc, torch.float32)):
+        v.generator.mrf_dtype = dtype
+        dev = next(v.generator.parameters()).device
+        with torch.no_grad():
+            wav = v(torch.as_tensor(mel, device=dev))
+            wav = torch.clamp(wav * 32768.0, -32768.0, 32767.0).to(torch.int16).cpu().numpy()
+        out[name] = np.asarray(wav[0, :int(lens[0]) * hop])
+    cpu_voc.generator.mrf_dtype = None
+    return out
+
+
+def cpu_reference(torch, pre, cfg, model, vocoder, label="reference", ckpt_dir=None):
     """Phase 5 (and 9): one small request on the GPU (kernels) and on the
     CPU (plain versions), same weights and injected noise (and, for a
     multi-speaker model, speaker embedding): the CPU once with its denoiser
     stack and MRF weights in bf16 (the GPU's arithmetic), once in fp32."""
     import numpy as np
     from mixgantts_tpu_torch.pipeline import TTSPipeline
-    cpu_model, cpu_voc = cpu_copy(torch, pre, cfg, model, vocoder)
+    cpu_model, cpu_voc = cpu_copy(torch, pre, cfg, model, vocoder, ckpt_dir)
     batch = with_speakers(text_batch(1, 8, 4, seed=2), cfg, seed=2)
     T, M = 128, model.n_mels           # the frame bucket of 8 phone slots
     r = np.random.RandomState(3)
@@ -817,31 +881,59 @@ def cpu_reference(torch, pre, cfg, model, vocoder, label="reference"):
              "step_noises": r.randn(model.diffusion.num_timesteps, 1, T, M).astype(np.float32)}
     outs = on_gpu_and_cpu(torch, model, vocoder, cpu_model, cpu_voc, lambda m, v: TTSPipeline(
         m, v, pre, cfg, mel_dtype=torch.float32)(batch, noise_override=noise))
-    check_against_cpu(label, T, M, *outs)
+    check_against_cpu(label, T, M, *outs, vocoded_on_both(torch, vocoder, cpu_voc, outs[1]))
 
 
-def check_against_cpu(label, T, M, gpu, bf16, fp32):
-    """Phase 5's bars on (int16 waves, mel, lengths) served on the GPU and
-    on the CPU in bf16 and fp32: mel mean |diff| < 1e-3 and the wave within
-    16 LSB against bf16; mel mean |diff| / max|mel| < 0.02 and SNR > 30 dB
-    against fp32."""
+def distances(a, b):
+    """(max |a - b|, rms(a - b), mean |a - b|) of two arrays, in float64."""
+    import numpy as np
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float(np.abs(d).max()), float(np.sqrt((d ** 2).mean())), float(np.abs(d).mean())
+
+
+def check_against_cpu(label, T, M, gpu, bf16, fp32, split):
+    """Phase 5's bars on (int16 waves, mel, lengths) served on the GPU (G)
+    and on the CPU in bf16 (B, the GPU's arithmetic) and in fp32 (F), with
+    the same lengths:
+    - the same arithmetic: mean|G - B| of the mel <= 2 mean|B - F|, and
+      max|G - B| of the wave <= 2 max|B - F| + 1 LSB.  G and B round at the
+      same points, so each is as far from F as the other is, and the
+      triangle inequality puts them at most twice that apart (sqrt 2 where
+      their roundings are independent); each wave is truncated to int16 on
+      its own, which adds at most 1 LSB to the difference;
+    - the JAX package's relative bars against fp32: mel mean|G - F| /
+      max|F| < 0.02 (its bar for its bf16 denoiser, tests/test_pallas.py)
+      and the wave at an SNR above 30 dB (its bar for its bf16 vocoder,
+      tests/test_vocoder.py).
+    Prints each pair's distances, and the CPU bf16 path's mel vocoded on
+    each side (`split`), which separates the wave's distance from the
+    mel's; and, beside the new bars, the absolute ones they replaced (mel
+    mean|G - B| < 1e-3, wave within 16 LSB), which hold only for weights of
+    torch's default scale."""
     import numpy as np
     (gw, gm, gl), (bw, bm, bl), (fw, fm, fl) = gpu, bf16, fp32
     if gm.shape != (1, T, M) or not list(gl) == list(bl) == list(fl):
         raise AssertionError(f"GPU/CPU shapes or lengths differ: {gm.shape} {gl} {bl} {fl}")
-    mae = float(np.abs(gm - bm).mean())
-    mel_rel = float(np.abs(gm - fm).mean() / np.abs(fm).max())
     g, b, f = (w[0].astype(np.float64) for w in (gw, bw, fw))
-    lsb = int(np.abs(g - b).max())
+    mae, mae_twin = float(np.abs(gm - bm).mean()), float(np.abs(bm - fm).mean())
+    lsb, lsb_twin = int(np.abs(g - b).max()), int(np.abs(b - f).max())
+    mel_rel = float(np.abs(gm - fm).mean() / np.abs(fm).max())
     snr = 10 * math.log10((f ** 2).mean() / max(((f - g) ** 2).mean(), 1e-12))
-    snr_bf16 = 10 * math.log10((b ** 2).mean() / max(((b - g) ** 2).mean(), 1e-12))
-    log(f"[{label}] GPU vs CPU, mel_len {int(gl[0])}: against the CPU with bf16 denoiser "
-        f"and MRF weights: mel mean|diff| {mae:.3e} (max|mel| {float(np.abs(bm).max()):.3f}), "
-        f"waveform int16 max|diff| {lsb} LSB, SNR {snr_bf16:.1f} dB; against the CPU's fp32 "
-        f"path: mel mean|diff| / max|mel| {mel_rel:.3e}, SNR {snr:.1f} dB (int16 max|diff| "
-        f"{int(np.abs(g - f).max())} LSB); {len(f)} samples, rms "
-        f"{math.sqrt((f ** 2).mean()):.1f}")
-    if mae >= 1e-3 or lsb > 16 or mel_rel >= 0.02 or snr <= 30:
+    log(f"[{label}] GPU vs CPU, mel_len {int(gl[0])}, max|mel| {float(np.abs(fm).max()):.3f}, "
+        f"{len(f)} samples, wave rms {math.sqrt((f ** 2).mean()):.1f}: the same arithmetic: "
+        f"mel mean|G - B| {mae:.3e} against the bar 2 x mean|B - F| = {2 * mae_twin:.3e} "
+        f"(old bar 1e-3), wave max|G - B| {lsb} LSB against 2 x {lsb_twin} + 1 = "
+        f"{2 * lsb_twin + 1} (old bar 16); against fp32: mel mean|G - F| / max|F| "
+        f"{mel_rel:.3e} (bar 0.02), SNR {snr:.1f} dB (bar 30)")
+    for what, pairs in (("mel", (("G-B", gm, bm), ("B-F", bm, fm), ("G-F", gm, fm))),
+                        ("wave", (("G-B", g, b), ("B-F", b, f), ("G-F", g, f))),
+                        ("wave of B's mel", (("G-B", split["gpu"], split["bf16"]),
+                                             ("B-F", split["bf16"], split["fp32"]),
+                                             ("G-F", split["gpu"], split["fp32"])))):
+        log(f"  [{label}] {what}: " + "; ".join(
+            "{} max {:.4g}, rms {:.4g}, mean {:.4g}".format(name, *distances(x, y))
+            for name, x, y in pairs))
+    if mae > 2 * mae_twin or lsb > 2 * lsb_twin + 1 or mel_rel >= 0.02 or snr <= 30:
         raise AssertionError("GPU path disagrees with the CPU reference")
 
 
@@ -1319,28 +1411,78 @@ def train_cpu_reference(torch, pre, cfg, tc):
     """Phase 12b: one shallow and one naive step at B=2, T=128 on the
     full-width model (a non-zero denoiser output projection, so the
     residual stack's gradients show), TF32 off, dropout p = 0, the same
-    injected t and noise, on the GPU and on the CPU from the same weights:
-    every loss at rtol 1e-4; every gradient tensor of G and D within
-    1e-3 * max|g| on >= 99% of its elements and within 1e-2 * max|g| on
-    all (a ReLU input within rounding of 0 passes the gradient on one
-    device and not on the other, which moves a whole row of the next
-    weight's gradient: in the decoder's FFN one such row was 0.098% of
-    w_1's elements, off by up to 2.5e-3 of max|g|), max|g|
-    floored at 1e-3 of the model's largest gradient (the K-projection and
-    PostNet conv biases have a zero gradient by symmetry, softmax's shift
-    invariance and BatchNorm's mean, so theirs is rounding noise on both
-    devices)."""
+    injected t and noise, on the GPU and on the CPU from the same weights,
+    the CPU's ReLUs passing what the GPU's passed (`SharedReluKinks`: a ReLU
+    input within rounding of 0 passes its gradient on one device only,
+    which moves every tensor upstream of it; the inputs of differing sign
+    must be within 1e-5 of their call's max|x|): every loss at rtol 1e-4;
+    every gradient tensor of G and D within 1e-3 * max|g| on >= 99% of its
+    elements and within 1e-2 * max|g| on all, max|g| floored at 1e-3 of
+    the model's largest gradient (the K-projection and PostNet conv biases
+    have a zero gradient by symmetry, softmax's shift invariance and
+    BatchNorm's mean, so theirs is rounding noise on both devices)."""
     for mode in ("shallow", "naive"):
         check_gpu_against_cpu(mode, *step_on_gpu_and_cpu(torch, mode, pre, cfg, tc))
+
+
+class SharedReluKinks:
+    """`torch.nn.functional.relu` for one step (the GPU's, or one process's),
+    then the same step elsewhere (on the CPU, or sharded over ranks), whose
+    calls come in the same order: the first records, call by call, which
+    inputs are positive; the second passes exactly those (`local(mask, x)`
+    cutting a rank's part of each).  A ReLU input within rounding of 0
+    would otherwise pass its gradient in one step only, and that one
+    element reaches every tensor upstream of it
+    (`tests/train_step_kinks_torch.py`).  `flips` gets, per replayed call
+    whose signs differ from the recorded ones, (call, inputs of differing
+    sign, the largest |x| among them / max|x| of the call)."""
+
+    def __init__(self, torch, masks=None):
+        import torch.nn.functional as F
+        self.torch, self.F, self.relu = torch, F, F.relu
+        self.masks, self.flips = masks if masks is not None else [], []
+
+    def recording(self):
+        def recording(x, inplace=False):
+            self.masks.append(x.detach() > 0)
+            return self.relu(x, inplace)
+        return self._patched(recording)
+
+    def replaying(self, local=lambda mask, x: mask):
+        calls = iter(range(len(self.masks)))
+
+        def replaying(x, inplace=False):
+            i = next(calls)
+            mask = local(self.masks[i], x).to(x.device)
+            differ = mask != (x.detach() > 0)
+            if differ.any():
+                top = float(x.detach().abs().max())
+                self.flips.append((i, int(differ.sum()),
+                                   float(x.detach().abs()[differ].max()) / max(top, 1e-30)))
+            return self.torch.where(mask, x, self.torch.zeros_like(x))
+        return self._patched(replaying)
+
+    def _patched(self, fn):
+        import contextlib
+
+        @contextlib.contextmanager
+        def patched():
+            self.F.relu = fn
+            try:
+                yield
+            finally:
+                self.F.relu = self.relu
+        return patched()
 
 
 def step_on_gpu_and_cpu(torch, mode, pre, cfg, tc, n_noise=2):
     """One step of `mode` with model.yaml `cfg` at B=2, T=128 on the
     full-width model (a non-zero denoiser output projection), dropout
     p = 0 and the same injected t and noise (`n_noise` diffusion branches),
-    on the GPU and on the CPU from the same weights.  Returns ((GPU
-    losses, gradients), (CPU losses, gradients)), the gradients on the
-    CPU by "G name" / "D name"."""
+    on the GPU and on the CPU from the same weights, the CPU's ReLUs taking
+    the GPU's decisions (`SharedReluKinks`).  Returns ((GPU losses,
+    gradients), (CPU losses, gradients), the ReLU inputs whose sign
+    differed), the gradients on the CPU by "G name" / "D name"."""
     import numpy as np
     devices = (DEVICE, "cpu")
     built = [build_training(torch, mode, pre, cfg, tc, device) for device in devices]
@@ -1358,24 +1500,37 @@ def step_on_gpu_and_cpu(torch, mode, pre, cfg, tc, n_noise=2):
              for _ in range(n_noise)]
     init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (gpu_model, gpu_disc)]
     runs = []
+    kinks = SharedReluKinks(torch)
     for (model, disc, state, step_fn), batch, device in zip(built, batches, devices):
         model.load_state_dict(init[0])
         disc.load_state_dict(init[1])
         for m in model.modules():
             if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
-        metrics = step_fn(state, batch, noise_overrides=[
-            {k: torch.as_tensor(v, device=device) for k, v in n.items()} for n in noise])
+        with kinks.replaying() if runs else kinks.recording():
+            metrics = step_fn(state, batch, noise_overrides=[
+                {k: torch.as_tensor(v, device=device) for k, v in n.items()} for n in noise])
         grads = {f"{tag} {n}": (p.grad.detach().cpu() if p.grad is not None
                                  else torch.zeros(p.shape))
                  for tag, m in (("G", model), ("D", disc)) for n, p in m.named_parameters()}
         runs.append(({k: float(v) for k, v in metrics.items()}, grads))
-    return runs
+    return runs + [kinks.flips]
 
 
-def check_gpu_against_cpu(mode, gpu, cpu, label="train cpu"):
-    """Phase 12's bars on `step_on_gpu_and_cpu`'s runs."""
+def check_gpu_against_cpu(mode, gpu, cpu, flips, label="train cpu"):
+    """Phase 12's bars on `step_on_gpu_and_cpu`'s runs; and every ReLU input
+    whose sign differed between the devices within 1e-5 of max|x| of its
+    call (within rounding of 0: each fp32 operation moves a value by at
+    most 2^-24 of the magnitudes it combines, and the deepest ReLU input of
+    a step is ~100 of them from the step's inputs, so the devices' values
+    differ by ~6e-6 of the call's scale)."""
     (gm, gg), (cm, cg) = gpu, cpu
+    far = [f for f in flips if f[2] > 1e-5]
+    log(f"[{label}] {mode}: ReLU inputs of differing sign on the two devices (the CPU took "
+        f"the GPU's): {sum(f[1] for f in flips)} in {len(flips)} calls, the largest "
+        f"{max([f[2] for f in flips], default=0.0):.2e} of its call's max|x| (bar 1e-5)")
+    if far:
+        raise AssertionError(f"{mode}: ReLU inputs of differing sign beyond rounding: {far[:6]}")
     bad = [k for k in cm if abs(gm[k] - cm[k]) > 1e-4 * abs(cm[k]) + 1e-6]
     worst, worst_frac, failed = 0.0, 0.0, []
     for tag in ("G", "D"):
@@ -1798,7 +1953,7 @@ def train_variants_phase(torch, out_dir, plain):
     check_gpu_against_cpu("shallow", *step_on_gpu_and_cpu(
         torch, "shallow", pre, variant_config(cfg, reuse_aux_forward=True), tc),
         label="train variants cpu, reuse_aux_forward")
-    (gm, gg), (cm, cg) = step_on_gpu_and_cpu(
+    (gm, gg), (cm, cg), flips = step_on_gpu_and_cpu(
         torch, "naive", pre, variant_config(cfg, compute_dtype="bfloat16"), tc)
     bad = [k for k in cm if abs(gm[k] - cm[k]) > (BF16_UPDATED_D_RTOL if k in UPDATED_D_KEYS
                                                   else 1e-4) * abs(cm[k]) + 1e-6]
@@ -1810,7 +1965,8 @@ def train_variants_phase(torch, out_dir, plain):
     log(f"[train variants cpu, bf16] naive B=2 T=128, GPU against CPU (both bf16): losses "
         + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(cm))
         + f"; gradients of {len(cosines)} tensors: worst cosine {min(cosines.values()):.6f} "
-        f"({len(cg) - len(cosines)} with a norm below 1e-3 of the largest left out)")
+        f"({len(cg) - len(cosines)} with a norm below 1e-3 of the largest left out); ReLU "
+        f"inputs of differing sign (the CPU took the GPU's) {sum(f[1] for f in flips)}")
     if bad or low:
         raise AssertionError(f"bf16 naive: the GPU step disagrees with the CPU step: losses "
                              f"{bad}, cosines {sorted(low.items())[:6]}")
@@ -2163,21 +2319,27 @@ def multi_reference(torch, pre, cfg, tc, out_dir):
     """The one-process steps (a) and (b) are held against: phase 12's
     build (seed 0) and batch (seed 12), the injected noise of
     `multi_noise`, torch's default generator seeded 1 before the step
-    (dropout on, as shipped).  Writes G's and D's parameters after each
-    step to `out_dir/ref_<mode>.pt`; returns {mode: metrics}."""
+    (dropout on, as shipped).  Writes the step's ReLU decisions
+    (`SharedReluKinks`, which the ranks' compared steps take) to
+    `out_dir/relu_<mode>.pt`, and G's and D's parameters after it to
+    `out_dir/ref_<mode>.pt`; returns {mode: metrics}."""
     metrics = {}
     for mode, B in MULTI_STEPS:
         model, disc, state, step_fn = build_training(torch, mode, pre, cfg, tc)
         batch = train_batch(torch, pre, B, 128, 64, 1000, (600, 1000), seed=12)
         noise = multi_noise(torch, mode, B, S=model.diffusion.num_timesteps)
         torch.manual_seed(1)
-        out = step_fn(state, batch, noise_overrides=[{k: v.to(DEVICE) for k, v in n.items()}
-                                                     for n in noise])
+        kinks = SharedReluKinks(torch)
+        with kinks.recording():
+            out = step_fn(state, batch, noise_overrides=[
+                {k: v.to(DEVICE) for k, v in n.items()} for n in noise])
         metrics[mode] = {k: float(v) for k, v in out.items()}
-        path = os.path.join(out_dir, f"ref_{mode}.pt")
-        torch.save({"G": {k: v.cpu() for k, v in model.state_dict().items()},
-                    "D": {k: v.cpu() for k, v in disc.state_dict().items()}}, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        for name, obj in (("relu", [m.cpu() for m in kinks.masks]),
+                          ("ref", {"G": {k: v.cpu() for k, v in model.state_dict().items()},
+                                   "D": {k: v.cpu() for k, v in disc.state_dict().items()}})):
+            path = os.path.join(out_dir, f"{name}_{mode}.pt")
+            torch.save(obj, path + ".tmp")
+            os.replace(path + ".tmp", path)
         del model, disc, state, step_fn, batch
         torch.cuda.empty_cache()
     return metrics
@@ -2262,11 +2424,23 @@ def multi_rank_worker(args):
                                                       seed=12, device=dev))
                 noise = [{k: v.to(dev) for k, v in n.items()}
                          for n in multi_noise(torch, mode, B, S=model.diffusion.num_timesteps)]
+                path = os.path.join(args.workdir, f"relu_{mode}.pt")
+                wait_for(path)
+                kinks = SharedReluKinks(torch, torch.load(path))
+
+                def local(mask, x):   # this rank's rows (data) or channels (model)
+                    for d, (n, m) in enumerate(zip(x.shape, mask.shape)):
+                        if n != m:
+                            mask = mask.narrow(d, mesh.coords["data" if d == 0 else "model"]
+                                               * n, n)
+                    return mask
+
                 torch.manual_seed(1)
-                metrics, first_ms = timed(lambda: step(state, batch, noise_overrides=noise))
+                with kinks.replaying(local):
+                    metrics, first_ms = timed(lambda: step(state, batch, noise_overrides=noise))
                 res = {"mode": mode, "B": B, "mesh": [mesh.shape["data"], model_axis],
                        "metrics": {k: float(v) for k, v in metrics.items()},
-                       "first_ms": first_ms,
+                       "relu_flips": kinks.flips, "first_ms": first_ms,
                        "peak": torch.cuda.max_memory_allocated(dev) - base,
                        "param_bytes": sum(p.numel() * p.element_size()
                                           for p in model.parameters()),
@@ -2311,9 +2485,11 @@ def multi_train_steps(torch, world, topology, workdir, meanwhile=None):
     """Phase 16 (a) and (b): one data-parallel step per mode on `world`
     ranks (naive B=8, shallow B=4, bucket 1000, full width), then the same
     at tp2, against the one-process step on the same batch, noise and
-    dropout draws: the metrics at phase 12's rtol 1e-4, the parameters
-    after the step within Adam's sign-flip envelope (every element within
-    2 * lr, >= 99% within 1e-2 * lr outside the symmetric-zero tensors).
+    dropout draws, the ranks taking its ReLU decisions (`SharedReluKinks`;
+    each input of differing sign within 1e-5 of its call's max|x|): the
+    metrics at phase 12's rtol 1e-4, the parameters after the step within
+    Adam's sign-flip envelope (every element within 2 * lr, >= 99% within
+    1e-2 * lr outside the symmetric-zero tensors).
     The ranks take their compared steps while this process runs the
     one-process reference and then `meanwhile` (other work of the phase),
     and time theirs after it, with the card to themselves.  Prints each
@@ -2354,6 +2530,12 @@ def multi_train_steps(torch, world, topology, workdir, meanwhile=None):
             if bad:
                 failed.append(f"{label} rank {r}: metrics {bad}")
         env = res0["envelope"]
+        flips = [f for rank in ranks for f in rank[i]["relu_flips"]]
+        log(f"[multi] {label}: ReLU inputs of differing sign from one process's (the ranks "
+            f"took its): {sum(f[1] for f in flips)} in {len(flips)} calls, the largest "
+            f"{max([f[2] for f in flips], default=0.0):.2e} of its call's max|x| (bar 1e-5)")
+        if any(f[2] > 1e-5 for f in flips):
+            failed.append(f"{label}: ReLU inputs of differing sign beyond rounding {flips[:4]}")
         log(f"[multi] {label}: metrics against one process "
             + ", ".join(f"{k} {res0['metrics'][k]:.6f}/{want[k]:.6f}" for k in
                         ("total_loss", "D_loss", "G_loss", "mel_loss"))
@@ -2706,7 +2888,7 @@ def bench_phase(torch, pre, cfg, model, vocoder, records):
         records[name]["launches"] += n
         if n == 0:
             raise AssertionError(f"{name} was not launched at the bench's shapes")
-    check_against_cpu("bench (b)", T, M, *outs)
+    check_against_cpu("bench (b)", T, M, *outs, vocoded_on_both(torch, vocoder, cpu_voc, outs[1]))
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import bench_torch_denoiser_grad
@@ -2757,13 +2939,16 @@ def time_denoiser(torch, label, B, T, stacked):
     return (ms1 + ms2) / 2, plain, b, by
 
 
-def narrow_widths(torch, records):
-    """Phase 18 (a): the denoiser kernel at every C in NARROW_WIDTHS."""
+def denoiser_widths(torch, rec, widths, seed):
+    """Phase 18 (a) and 19 (d): the denoiser kernel against its plain
+    version at every C in `widths`, B in {1, 4}, T = 300, 20 layers, with
+    and without a speaker term, its launch count rising at each call; the
+    errors into `rec`.  Returns the launches."""
     from mixgantts_tpu_torch.ops import denoiser_stack as den
-    rec = records["fused_residual_stack_c16"]
-    g = torch.Generator("cuda").manual_seed(18)
+    g = torch.Generator("cuda").manual_seed(seed)
     L, Hc, H, T = 20, 64, 64, 300
-    for C in NARROW_WIDTHS:
+    launches = 0
+    for C in widths:
         kw = den.denoiser_kernel_weights(random_stack(torch, L, C, Hc, g, speaker_dim=H))
         for B in (1, 4):
             x = torch.randn(B, T, C, device="cuda", generator=g)
@@ -2777,11 +2962,22 @@ def narrow_widths(torch, records):
                     sync(torch)
                     if den.fused_residual_stack.launches == n0:
                         raise AssertionError(f"C={C} B={B}: the denoiser kernel did not launch")
+                    launches += den.fused_residual_stack.launches - n0
                     want = den.fused_residual_stack_plain(x, cond, step, kw, spk)
                 for part, a, b in zip(("x", "skip"), got, want):
                     rec["err"] = max(rec["err"], check_close(
                         f"fused_residual_stack C={C} (at {den.kernel_width(C)}) B={B} T={T} "
                         f"{'speaker ' if spk is not None else ''}{part} (bf16)", a, b, BF16_TOL))
+    return launches
+
+
+def narrow_widths(torch, records):
+    """Phase 18 (a): the denoiser kernel at every C in NARROW_WIDTHS; its
+    time at C = 16 and 64."""
+    from mixgantts_tpu_torch.ops import denoiser_stack as den
+    denoiser_widths(torch, records["fused_residual_stack_c16"], NARROW_WIDTHS, seed=18)
+    g = torch.Generator("cuda").manual_seed(18)
+    L = 20
     for C in (16, 64):
         time_denoiser(torch, "fused_residual_stack", 1, 1000,
                       den.denoiser_kernel_weights(random_stack(torch, L, C, 256, g)))
@@ -2864,7 +3060,8 @@ def horizon_phase(torch, records):
              "step_noises": r.randn(model.diffusion.num_timesteps, 1, T, M).astype(np.float32)}
     outs = on_gpu_and_cpu(torch, model, vocoder, cpu_model, cpu_voc, lambda m, v: TTSPipeline(
         m, v, pre, cfg, mel_dtype=torch.float32)(batch, noise_override=noise))
-    check_against_cpu("horizon (c)", T, M, *outs)
+    check_against_cpu("horizon (c)", T, M, *outs,
+                      vocoded_on_both(torch, vocoder, cpu_voc, outs[1]))
     g = torch.Generator("cuda").manual_seed(19)
     gen = vocoder.generator
     dils = gen.resblock_dilation_sizes[0]
@@ -2892,6 +3089,156 @@ def horizon_phase(torch, records):
     ms, plain, b, by = time_denoiser(torch, "the horizon's denoiser", 1, T, stacked)
     rec.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
     log(f"[horizon] phase 18 took {time.perf_counter() - t_start:.1f} s")
+
+def mrf_widths(torch, records):
+    """Phase 19 (a): the MRF kernel against its bf16 plain version at every
+    C in MRF_WIDTHS (run at 32, 64, 128 or 256 with zero channels above C),
+    B in {1, 4}: the whole three-branch stage up to C = 128 (the folded
+    entry point where F = 128 / C divides the frames, as `fused_apply`
+    calls it), one branch a call above; each call's launch count must rise."""
+    from mixgantts_tpu_torch.models.hifigan import stage_mode
+    from mixgantts_tpu_torch.ops import mrf
+    g = torch.Generator("cuda").manual_seed(19)
+    T = 4096
+    for C in MRF_WIDTHS:
+        mode = stage_mode(C, T)
+        calls = [(3, 7, 11)] if C <= 128 else [(3,), (7,), (11,)]
+        for B in (1, 4):
+            x = torch.randn(B, T, C, device="cuda", generator=g)
+            for ks in calls:
+                st = mrf.kernel_weights(random_mrf(torch, C, ks, g), ks)
+                fn = mrf.mrf_stack_folded if mode == "folded" else mrf.mrf_stack
+                n0 = fn.launches
+                with torch.no_grad():
+                    if mode == "folded":
+                        fold = 128 // C
+                        got = fn(x.reshape(B, T // fold, fold * C), dict(st, fold=fold), ks,
+                                 prefolded=True)
+                    else:
+                        got = fn(x, st, ks)
+                    sync(torch)
+                    if fn.launches != n0 + 3 * len(ks):
+                        raise AssertionError(f"C={C} B={B}: {fn.__name__} launched "
+                                             f"{fn.launches - n0} times, want {3 * len(ks)}")
+                    want = mrf.mrf_stack_plain(x, st, ks)
+                name = fn.__name__
+                records[name]["err"] = max(records[name]["err"], check_close(
+                    f"{name} C={C} (at {mrf.kernel_width(C)}) B={B} T={T} k={ks} (bf16)",
+                    got, want, BF16_TOL))
+
+
+def random_mrf(torch, C, kernel_sizes, g):
+    """Stacked fp32 MRF weights of one stage at width C from generator g,
+    scaled like an initialised conv's (taps outside each k zero)."""
+    n_br = len(kernel_sizes)
+    w = torch.zeros(2, n_br, 3, 11, C, C, device=g.device)
+    for br, k in enumerate(kernel_sizes):
+        pad = (11 - k) // 2
+        w[:, br, :, pad:pad + k] = torch.randn(2, 3, k, C, C, device=g.device,
+                                               generator=g) * (k * C) ** -0.5
+    b = torch.randn(2, n_br, 3, C, device=g.device, generator=g) * 0.1
+    return {"w1": w[0].contiguous(), "w2": w[1].contiguous(), "b1": b[0].contiguous(),
+            "b2": b[1].contiguous()}
+
+
+def hifigan_v2_phase(torch, pre, cfg, model, vocoder, records):
+    """Phase 19 (b): HiFi-GAN V2 (V2_CONFIG) from a seed, as `get_vocoder`
+    builds it from a `config.json` beside a checkpoint directory without
+    weights, vocoding phase 4's acoustic model: a B=1 request at bucket
+    1000 (launches counted: the folded kernel at every stage, 36, and
+    `mrf_stack` none), a small request against the CPU at phase 5's bars,
+    its latency beside V1's, and the MRF time of one request at bucket
+    1000 beside V1's and beside the bounds of the padded and unpadded work."""
+    from mixgantts_tpu_torch.models.vocoder import get_vocoder
+    from mixgantts_tpu_torch.ops import mrf
+    from mixgantts_tpu_torch.pipeline import TTSPipeline
+    rec = records["mrf_stack_folded_v2"]
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+            json.dump(V2_CONFIG, f)
+        v2 = get_vocoder(cfg, ckpt_dir=ckpt_dir, device=DEVICE, seed=0)
+        gen = v2.generator
+        log(f"[v2] HiFi-GAN V2: stages {[u.out_channels for u in gen.ups]}, "
+            f"{sum(p.numel() for p in gen.parameters()) / 1e6:.2f} M parameters")
+        pipe = TTSPipeline(model, v2, pre, cfg)
+        one = text_batch(1, 64, 24, seed=0)
+        pipe(one)
+        (wavs, mel, lens), launches = counted(torch, lambda: pipe(one))
+        log(f"  B=1 request at bucket {mel.shape[1]}: launches (denoiser, mrf_stack, "
+            f"mrf_stack_folded) {launches}, want (1, 0, 36); mel length {int(lens[0])}")
+        if launches != (1, 0, 36) or mel.shape[1] != 1000:
+            raise AssertionError(f"the V2 request launched {launches} at bucket {mel.shape[1]}")
+        if not np_isfinite(mel) or len(wavs[0]) != int(lens[0]) * 256:
+            raise AssertionError("the V2 request gave a bad output")
+        rec["launches"] = launches[2]
+        cpu_reference(torch, pre, cfg, model, v2, label="v2", ckpt_dir=ckpt_dir)
+    latency(torch, pipe, pre, one, None, tag="v2 latency")
+    latency(torch, TTSPipeline(model, vocoder, pre, cfg), pre, one, None, tag="v1 latency")
+    # the MRF calls of one request at bucket 1000, as in phase 6
+    dils = gen.resblock_dilation_sizes[0]
+    g = torch.Generator("cuda").manual_seed(20)
+    ms = plain = flops = flops_padded = nbytes = 0.0
+    with torch.no_grad():
+        for stage, (C, T, call) in enumerate(mrf_calls(gen, gen.resblock_kernel_sizes, dils,
+                                                        T_mel=1000)):
+            x = torch.randn(1, T, C, device="cuda", generator=g)
+            for name, st, ks, run in call:
+                if name != "mrf_stack_folded":
+                    raise AssertionError(f"V2 stage {stage} (C={C}) runs {name}")
+                rec["err"] = max(rec["err"], check_close(
+                    f"V2 stage {stage} C={C} (at {mrf.kernel_width(C)}) T={T} (bf16)", run(x),
+                    mrf.mrf_stack_plain(x, st, ks, dils), BF16_TOL))
+                warm_up(lambda: run(x))
+                t = time_ms(lambda: run(x), 10)
+                p = time_ms(lambda: mrf.mrf_stack_plain(x, st, ks, dils), 3)
+                f, b = mrf_work(1, T, C, ks, weight_bytes=2)
+                fp = mrf_work(1, T, mrf.kernel_width(C), ks, weight_bytes=2)[0]
+                log(f"  V2 stage {stage} C={C} T={T}: kernel {t:.4f} ms, plain (bf16) {p:.4f} "
+                    f"ms; {f / 1e9:.1f} GFLOP ({fp / 1e9:.1f} at the padded width)")
+                ms, plain, flops, flops_padded, nbytes = (
+                    ms + t, plain + p, flops + f, flops_padded + fp, nbytes + b)
+    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    bound_padded = bound_ms(flops_padded, nbytes, PEAK_BF16_FLOPS)[0]
+    v1 = records["mrf_stack"]["ms"] + records["mrf_stack_folded"]["ms"]
+    log(f"[v2] MRF per B=1 request at bucket 1000: {ms:.4f} ms (V1 {v1:.4f} ms in phase 6); "
+        f"bound {bound:.4f} ms at bf16 ({by}) for the unpadded {flops / 1e9:.1f} GFLOP, "
+        f"{bound_padded:.4f} ms for the padded {flops_padded / 1e9:.1f} GFLOP")
+    rec.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+
+
+def widths_phase(torch, pre, cfg, model, vocoder, records):
+    """Phase 19: (a) `mrf_widths`; (b) `hifigan_v2_phase`; (c) the
+    multi-device dryrun at the JAX dryrun's widths (denoiser 8, vocoder
+    stages 8 and 4), rank 0's kernel launches read from its synthesis
+    line; (d) `denoiser_widths` at WIDE_WIDTHS, and the time at C = 512
+    (B=1, T=1000, 20 layers) beside the bound."""
+    import re
+    from mixgantts_tpu_torch.dryrun import dryrun_multigpu
+    from mixgantts_tpu_torch.ops import denoiser_stack as den
+    t_start = time.perf_counter()
+    mrf_widths(torch, records)
+    hifigan_v2_phase(torch, pre, cfg, model, vocoder, records)
+    out = dryrun_multigpu(2, device="cuda", timeout=300)
+    m = re.search(r"launches=\[(\d+), (\d+), (\d+)\]", out)
+    launches = tuple(int(n) for n in m.groups()) if m else None
+    log(f"[widths] (c) the dryrun at the JAX dryrun's widths: rank 0's synthesis launched "
+        f"(denoiser, mrf_stack, mrf_stack_folded) {launches}")
+    if not launches or not (launches[0] and launches[2]):
+        raise AssertionError("the dryrun's synthesis did not launch the denoiser and the "
+                             "folded MRF kernel")
+    rec = records["fused_residual_stack_c512"]
+    rec["launches"] = denoiser_widths(torch, rec, WIDE_WIDTHS, seed=19)
+    ctas, cluster, resident = den.launch_shape(1, 1000, 512)
+    log(f"  residual_stack_mma<512>: clusters of {cluster} CTAs, {resident} resident at once; "
+        f"{ctas} CTAs at B=1, T=1000")
+    if resident < 1:
+        raise AssertionError("no cluster of the C=512 denoiser kernel fits the card")
+    g = torch.Generator("cuda").manual_seed(21)
+    ms, plain, b, by = time_denoiser(torch, "fused_residual_stack", 1, 1000,
+                                     den.denoiser_kernel_weights(random_stack(torch, 20, 512,
+                                                                              256, g)))
+    rec.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    log(f"[widths] phase 19 took {time.perf_counter() - t_start:.1f} s")
 
 
 def main():
@@ -2939,7 +3286,11 @@ def main():
                "mrf_stack_streamed": ("mixgantts_tpu_torch/csrc/mrf_stack_streamed.cu",
                                       "mixgantts_tpu/ops/pallas_vocoder.py:461"),
                "fused_residual_stack_c16": ("mixgantts_tpu_torch/csrc/denoiser_stack.cu",
-                                            "mixgantts_tpu/ops/pallas.py:122")}
+                                            "mixgantts_tpu/ops/pallas.py:122"),
+               "mrf_stack_folded_v2": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
+                                       "mixgantts_tpu/ops/pallas_vocoder.py:303"),
+               "fused_residual_stack_c512": ("mixgantts_tpu_torch/csrc/denoiser_stack.cu",
+                                             "mixgantts_tpu/ops/pallas.py:122")}
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "err": 0.0}
                for name, (src, rep) in sources.items()}
@@ -2989,6 +3340,9 @@ def main():
     bench_phase(torch, pre, cfg, model, vocoder, records)         # phase 17
     log("[horizon] the denoiser kernel below C=256, and the long-horizon drive's stages")
     horizon_phase(torch, records)                                 # phase 18
+    log("[widths] the MRF kernel at every width up to 256, HiFi-GAN V2, the dryrun at the "
+        "JAX dryrun's widths, the denoiser above 256")
+    widths_phase(torch, pre, cfg, model, vocoder, records)        # phase 19
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

@@ -33,11 +33,15 @@
 //   batch row; CTA `rank` owns gate channels [32 rank, 32 rank + 32) with
 //   the matching filter channels, and the same 32 channels of x' and of
 //   skip.  At B = 1, T = 1000, C = 256 that is 16 clusters of 8: 128 CTAs.
-//   C is 64, 128 or 256 (clusters of 2, 4 or 8); ops/denoiser_stack.py runs
-//   a narrower stack at the next of them, with zero channels above its own
-//   (a zero gate channel gives sigmoid(0) * tanh(0) = 0, so they stay zero).
-//   A CTA takes 107,648 bytes of shared memory, so two fit an SM and the
-//   card holds 30 clusters at once (with a CTA a whole SM it holds 15).
+//   C is 64, 128, 256 or 512 (clusters of 2, 4, 8 or 16; 16 is beyond the
+//   portable cluster size of 8, so the kernel at 512 is allowed a
+//   non-portable one); ops/denoiser_stack.py runs a narrower stack at the
+//   next of them, with zero channels above its own (a zero gate channel
+//   gives sigmoid(0) * tanh(0) = 0, so they stay zero).  At C = 256 a CTA
+//   takes 107,648 bytes of shared memory, so two fit an SM and the card
+//   holds 30 clusters at once (with a CTA a whole SM it holds 15); at
+//   C = 512 a CTA takes 174,208 bytes, one an SM, and a cluster of 16 needs
+//   16 SMs of one GPC.
 // - One launch runs all L layers while a batch row's clusters fit the card
 //   at once; a request with more rows than fit runs as a few such launches,
 //   each over as many rows as fit.  These launches are cooperative: the
@@ -103,7 +107,7 @@ constexpr int kInFlight = 2;             // wgmma groups (chunks) in flight
 
 template <int C>
 struct Layout {
-  static_assert(C == 64 || C == 128 || C == 256, "C must be 64, 128 or 256");
+  static_assert(C == 64 || C == 128 || C == 256 || C == 512, "C must be 64, 128, 256 or 512");
   static constexpr int kRanks = C / kGroup;        // CTAs per cluster
   static constexpr int kConvSteps = 3 * C / 16;    // K = 3C
   static constexpr int kOutSteps = C / 16;         // K = C
@@ -502,12 +506,16 @@ cudaLaunchConfig_t launch_config(int rows, int T, cudaStream_t stream, cudaLaunc
   return cfg;
 }
 
-// Raises the kernel's shared-memory limit on the current device and writes
-// the clusters that device holds at once to *out.
+// Raises the kernel's shared-memory limit on the current device (and, for
+// clusters of more than 8 CTAs, allows a non-portable cluster size) and
+// writes the clusters that device holds at once to *out.
 template <int C>
 int max_active_clusters(int* out) {
   cudaError_t err = cudaFuncSetAttribute(
       residual_stack_mma<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<C>::kBytes);
+  if (err == cudaSuccess && Layout<C>::kRanks > 8)
+    err = cudaFuncSetAttribute(residual_stack_mma<C>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attrs[2];
   const cudaLaunchConfig_t cfg =
@@ -606,6 +614,9 @@ int denoiser_stack_bf16(const float* x, const float* condp, const float* step_pr
     case 256:
       return run_stack<256>(x, condp, step_proj, conv_w, conv_b, out_w, out_b, x_out, skip,
                             scratch, halo, B, T, L, s, launches);
+    case 512:
+      return run_stack<512>(x, condp, step_proj, conv_w, conv_b, out_w, out_b, x_out, skip,
+                            scratch, halo, B, T, L, s, launches);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -617,6 +628,7 @@ int denoiser_stack_smem_bytes(int C) {
     case 64: return Layout<64>::kBytes;
     case 128: return Layout<128>::kBytes;
     case 256: return Layout<256>::kBytes;
+    case 512: return Layout<512>::kBytes;
     default: return -1;
   }
 }
@@ -627,6 +639,7 @@ int denoiser_stack_cluster_size(int C) {
     case 64: return Layout<64>::kRanks;
     case 128: return Layout<128>::kRanks;
     case 256: return Layout<256>::kRanks;
+    case 512: return Layout<512>::kRanks;
     default: return -1;
   }
 }
@@ -638,6 +651,7 @@ int denoiser_stack_max_active_clusters(int C, int* out) {
     case 64: return resident_clusters<64>(out);
     case 128: return resident_clusters<128>(out);
     case 256: return resident_clusters<256>(out);
+    case 512: return resident_clusters<512>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

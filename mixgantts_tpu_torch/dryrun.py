@@ -10,10 +10,10 @@ printing its OK line:
    (int16 within 2).
 At the JAX package's tiny configuration (`__graft_entry__.py:30-40`: one
 encoder and decoder layer, hidden 16, denoiser 1 x 8) and its tiny
-HiFi-GAN, one utterance per data shard.  On CUDA the synthesis model's
-denoiser is 128 channels wide and the vocoder's first stage 128, the
-narrowest widths the hand-written kernels are built for, so each rank's
-synthesis launches them.
+HiFi-GAN (stages 8 and 4), one utterance per data shard, on every device:
+on CUDA each rank's synthesis launches the denoiser kernel and the folded
+MRF kernel, which run those widths with zero channels up to the widths
+they are built for.
 
     python -m mixgantts_tpu_torch.dryrun [N] [--device cuda|cpu]
 
@@ -34,20 +34,16 @@ import torch
 TINY_VOCODER = {"resblock": "1", "upsample_rates": [4, 4], "upsample_kernel_sizes": [8, 8],
                 "upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
                 "resblock_dilation_sizes": [[1, 3]], "num_mels": 80}
-KERNEL_WIDTHS = {"residual_channels": 128, "upsample_initial_channel": 128}
 GROUP_TIMEOUT = 120     # seconds, each collective
 
 
-def tiny_configs(kernel_widths=False):
-    """The LJSpeech configs cut to the JAX dryrun's tiny model (denoiser
-    128 wide with `kernel_widths`)."""
+def tiny_configs():
+    """The LJSpeech configs cut to the JAX dryrun's tiny model."""
     from .config import get_configs_of
     pre, cfg, tc = get_configs_of("LJSpeech")
     cfg["transformer"].update(encoder_layer=1, decoder_layer=1, encoder_hidden=16,
                               conv_filter_size=32, conv_kernel_size=3)
     cfg["denoiser"].update(residual_layers=1, residual_channels=8, denoiser_hidden=16)
-    if kernel_widths:
-        cfg["denoiser"]["residual_channels"] = KERNEL_WIDTHS["residual_channels"]
     cfg["variance_predictor"].update(filter_size=16)
     cfg["max_seq_len"] = 16
     return pre, cfg, tc
@@ -84,6 +80,8 @@ def run_phases(mesh, device):
     """The three phases on this rank of `mesh`."""
     from .models.discriminator import JCUDiscriminator
     from .models.hifigan import HiFiGANGenerator
+    from .ops.denoiser_stack import fused_residual_stack
+    from .ops.mrf import mrf_stack, mrf_stack_folded
     from .parallel import (
         partition_specs, replicate_state, shard_batch, shard_state, shard_train_step,
     )
@@ -116,14 +114,9 @@ def run_phases(mesh, device):
                   flush=True)
 
     # data-parallel synthesis: each rank its rows, the noise of the whole batch
-    kernels = torch.device(device).type == "cuda"
-    syn_configs = tiny_configs(kernel_widths=kernels)
-    model = _model("shallow", syn_configs, device)
-    vconfig = dict(TINY_VOCODER)
-    if kernels:
-        vconfig["upsample_initial_channel"] = KERNEL_WIDTHS["upsample_initial_channel"]
+    model = _model("shallow", configs, device)
     torch.manual_seed(1)
-    vocoder = HiFiGANGenerator.from_config(vconfig, device=device)
+    vocoder = HiFiGANGenerator.from_config(TINY_VOCODER, device=device)
     T = 16
     gen = torch.Generator().manual_seed(3)
     noise = {"start_noise": torch.randn(B, T, 80, generator=gen),
@@ -140,7 +133,15 @@ def run_phases(mesh, device):
     r = mesh.coords["data"] * (B // D)
     mine = {"start_noise": noise["start_noise"][r:r + B // D],
             "step_noises": noise["step_noises"][:, r:r + B // D]}
+    counters = (fused_residual_stack, mrf_stack, mrf_stack_folded)
+    for fn in counters:
+        fn.launches = 0
     wav, _ = synthesize(local, mine)
+    launches = tuple(fn.launches for fn in counters)
+    if torch.device(device).type == "cuda" and not (launches[0] and launches[2]):
+        raise AssertionError(f"dryrun: this rank's synthesis launched (denoiser, mrf_stack, "
+                             f"mrf_stack_folded) {launches} times; the denoiser and the "
+                             f"folded MRF kernel must run")
     parts = [torch.empty_like(wav) for _ in range(mesh.size)]
     dist.all_gather(parts, wav.contiguous())
     rows = torch.cat([parts[d * M] for d in range(D)]).cpu()   # model rank 0 of each data row
@@ -154,7 +155,8 @@ def run_phases(mesh, device):
             raise AssertionError(f"dryrun: the gathered rows differ from one rank's whole "
                                  f"batch by {diff:.1f} int16 steps")
         print(f"dryrun phase [dp synthesis] mesh={tag} wav={tuple(rows.shape)} "
-              f"(against one rank: {diff:.2f} int16 steps) OK", flush=True)
+              f"(against one rank: {diff:.2f} int16 steps) launches={list(launches)} OK",
+              flush=True)
 
 
 def _rank_main(rank, world, device, init_method):
@@ -175,7 +177,9 @@ def _rank_main(rank, world, device, init_method):
 def dryrun_multigpu(n, device="cuda", timeout=600):
     """Run the dryrun on n ranks, one process each (`parallel.start_ranks`);
     raises if a rank fails or the run outlasts `timeout` seconds (every
-    rank is then killed).  Prints rank 0's output."""
+    rank is then killed).  Prints and returns rank 0's output (its
+    synthesis line carries that rank's kernel launches, `launches=[denoiser,
+    mrf_stack, mrf_stack_folded]`)."""
     from .parallel.launch import start_ranks
     t0 = time.time()
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -188,6 +192,7 @@ def dryrun_multigpu(n, device="cuda", timeout=600):
     print(logs[0], end="", flush=True)
     print(f"dryrun_multigpu({n}): 3 phases (naive step, shallow step, dp synthesis) OK "
           f"in {time.time() - t0:.1f} s", flush=True)
+    return logs[0]
 
 
 def main(argv=None):

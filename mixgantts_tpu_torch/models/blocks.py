@@ -139,7 +139,14 @@ class LinearNorm(nn.Module):
     def __init__(self, c_in, c_out, bias=False):
         super().__init__()
         self.linear = nn.Linear(c_in, c_out, bias=bias)
-        nn.init.xavier_uniform_(self.linear.weight)
+        self.reset_like_jax()
+
+    @torch.no_grad()
+    def reset_like_jax(self, generator=None):
+        """The JAX package's LinearNorm init: xavier-uniform, zero bias."""
+        nn.init.xavier_uniform_(self.linear.weight, generator=generator)
+        if self.linear.bias is not None:
+            nn.init.zeros_(self.linear.bias)
 
     def forward(self, x):
         return self.linear(x.to(self.linear.weight.dtype))
@@ -229,6 +236,15 @@ class RelativeSelfAttention(nn.Module):
             torch.randn(1, 2 * window_size + 1, k_channels) * std)
         self.emb_rel_v = nn.Parameter(
             torch.randn(1, 2 * window_size + 1, k_channels) * std)
+
+    @torch.no_grad()
+    def reset_like_jax(self, generator=None):
+        """The JAX package's named inits: xavier-uniform q, k and v
+        projections, the relative tables N(0, 1 / k_channels)."""
+        for conv in (self.conv_q, self.conv_k, self.conv_v):
+            nn.init.xavier_uniform_(conv.weight, generator=generator)
+        for emb in (self.emb_rel_k, self.emb_rel_v):
+            nn.init.normal_(emb, std=emb.shape[-1] ** -0.5, generator=generator)
 
     def forward(self, x, attn_mask):
         # x [B, L, C]; attn_mask [B, 1, L, L] bool, True = valid

@@ -89,12 +89,18 @@ class Denoiser(nn.Module):
             ResidualBlock(d_encoder, C, multi_speaker) for _ in range(residual_layers))
         self.skip_projection = ConvNorm(C, C, 1)
         self.output_projection = ConvNorm(C, n_mels, 1)
-        nn.init.zeros_(self.output_projection.conv.weight)  # as the reference
+        self.reset_like_jax()
         self._stacked = None
         # type of the stack's conv and output weights, and so of its
         # arithmetic: None is bf16 on CUDA (the only type the kernel takes)
         # and the parameters' type elsewhere
         self.stack_dtype = None
+
+    @torch.no_grad()
+    def reset_like_jax(self, generator=None):
+        """The output projection's weight starts at zero, as in the
+        reference and the JAX package."""
+        nn.init.zeros_(self.output_projection.conv.weight)
 
     def stacked(self):
         """The residual blocks' weights stacked for `fused_residual_stack`

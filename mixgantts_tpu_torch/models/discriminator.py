@@ -16,6 +16,7 @@ import torch.nn as nn
 
 from ..utils.tools import resolve_device
 from .blocks import ConvNorm, LinearNorm, Mish, diffusion_embedding
+from .initializers import init_like_jax
 
 
 def leaky_relu(x, slope=0.2):
@@ -48,12 +49,16 @@ class JCUDiscriminator(nn.Module):
             conv(j, n_channels[j - 1]) for j in range(n_layer, n_layer + n_uncond_layer))
         if multi_speaker:
             self.spk_mlp = nn.Sequential(LinearNorm(speaker_dim, n_channels[n_layer - 1]))
-        # the JAX package's convolution init, normal(0.02) with zero bias
+        init_like_jax(self)
+        self.to(resolve_device(device))
+
+    @torch.no_grad()
+    def reset_like_jax(self, generator=None):
+        """The JAX package's convolution init: normal(0.02), zero bias."""
         for block in (self.conv_block, self.cond_conv_block, self.uncond_conv_block):
             for m in block:
-                nn.init.normal_(m.conv.weight, std=0.02)
+                nn.init.normal_(m.conv.weight, std=0.02, generator=generator)
                 nn.init.zeros_(m.conv.bias)
-        self.to(resolve_device(device))
 
     @classmethod
     def from_configs(cls, preprocess_config, model_config, device=None):

@@ -37,6 +37,7 @@ from ..ops.mrf import (
     stack_mrf_params_folded,
 )
 from ..utils.tools import resolve_device
+from .initializers import init_like_jax
 
 
 class ResBlock1(nn.Module):
@@ -82,6 +83,7 @@ class HiFiGANGenerator(nn.Module):
         # type of the MRF weights, and so of the MRF arithmetic: None is
         # bf16 on CUDA (the only type the kernel takes) and fp32 elsewhere
         self.mrf_dtype = None
+        init_like_jax(self)
         self.to(device)
 
     @classmethod

@@ -75,6 +75,11 @@ class LinguisticEncoder(nn.Module):
         self.register_buffer("energy_bins", _bins(*energy_range, n_bins, energy_quantization),
                              persistent=False)
 
+    @torch.no_grad()
+    def reset_like_jax(self, generator=None):
+        """The JAX package's phoneme table: N(0, 1)."""
+        nn.init.normal_(self.src_emb.weight, generator=generator)
+
     def forward(self, texts, src_p_len, word_boundary, src_w_len, max_mel_len,
                 p_control=1.0, d_control=1.0, mel_mask=None, attn_prior=None,
                 pitch_target=None, energy_target=None, duration_target=None):

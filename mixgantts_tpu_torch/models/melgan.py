@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..utils.tools import resolve_device
+from .initializers import init_like_jax
 
 
 class ResnetBlock(nn.Module):
@@ -50,6 +51,7 @@ class MelGANGenerator(nn.Module):
             mult //= 2
         layers += [nn.LeakyReLU(0.2), nn.ReflectionPad1d(3), nn.Conv1d(ngf, 1, 7)]
         self.model = nn.Sequential(*layers)
+        init_like_jax(self)
         self.to(device)
 
     def forward(self, mel):

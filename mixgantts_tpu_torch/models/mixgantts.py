@@ -51,6 +51,7 @@ from ..utils.tools import resolve_device
 from .aux_decoder import Decoder, PostNet
 from .denoiser import Denoiser
 from .diffusion import GaussianDiffusion, schedule_betas
+from .initializers import init_like_jax
 from .linguistic_encoder import LinguisticEncoder
 
 
@@ -144,6 +145,7 @@ class MixGANTTS(nn.Module):
                      residual_channels=residual_channels,
                      residual_layers=residual_layers, multi_speaker=multi_speaker),
             betas, stats.spec_min[:n_mels], stats.spec_max[:n_mels])
+        init_like_jax(self)
         self.to(device)
         self.eval()
 

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.tools import resolve_device
+from .initializers import init_like_jax
 
 SAMPLE_RATE = 22050
 NUM_FRAMES = 160
@@ -195,22 +196,6 @@ class DeepSpeakerResCNN(nn.Module):
         x = self.affine(x.mean(dim=1))                  # temporal average
         return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
 
-    @torch.no_grad()
-    def init_like_flax(self, generator):
-        """flax's initialisers: lecun_normal kernels (truncated normal,
-        variance 1 / fan_in), zero biases, BatchNorm at identity.  The
-        draws come from `generator` and cannot equal flax's."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-                w = torch.empty(m.weight.shape)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
-                m.weight.copy_(w)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
-
 
 def convert_keras_weights(h5_path):
     """Keras ResCNN_triplet .h5 -> the JAX package's params/batch_stats
@@ -285,7 +270,7 @@ class PreDefinedEmbedder:
                 deepspeaker_state_dict(*convert_keras_weights(ckpt_path)), strict=True)
         else:
             print(f"DeepSpeaker: no checkpoint at {ckpt_path}; random weights (seed 0)")
-            self.module.init_like_flax(torch.Generator().manual_seed(0))
+            init_like_jax(self.module, torch.Generator().manual_seed(0))
         self.module.to(self.device).eval()
 
     @torch.no_grad()

@@ -31,14 +31,15 @@ fp32 state, and the outputs come back in x's type.
 
 Widths: the TPU kernel takes any C (its blocks span the whole channel
 axis).  The CUDA kernel is built for C in KERNEL_WIDTHS (a cluster of C / 32
-CTAs, each owning 32 channels, with whole 8 KB weight chunks), so a stack
-of any C <= 256 runs there at the next of them, Cp, with zero channels
-above C (`pad_denoiser_width`, `pad_channels`), and its outputs are cut
-back to C.  The zero channels are exact: a zero gate channel gives
-sigmoid(0) * tanh(0) = 0, and zero weight rows add nothing to the fp32
-sums.  The weights are padded once, in `denoiser_kernel_weights`; x, the
-step projections and the conditioner projections come at Cp per call.
-Wider than 256 would take clusters of more than 8 CTAs, and raises.
+CTAs, each owning 32 channels, with whole 8 KB weight chunks; 512 takes
+clusters of 16, beyond the portable 8), so a stack of any C <= 512 runs
+there at the next of them, Cp, with zero channels above C
+(`pad_denoiser_width`, `pad_channels`), and its outputs are cut back to C.
+The zero channels are exact: a zero gate channel gives sigmoid(0) * tanh(0)
+= 0, and zero weight rows add nothing to the fp32 sums.  The weights are
+padded once, in `denoiser_kernel_weights`; x, the step projections and the
+conditioner projections come at Cp per call.  Wider than 512 would take
+clusters of more than 16 CTAs, which an H100 does not run, and raises.
 """
 
 import ctypes
@@ -48,10 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .mrf import no_tf32, upcast
+from .mrf import no_tf32, pad_channels, upcast
 
 GROUP = 32   # gate channels per CTA of the CUDA kernel (`kGroup` in the source)
-KERNEL_WIDTHS = (64, 128, 256)   # the C the CUDA kernel is built for (`Layout<C>`)
+KERNEL_WIDTHS = (64, 128, 256, 512)   # the C the CUDA kernel is built for (`Layout<C>`)
 
 
 def stack_denoiser_params(denoiser):
@@ -180,12 +181,6 @@ def kernel_width(C):
                      f"{KERNEL_WIDTHS[-1] // GROUP} CTAs)")
 
 
-def pad_channels(t, Cp):
-    """t [..., C] with zero channels appended up to [..., Cp] (t itself
-    where C = Cp)."""
-    return t if t.shape[-1] == Cp else F.pad(t, (0, Cp - t.shape[-1]))
-
-
 def _pad_halves(w, C, Cp):
     """[..., 2C] holding two halves of C -> [..., 2Cp], each half padded
     on its own ([:C] -> [:Cp], [C:] -> [Cp:Cp + C])."""
@@ -234,7 +229,7 @@ def denoiser_kernel_weights(stacked):
     """Stacked weights as the CUDA kernel takes them.  The stack itself,
     for the plain version: conv_w/out_w in bf16 (the TPU kernel's operand
     type, `pallas.py:133-138`), conv_b/out_b, cond_w/cond_b, step_w (and a
-    multi-speaker stack's spk_w) in fp32.  And, where C <= 256, the
+    multi-speaker stack's spk_w) in fp32.  And, where C <= 512, the
     kernel's own tensors at its width Cp (`kernel_width`; zero channels
     above C, `pad_denoiser_width`): the bf16 copies `conv_w_mma` [L, Cp / 32,
     3Cp * 64] (K = tap * Cp + input channel) and `out_w_mma` [L, Cp / 32,
@@ -382,7 +377,7 @@ def fused_residual_stack(x, cond, step_emb, stacked, spk_proj=None):
     the projections rounded to bf16).
 
     CUDA tensors run the hand-written bf16 tensor-core kernel (any C <=
-    256, at `kernel_width`; fp32 weights are cast per call) and add the number of kernel
+    512, at `kernel_width`; fp32 weights are cast per call) and add the number of kernel
     launches (one for all the layers, a few for a batch larger than the
     card holds at once, one per layer for a sequence too long for that) to
     `fused_residual_stack.launches`; CPU tensors run the plain version in

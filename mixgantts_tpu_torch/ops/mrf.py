@@ -29,6 +29,18 @@ The signal x may be fp32 or bf16 (a vocoder computing in bf16, as the TPU
 kernels read it under the JAX package's bf16 compute): bf16 is upcast
 exactly into the fp32-input kernels and plain version, and the output comes
 back in x's type.
+
+Widths: the TPU kernels take any C.  `csrc/mrf_stack.cu` is built for C in
+KERNEL_WIDTHS (its wgmma N is the whole channel axis, a multiple of 32), so
+a stage of any C <= 256 runs there at the next of them, Cp, with zero
+channels above C (`kernel_width`, `pad_mrf_width`, `pad_channels`), and the
+output is cut back to C.  The zero channels are exact: leaky_relu(0) = 0,
+and zero weights and biases keep them zero and add nothing to the fp32 sums
+of the real channels.  The weights are padded once, in `kernel_weights`
+(the keys the kernel reads: `w1_mma`, `w2_mma`, `b1_mma`, `b2_mma`); x
+comes at Cp per call.  Wider than 256 raises: the TPU's branchwise route
+takes such a stage, and no HiFi-GAN config has one.  The whole-stage kernel
+(`mrf_stack_streamed`) takes C = 256 alone.
 """
 
 import contextlib
@@ -41,6 +53,7 @@ from . import cuda_build
 
 LRELU_SLOPE = 0.1
 TAPS = 11  # every kernel is zero-padded to the largest (k = 11)
+KERNEL_WIDTHS = (32, 64, 128, 256)   # the C csrc/mrf_stack.cu is built for
 
 
 def stack_mrf_params(generator, stage, kernel_sizes=(3, 7, 11),
@@ -81,6 +94,32 @@ def stack_mrf_params_folded(generator, stage, fold, kernel_sizes=(3, 7, 11),
 def upcast(t):
     """bf16 activations upcast to fp32 (exact); anything else as it is."""
     return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def pad_channels(t, Cp):
+    """t [..., C] with zero channels appended up to [..., Cp] (t itself
+    where C = Cp)."""
+    return t if t.shape[-1] == Cp else F.pad(t, (0, Cp - t.shape[-1]))
+
+
+def kernel_width(C):
+    """The width Cp at which `csrc/mrf_stack.cu` runs a C-channel stage:
+    the least of KERNEL_WIDTHS that is >= C.  Raises above the widest."""
+    for Cp in KERNEL_WIDTHS:
+        if C <= Cp:
+            return Cp
+    raise ValueError(f"mrf_stack kernel: C={C}; it takes C <= {KERNEL_WIDTHS[-1]} (a wider "
+                     f"stage would need a kernel that splits its channels over a cluster)")
+
+
+def pad_mrf_width(stacked, Cp):
+    """Stacked weights of width C -> width Cp >= C with zero channels:
+    w1/w2 [n_br, n_pair, 11, Cp, Cp] (both channel axes), b1/b2 [n_br,
+    n_pair, Cp].  The stage at Cp of x padded so (`pad_channels`) equals
+    the stage at C on its first C channels; the others stay zero."""
+    C = stacked["b1"].shape[-1]
+    return dict(stacked, **{k: F.pad(stacked[k], (0, Cp - C, 0, Cp - C)) for k in ("w1", "w2")},
+                **{k: pad_channels(stacked[k], Cp) for k in ("b1", "b2")})
 
 
 def mrf_stack_plain(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
@@ -171,28 +210,33 @@ def _pack_taps(w, kernel_sizes):
 
 
 def kernel_weights(stacked, kernel_sizes=(3, 7, 11)):
-    """Stacked weights as the CUDA kernels take them: w1/w2
-    in bf16 (the TPU kernel's operand type, `pallas_vocoder.py:535-539`),
-    b1/b2 in fp32, and the bf16 copies `w1_mma`/`w2_mma` in the kernel's
-    order for `kernel_sizes`.  `models.hifigan.fused_apply` makes them once
-    per stage; the entry points make them per call for weights that lack
-    them."""
+    """Stacked weights as the CUDA kernels take them.  The stack itself,
+    for the plain version: w1/w2 in bf16 (the TPU kernel's operand type,
+    `pallas_vocoder.py:535-539`), b1/b2 in fp32.  And, where C <= 256, the
+    kernel's own tensors at its width Cp (`kernel_width`; zero channels
+    above C, `pad_mrf_width`): the bf16 copies `w1_mma`/`w2_mma` in the
+    kernel's order for `kernel_sizes`, and `b1_mma`/`b2_mma` in fp32.
+    `models.hifigan.fused_apply` makes them once per stage; the entry
+    points make them per call for weights that lack them."""
     w1 = stacked["w1"].to(torch.bfloat16).contiguous()
     w2 = stacked["w2"].to(torch.bfloat16).contiguous()
-    return dict(stacked, w1=w1, w2=w2,
-                b1=stacked["b1"].float().contiguous(), b2=stacked["b2"].float().contiguous(),
-                w1_mma=_pack_taps(w1, kernel_sizes), w2_mma=_pack_taps(w2, kernel_sizes),
-                mma_kernel_sizes=tuple(kernel_sizes))
+    out = dict(stacked, w1=w1, w2=w2,
+               b1=stacked["b1"].float().contiguous(), b2=stacked["b2"].float().contiguous())
+    C = out["b1"].shape[-1]
+    if C <= KERNEL_WIDTHS[-1]:
+        padded = pad_mrf_width(out, kernel_width(C))
+        out.update(w1_mma=_pack_taps(padded["w1"], kernel_sizes),
+                   w2_mma=_pack_taps(padded["w2"], kernel_sizes),
+                   b1_mma=padded["b1"].contiguous(), b2_mma=padded["b2"].contiguous(),
+                   mma_kernel_sizes=tuple(kernel_sizes))
+    return out
 
 
-def _check(name, x, stacked, kernel_sizes, dilations, widths):
+def _check(name, x, stacked, kernel_sizes, dilations):
     """Raise unless a CUDA kernel takes x [B, T, C] (fp32) and the stacked
     weights (bf16 or fp32; `kernel_weights` casts them) as they are."""
     B, T, C = x.shape
     n_br, n_pair = len(kernel_sizes), len(dilations)
-    if C not in widths:
-        raise ValueError(f"{name} kernel: C={C}; built for "
-                         f"{', '.join(map(str, widths))}")
     if any(k not in (3, 7, 11) for k in kernel_sizes):
         raise ValueError(f"{name} kernel: kernel sizes {kernel_sizes}; "
                          "built for 3, 7 and 11")
@@ -218,34 +262,36 @@ def _int_array(values):
     return ctypes.cast((ctypes.c_int * len(values))(*values), ctypes.c_void_p)
 
 
-def _mma_weights(name, x, stacked, kernel_sizes, dilations, widths):
-    """Check x and the stacked weights for a bf16 CUDA kernel and return
-    them with their wgmma-ordered copies (`kernel_weights`, made for this
-    call where fp32 weights lack them); raise on what the kernel does not
-    take."""
-    C = x.shape[-1]
-    _check(name, x, stacked, kernel_sizes, dilations, widths)
+def _mma_weights(name, x, stacked, kernel_sizes, dilations, Cp):
+    """Check x and the stacked weights for a bf16 CUDA kernel running at
+    width Cp and return them with the kernel's own tensors
+    (`kernel_weights`, made for this call where fp32 weights lack them);
+    raise on what the kernel does not take."""
+    _check(name, x, stacked, kernel_sizes, dilations)
     if "w1_mma" not in stacked:
         stacked = kernel_weights(stacked, kernel_sizes)
-    packed = (len(kernel_sizes), len(dilations), TAPS * C * C)
+    packed = (len(kernel_sizes), len(dilations), TAPS * Cp * Cp)
+    bias = (len(kernel_sizes), len(dilations), Cp)
     if (stacked["mma_kernel_sizes"] != kernel_sizes
             or any(stacked[k].shape != packed or stacked[k].dtype != torch.bfloat16
                    or stacked[k].device != x.device for k in ("w1_mma", "w2_mma"))
-            or any(stacked[k].dtype != torch.float32 for k in ("b1", "b2"))):
+            or any(stacked[k].shape != bias or stacked[k].dtype != torch.float32
+                   or stacked[k].device != x.device for k in ("b1_mma", "b2_mma"))):
         raise ValueError(f"{name} kernel: w1_mma/w2_mma must be bf16 {packed} on "
                          f"{x.device}, laid out for kernel sizes {kernel_sizes}, and "
-                         "b1/b2 fp32; make them with kernel_weights")
+                         f"b1_mma/b2_mma fp32 {bias}; make them with kernel_weights")
     return stacked
 
 
 def _launch(x, stacked, kernel_sizes, dilations):
     """Run csrc/mrf_stack.cu on a CUDA x [B, T, C] (fp32) with bf16
-    operands; fp32 weights are cast (`kernel_weights`) for this call.
-    Returns (out, launches)."""
+    operands, at the kernel's width Cp (`kernel_width`: x with zero
+    channels above C, the output cut back to C); fp32 weights are cast
+    (`kernel_weights`) for this call.  Returns (out, launches)."""
     B, T, C = x.shape
+    Cp = kernel_width(C)
     n_br, n_pair = len(kernel_sizes), len(dilations)
-    stacked = _mma_weights("mrf_stack", x, stacked, kernel_sizes, dilations,
-                           (32, 64, 128, 256))
+    stacked = _mma_weights("mrf_stack", x, stacked, kernel_sizes, dilations, Cp)
     lib = cuda_build.library("mrf_stack")
     fn = lib.mrf_stack_bf16
     fn.restype = ctypes.c_int
@@ -253,15 +299,16 @@ def _launch(x, stacked, kernel_sizes, dilations):
                    + [ctypes.c_void_p] * 3)
     ks, ds = _int_array(kernel_sizes), _int_array(dilations)
     with torch.cuda.device(x.device):
-        out = torch.empty_like(x)
-        buf0 = torch.empty_like(x)
-        buf1 = torch.empty_like(x)
-        err = fn(x.data_ptr(), out.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-                 stacked["w1_mma"].data_ptr(), stacked["b1"].data_ptr(),
-                 stacked["w2_mma"].data_ptr(), stacked["b2"].data_ptr(), B, T, C, n_br, n_pair,
-                 ks, ds, torch.cuda.current_stream().cuda_stream)
+        xp = pad_channels(x, Cp).contiguous()
+        out = torch.empty_like(xp)
+        buf0 = torch.empty_like(xp)
+        buf1 = torch.empty_like(xp)
+        err = fn(xp.data_ptr(), out.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
+                 stacked["w1_mma"].data_ptr(), stacked["b1_mma"].data_ptr(),
+                 stacked["w2_mma"].data_ptr(), stacked["b2_mma"].data_ptr(), B, T, Cp, n_br,
+                 n_pair, ks, ds, torch.cuda.current_stream().cuda_stream)
         cuda_build.check(lib, "mrf_stack", err)
-    return out, n_br * n_pair
+    return (out if Cp == C else out[..., :C].contiguous()), n_br * n_pair
 
 
 def tile_frames(C, k):
@@ -278,10 +325,10 @@ def mrf_stack(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     output [B, T, C].
 
     CUDA tensors run the hand-written bf16 tensor-core kernel (one launch
-    per branch and pair, counted in `mrf_stack.launches`) on the weights of
-    `kernel_weights` (fp32 weights are cast per call); CPU tensors run the
-    plain version in the weights' type.  bf16 x is upcast, and the output
-    comes back in x's type."""
+    per branch and pair, counted in `mrf_stack.launches`; any C <= 256, at
+    `kernel_width`) on the weights of `kernel_weights` (fp32 weights are
+    cast per call); CPU tensors run the plain version in the weights' type.
+    bf16 x is upcast, and the output comes back in x's type."""
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
     if x.device.type != "cuda":
@@ -296,7 +343,8 @@ mrf_stack.launches = 0
 
 def mrf_stack_folded(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
                      prefolded=False):
-    """The MRF stage for the narrow stages (C = 64 and 32 in HiFi-GAN V1).
+    """The MRF stage for the narrow stages (C = 64 and 32 in HiFi-GAN V1,
+    64 down to 8 in V2).
 
     prefolded=True takes x in the TPU kernel's folded layout [B, T/F, F*C]
     (x_folded[b, i, f*C + c] == x[b, F*i + f, c]), which is a view of the
@@ -376,8 +424,10 @@ def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5))
         raise ValueError(f"mrf_stack_streamed: no kernel for device {x.device}")
     dtype, x = x.dtype, upcast(x)
     kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
-    stacked = _mma_weights("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, (256,))
     B, T, C = x.shape
+    if C != 256:
+        raise ValueError(f"mrf_stack_streamed kernel: C={C}; built for 256")
+    stacked = _mma_weights("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, C)
     plan = streamed_plan(B, T, kernel_sizes, dilations, x.device)
     lib = _streamed_lib()
     with torch.cuda.device(x.device):
@@ -385,8 +435,8 @@ def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5))
         slab = torch.empty(plan["slab"], dtype=torch.float32, device=x.device)
         err = lib.mrf_stack_streamed_bf16(
             x.data_ptr(), out.data_ptr(), slab.data_ptr(),
-            stacked["w1_mma"].data_ptr(), stacked["b1"].data_ptr(),
-            stacked["w2_mma"].data_ptr(), stacked["b2"].data_ptr(), B, T, C, plan["tile"],
+            stacked["w1_mma"].data_ptr(), stacked["b1_mma"].data_ptr(),
+            stacked["w2_mma"].data_ptr(), stacked["b2_mma"].data_ptr(), B, T, C, plan["tile"],
             len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
             _int_array(dilations), torch.cuda.current_stream().cuda_stream)
         cuda_build.check(lib, "mrf_stack_streamed", err)

@@ -1,20 +1,20 @@
 """Which initialiser the long-horizon drive's wav bars see.
 
-The port's random inits are torch's defaults; the JAX package's are
-flax's.  For the random HiFi-GAN V1 that the synthesis CLI serves when
-there is no vocoder checkpoint, every layer of the JAX one takes flax's
-defaults: lecun_normal weights (a normal of variance 1 / fan_in, truncated
-at two standard deviations) and zero biases, where torch's are
-kaiming-uniform weights of variance 1 / (3 fan_in) and uniform biases.
-The final checkpoint of a finished drive (`tests/train_horizon_torch.py`)
-synthesizes "hello world" once per speaker, with the synthesis CLI's seed,
-and the mel is vocoded twice: by the vocoder as the port builds it, and by
-the same module re-initialised with flax's defaults (`jax_init`, drawn
-from seed 0; `tests/test_torch_init.py` holds its distributions against
-the JAX HiFi-GAN's).  Each wav's spectrum (`train_horizon_torch.spectrum`)
-is printed beside the drive's bars (interior energy > 0.2, mid and high
-bands >= 3%, and for two speakers a mean |delta| > 5% of the amplitude),
-as one JSON line.
+The port's random inits are the JAX package's (`models/initializers.py`:
+for the random HiFi-GAN V1 that the synthesis CLI serves when there is no
+vocoder checkpoint, flax's defaults, lecun_normal weights, a normal of
+variance 1 / fan_in truncated at two standard deviations, and zero
+biases); torch's own defaults are kaiming-uniform weights of variance
+1 / (3 fan_in) and uniform biases.  The final checkpoint of a finished
+drive (`tests/train_horizon_torch.py`) synthesizes "hello world" once per
+speaker, with the synthesis CLI's seed, and the mel is vocoded twice: by
+the vocoder as the port builds it (the synthesis CLI's wav), and by the
+same module redrawn with torch's defaults (`torch_default`, drawn from
+seed 0; `tests/test_torch_init.py` holds the port's draws against the JAX
+HiFi-GAN's distributions).  Each wav's spectrum
+(`train_horizon_torch.spectrum`) is printed beside the drive's bars
+(interior energy > 0.2, mid and high bands >= 3%, and for two speakers a
+mean |delta| > 5% of the amplitude), as one JSON line.
 
     python tests/horizon_init_witness_torch.py               # after the aux -> shallow drive
     python tests/horizon_init_witness_torch.py multispeaker  # after the 3-speaker drive
@@ -34,26 +34,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import train_horizon_torch as horizon  # noqa: E402  (puts the repo on sys.path)
 
 
-TRUNCATED_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
-
-
-def jax_init(generator, seed=0):
-    """`generator` (a HiFi-GAN) with flax's default initialisers, drawn on
-    the CPU from `seed`: every convolution's weight lecun_normal with fan_in
-    = weight[0].numel() (in x kernel, and out x kernel for a transposed
-    one, whose flax kernel is [k, out, in]), its bias zero.  Returns it."""
+def torch_default(generator, seed=0):
+    """`generator` with torch's default initialisers (each layer's
+    `reset_parameters`), drawn on the CPU from `seed`.  Returns it."""
     import torch
-    import torch.nn as nn
-    g = torch.Generator().manual_seed(seed)
-    state = {}
-    for name, m in generator.named_modules():
-        if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
-            std = m.weight[0].numel() ** -0.5 / TRUNCATED_STD
-            w = torch.empty(m.weight.shape)
-            state[f"{name}.weight"] = nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                                            generator=g)
-            state[f"{name}.bias"] = torch.zeros(m.bias.shape)
-    generator.load_state_dict(state)   # every parameter: the convolutions' alone
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        for m in generator.modules():
+            if m is not generator and hasattr(m, "reset_parameters"):
+                m.reset_parameters()
     return generator
 
 
@@ -85,8 +74,9 @@ def witness(ws, mode, step, speakers=(0,), device=None):
     vocoder = get_vocoder(cfg, num_mels=pre["preprocessing"]["mel"]["n_mel_channels"],
                           device=device)
     out = {}
-    flax_voc = Vocoder(vocoder.name, jax_init(copy.deepcopy(vocoder.generator)), vocoder.config)
-    for init, voc in (("torch_default", vocoder), ("jax", flax_voc)):
+    torch_voc = Vocoder(vocoder.name, torch_default(copy.deepcopy(vocoder.generator).cpu()).to(
+        device), vocoder.config)
+    for init, voc in (("jax", vocoder), ("torch_default", torch_voc)):
         pipe = TTSPipeline(model, voc, pre, cfg)
         pcm = {}
         for spk, batch in batches.items():   # the CLI's first batch draws from seed 0

@@ -1,7 +1,7 @@
 """The denoiser stack at the widths the CUDA kernel is not built for.
 
-The CUDA kernel runs C in {64, 128, 256}; `ops.denoiser_stack` runs any
-C <= 256 at the next of them, Cp, with zero channels above C
+The CUDA kernel runs C in {64, 128, 256, 512}; `ops.denoiser_stack` runs any
+C <= 512 at the next of them, Cp, with zero channels above C
 (`pad_denoiser_width`, `pad_channels`), and cuts the outputs back to C.
 What the card computes is the plain layers (`residual_layers_plain`) on
 those padded tensors: the weights it reads padded once, the step
@@ -19,7 +19,7 @@ the CPU:
   `fused_residual_stack` in interpret mode: fp32 at the pinned 2e-5
   (test_pallas.py), bf16 operands at the MRF's bf16 bar
   (test_torch_kernels.py);
-- above 256 the kernel's width raises, naming the limit.
+- above 512 the kernel's width raises, naming the limit.
 """
 
 import jax.numpy as jnp
@@ -60,14 +60,14 @@ def padded_stack(x, cond, step, st, Cp, spk=None):
 
 
 @pytest.mark.parametrize("speaker", [False, True], ids=["one_speaker", "multi_speaker"])
-@pytest.mark.parametrize("C", [16, 48, 80, 200])
+@pytest.mark.parametrize("C", [16, 48, 80, 200, 288, 512])
 def test_padded_stack_equals_unpadded(C, speaker):
     B, T, L, Hc, H = 2, 70, 3, 24, 12
     st, t = numpy_stack(L, C, Hc, H, seed=C, speaker=speaker)
     x, cond, step = t(B, T, C), t(B, T, Hc), t(B, C)
     spk = tden.speaker_projections(t(B, H), st) if speaker else None
     Cp = tden.kernel_width(C)
-    assert Cp == min(w for w in (64, 128, 256) if w >= C)
+    assert Cp == min(w for w in (64, 128, 256, 512) if w >= C)
     got = padded_stack(x, cond, step, st, Cp, spk)
     want = tden.fused_residual_stack_plain(x, cond, step, st, spk)
     for g, w in zip(got, want):
@@ -125,11 +125,11 @@ def test_padded_stack_matches_pallas_at_c16(dtype):
 
 
 def test_kernel_width_names_its_limit():
-    assert [tden.kernel_width(c) for c in (1, 16, 64, 65, 128, 129, 256)] == [
-        64, 64, 64, 128, 128, 256, 256]
-    with pytest.raises(ValueError, match="C <= 256"):
-        tden.kernel_width(257)
-    x = torch.zeros(1, 8, 320, device="meta")
-    with pytest.raises(ValueError, match="C <= 256"):
-        tden._check(x, torch.zeros(1, 8, 4, device="meta"), torch.zeros(1, 320, device="meta"),
-                    {"conv_w": torch.zeros(1, 3, 320, 640)})
+    assert [tden.kernel_width(c) for c in (1, 16, 64, 65, 128, 129, 256, 257, 512)] == [
+        64, 64, 64, 128, 128, 256, 256, 512, 512]
+    with pytest.raises(ValueError, match="C <= 512"):
+        tden.kernel_width(513)
+    x = torch.zeros(1, 8, 544, device="meta")
+    with pytest.raises(ValueError, match="C <= 512"):
+        tden._check(x, torch.zeros(1, 8, 4, device="meta"), torch.zeros(1, 544, device="meta"),
+                    {"conv_w": torch.zeros(1, 3, 544, 1088)})

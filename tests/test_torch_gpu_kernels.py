@@ -16,8 +16,11 @@ largest value: the same products summed in another order, plus bf16
 rounding flips of an intermediate (the MRF's conv1 output, the denoiser's y
 and g) where the two sums straddle a rounding boundary.  The denoiser
 kernel with a multi-speaker model's speaker term (in its conditioner
-projection) is held to the same bar, and so is every width C <= 256 (the
-kernel runs at the next of 64, 128 and 256 with zero channels above C).  Fed bf16 activations (a model
+projection) is held to the same bar, and so is every width C <= 512 (the
+kernel runs at the next of 64, 128, 256 and 512 with zero channels above
+C), and every MRF width C <= 256 (at the next of 32, 64, 128 and 256):
+HiFi-GAN V2's stages, and the dryrun's synthesis at the JAX dryrun's
+widths, launch the kernels.  Fed bf16 activations (a model
 computing in bf16), the kernels upcast them exactly and must give the same
 bits as when fed that fp32 upcast, rounded to bf16.
 """
@@ -52,6 +55,11 @@ def cuda():
 
 
 BF16_TOL = 4e-3   # the bf16 kernels against their bf16 plain versions
+# HiFi-GAN V2, the public config_v2.json of jik876/hifi-gan
+V2_CONFIG = {"resblock": "1", "num_mels": 80, "upsample_rates": [8, 8, 2, 2],
+             "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 128,
+             "resblock_kernel_sizes": [3, 7, 11],
+             "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]]}
 
 
 def assert_close(got, want, rel=1e-4):
@@ -147,11 +155,11 @@ def test_denoiser_kernel_with_speaker_term_matches_plain(cuda, B, T):
 
 @pytest.mark.parametrize("speaker", [False, True], ids=["one_speaker", "multi_speaker"])
 @pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("C", [16, 32, 48, 64, 80, 192, 256])
+@pytest.mark.parametrize("C", [16, 32, 48, 64, 80, 192, 256, 288, 384, 512])
 def test_denoiser_kernel_at_every_width(cuda, C, B, speaker):
-    """Every C <= 256 runs the kernel, at the next of 64, 128 and 256 with
-    zero channels above C (`kernel_width`), and matches its plain version
-    at C; the launch count rises."""
+    """Every C <= 512 runs the kernel, at the next of 64, 128, 256 and 512
+    with zero channels above C (`kernel_width`), and matches its plain
+    version at C; the launch count rises."""
     x, cond, step, stacked = denoiser_inputs(B, 300, C=C, Hc=64, seed=C + B)
     spk = None
     if speaker:
@@ -279,6 +287,82 @@ def test_mrf_stack_kernel_tile_edges(cuda, C, case):
     assert_close(got, mrf_stack_plain(x, st, kernel_sizes), BF16_TOL)
 
 
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("C", [4, 8, 16, 24, 48, 72, 96, 144, 200])
+def test_mrf_kernel_at_every_width(cuda, C, B):
+    """Every C <= 256 runs the kernel, at the next of 32, 64, 128 and 256
+    with zero channels above C (`kernel_width`), and matches its plain
+    version at C: the whole three-branch stage up to 128, one branch a call
+    above (as `fused_apply` calls it); the launch count rises at each call."""
+    x = torch.randn(B, 1000, C, device=cuda, generator=torch.Generator(cuda).manual_seed(C))
+    calls = [(3, 7, 11)] if C <= 128 else [(3,), (7,), (11,)]
+    for ks in calls:
+        st = kernel_weights(mrf_weights(C, ks), ks)
+        n0 = mrf_stack.launches
+        got = mrf_stack(x, st, ks)
+        torch.cuda.synchronize()
+        assert mrf_stack.launches == n0 + 3 * len(ks)
+        assert got.shape == x.shape
+        assert_close(got, mrf_stack_plain(x, st, ks), BF16_TOL)
+
+
+@pytest.mark.parametrize("C", [4, 8, 16])
+def test_mrf_stack_folded_kernel_at_narrow_widths(cuda, C):
+    """The folded entry point at V2's and the dryrun's narrow stages (F =
+    128 / C), run at 32 with zero channels."""
+    fold, T = 128 // C, 4096
+    x = torch.randn(2, T, C, device=cuda, generator=torch.Generator(cuda).manual_seed(T + C))
+    st = dict(kernel_weights(mrf_weights(C, (3, 7, 11))), fold=fold)
+    n0 = mrf_stack_folded.launches
+    got = mrf_stack_folded(x.reshape(2, T // fold, fold * C), st, prefolded=True)
+    torch.cuda.synchronize()
+    assert mrf_stack_folded.launches == n0 + 9
+    assert got.shape == x.shape
+    assert_close(got, mrf_stack_plain(x, st), BF16_TOL)
+
+
+def test_hifigan_v2_runs_the_folded_kernel(cuda):
+    """HiFi-GAN V2 (jik876/hifi-gan config_v2.json: stages 64, 32, 16, 8)
+    from a seed: a B=1 mel at frame bucket 1000 takes the folded kernel at
+    every stage (36 launches, `mrf_stack` none), and its wave stays within
+    the JAX package's bf16 vocoder bar (SNR > 30 dB) of the same generator's
+    fp32 plain path on the CPU."""
+    torch.manual_seed(2)
+    gen = HiFiGANGenerator.from_config(V2_CONFIG, device="cpu")
+    mel = torch.randn(1, 1000, 80, generator=torch.Generator().manual_seed(2)) - 5.0
+    with torch.no_grad():
+        want = gen(mel)
+        gen.to(cuda)
+        counts = mrf_stack.launches, mrf_stack_folded.launches
+        got = gen(mel.to(cuda))
+        torch.cuda.synchronize()
+    assert (mrf_stack.launches - counts[0], mrf_stack_folded.launches - counts[1]) == (0, 36)
+    got = got.cpu().double()
+    snr = 10 * np.log10((want.double() ** 2).mean().item()
+                        / ((got - want.double()) ** 2).mean().item())
+    assert snr > 30, f"SNR {snr:.1f} dB"
+
+
+def test_dryrun_widths_run_the_kernels(cuda):
+    """The dryrun's synthesis model (denoiser 8 channels) and vocoder (16
+    -> stages 8, 4) launch the denoiser kernel and the folded MRF kernel."""
+    from mixgantts_tpu_torch import dryrun
+    from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator as Gen
+    model = dryrun._model("shallow", dryrun.tiny_configs(), cuda)
+    vocoder = Gen.from_config(dryrun.TINY_VOCODER, device=cuda)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in dryrun.tiny_batch(2).items()}
+    counts = [fn.launches for fn in (fused_residual_stack, mrf_stack, mrf_stack_folded)]
+    with torch.no_grad():
+        out = model(batch["speakers"], batch["texts"], batch["src_lens"],
+                    batch["word_boundaries"], batch["src_w_lens"], max_mel_len=16)
+        wav = vocoder(out.mel_pred)
+        torch.cuda.synchronize()
+    launches = [fn.launches - n for fn, n in
+                zip((fused_residual_stack, mrf_stack, mrf_stack_folded), counts)]
+    assert launches[0] > 0 and launches[1] == 0 and launches[2] == 4
+    assert torch.isfinite(wav).all() and wav.shape == (2, 16 * 16)
+
+
 def test_fp32_weights_are_cast_to_bf16(cuda):
     """fp32 stacked weights run the same bf16 kernel (cast per call, as the
     JAX package casts them on the TPU)."""
@@ -350,8 +434,8 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_residual_stack(x, cond, step, dict(stacked, conv_w=stacked["conv_w"].half()))
     with pytest.raises(ValueError, match="on cuda"):
         fused_residual_stack(x, cond.cpu(), step, stacked)
-    with pytest.raises(ValueError, match="C <= 256"):   # every narrower width runs
-        fused_residual_stack(*denoiser_inputs(1, 64, C=320, Hc=64, L=2))
+    with pytest.raises(ValueError, match="C <= 512"):   # every narrower width runs
+        fused_residual_stack(*denoiser_inputs(1, 64, C=544, Hc=64, L=2))
     kw = denoiser_kernel_weights(stacked)
     with pytest.raises(ValueError, match="denoiser_kernel_weights"):
         fused_residual_stack(x, cond, step, dict(kw, out_w_mma=kw["out_w_mma"].float()))
@@ -359,8 +443,8 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     y = torch.randn(1, 32, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         mrf_stack(y.transpose(1, 2), st, (3,))
-    with pytest.raises(ValueError, match="built for"):
-        mrf_stack(torch.randn(1, 64, 48, device=cuda), mrf_weights(48, (3,)), (3,))
+    with pytest.raises(ValueError, match="C <= 256"):   # every narrower width runs
+        mrf_stack(torch.randn(1, 64, 288, device=cuda), mrf_weights(288, (3,)), (3,))
     with pytest.raises(ValueError, match="built for 256"):
         mrf_stack_streamed(torch.randn(1, 64, 128, device=cuda),
                            mrf_weights(128, (3,)), (3,))

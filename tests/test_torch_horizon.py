@@ -43,16 +43,16 @@ def test_horizon_stages_run_on_the_cpu(stages):
 
 def test_init_witness_vocodes_the_final_checkpoint_twice(stages):
     """`tests/horizon_init_witness_torch.py` on the stages' checkpoint: the
-    same mel through the vocoder as built (torch's defaults), which is the
-    synthesis CLI's wav, and re-initialised with flax's."""
+    same mel through the vocoder as built (the JAX package's initialisers),
+    which is the synthesis CLI's wav, and redrawn with torch's defaults."""
     drive, (_, _, rdir) = stages
     out = witness.witness(drive.ws, "shallow", 6, device="cpu")
     assert sorted(out) == ["jax", "torch_default"]
     jax_init, torch_init = out["jax"]["0"], out["torch_default"]["0"]
     cli_wav = horizon.spectrum(horizon.read_wav(rdir))   # the CLI's, in another process
-    assert torch_init["wav_samples"] == cli_wav["wav_samples"]
+    assert jax_init["wav_samples"] == cli_wav["wav_samples"]
     for key in ("wav_std", "wav_interior_energy", "wav_band_energy"):
-        np.testing.assert_allclose(torch_init[key], cli_wav[key], rtol=1e-3)
+        np.testing.assert_allclose(jax_init[key], cli_wav[key], rtol=1e-3)
     assert jax_init["wav_samples"] == torch_init["wav_samples"]
     assert jax_init["wav_std"] != torch_init["wav_std"]
     assert all(0 <= v <= 1 for v in jax_init["wav_band_energy"] + torch_init["wav_band_energy"])

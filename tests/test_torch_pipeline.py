@@ -278,7 +278,8 @@ def port_files():
         if name.startswith("bench_torch_") or name in (
                 "test_torch_gpu_perf.py", "test_torch_gpu_kernels.py",
                 "train_horizon_torch.py", "torch_horizon_helpers.py",
-                "horizon_init_witness_torch.py", "horizon_batches_torch.py"):
+                "horizon_init_witness_torch.py", "horizon_batches_torch.py",
+                "train_step_kinks_torch.py"):
             yield os.path.join(REPO, "tests", name)
 
 

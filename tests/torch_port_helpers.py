@@ -97,9 +97,9 @@ def jax_multispeaker_generator(mode, embedder):
     return model, variables, apply
 
 
-def torch_generator_like(model, variables):
+def torch_generator_like(model, variables=None):
     """The port's MixGANTTS with the JAX model's hyper-parameters and the
-    JAX weights, on the CPU."""
+    JAX weights (or, without `variables`, its own init), on the CPU."""
     stats = TorchNormStats(**dataclasses.asdict(model.stats))
     port = TorchMixGANTTS(
         mode=model.mode, betas=model.schedule.betas, stats=stats,
@@ -120,8 +120,9 @@ def torch_generator_like(model, variables):
         external_speaker_dim=model.external_speaker_dim,
         encoder_dropout=model.encoder_dropout, decoder_dropout=model.decoder_dropout,
         vp_dropout=model.vp_dropout, device="cpu")
-    port.load_state_dict(generator_state_dict(
-        variables["params"], variables.get("batch_stats", {})), strict=True)
+    if variables is not None:
+        port.load_state_dict(generator_state_dict(
+            variables["params"], variables.get("batch_stats", {})), strict=True)
     return port
 
 

@@ -147,7 +147,9 @@ def jax_setup(mode, multi_speaker=False):
     return (tiny_model(mode, multi_speaker), variables, tiny_disc(multi_speaker), d_params)
 
 
-def torch_disc_like(disc, d_params):
+def torch_disc_like(disc, d_params, load=True):
+    """The port's JCUDiscriminator with the JAX one's hyper-parameters and
+    the weights `d_params` (or, with load=False, its own init)."""
     port = JCUDiscriminator(
         n_mels=disc.n_mels, residual_channels=disc.residual_channels, n_layer=disc.n_layer,
         n_uncond_layer=disc.n_uncond_layer, n_cond_layer=disc.n_cond_layer,
@@ -155,7 +157,8 @@ def torch_disc_like(disc, d_params):
         multi_speaker=disc.multi_speaker,
         speaker_dim=d_params["spk_mlp"]["linear"]["kernel"].shape[0]
         if "spk_mlp" in d_params else 256, device="cpu")
-    port.load_state_dict(discriminator_state_dict(d_params), strict=True)
+    if load:
+        port.load_state_dict(discriminator_state_dict(d_params), strict=True)
     return port
 
 
