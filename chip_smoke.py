@@ -8,7 +8,9 @@ into the train CLI, and the multi-device path: data- and tensor-parallel
 steps on two ranks, the train CLI under torchrun, sharded serving and the
 multi-device dryrun; and the kernels at every width the JAX package's
 configs give them (HiFi-GAN V2, the dryrun's tiny model, the denoiser up
-to 512 channels).
+to 512 channels) and at every shape the TPU kernels take (the MRF kernels
+up to 512 channels, every odd kernel size up to 11, every dilation
+schedule within the 64-frame halo, HiFi-GAN V1 at 1024 channels).
 
     python3 chip_smoke.py                  # needs one CUDA device
     python3 chip_smoke.py --profile DIR    # keeps the request and train-step traces in DIR
@@ -230,17 +232,42 @@ phase 9's weights; every serving kernel must launch;
    launch the denoiser and the folded MRF kernel; (d) the denoiser kernel
    against its plain version at C in WIDE_WIDTHS (run at 512: clusters of
    16 CTAs), as phase 18 (a), its resident clusters, and its time at
-   C = 512 (B=1, T=1000, 20 layers) beside the bound.
+   C = 512 (B=1, T=1000, 20 layers) beside the bound;
+20. the MRF kernels at every shape the TPU kernels take: (a) each against
+   its bf16 plain version at B=1, T=8000 and B=4, T=4096 (SHAPE_FRAMES, the
+   frames of a 512-wide stage at buckets 1000 and 512), its launch count
+   rising by what the call launches: `mrf_stack` at C in WIDE_MRF_WIDTHS
+   (run at 512, two launches a pair), one branch a call; `mrf_stack` at
+   MRF_SHAPES (k in {1, 5, 9}, schedules at the halo's edge, the widest
+   conv1 reach) at MRF_SHAPE_WIDTHS; the folded entry point at those
+   shapes (C = 64 and 16); `mrf_stack_streamed` at STREAMED_WIDTHS (run at
+   256 and 512, clusters of 4 and 8) and STREAMED_SHAPES; and the
+   whole-stage kernel's plan at the widest reach; (b) HiFi-GAN V1 at
+   `upsample_initial_channel` 1024 (V1_1024_CONFIG: stages 512, 256, 128,
+   64) from a seed through `get_vocoder`, vocoding phase 4's acoustic
+   model: a B=1 request at bucket 1000 must launch the denoiser once,
+   `mrf_stack` 36 times and the folded kernel 9; a small request against
+   the CPU at phase 5's bars; its latency; each MRF call of the request
+   against its plain version and timed, beside the bound of the request's
+   MRF work; (c) the time of each new shape at B=1, T=8000 beside its
+   bound: the 512 stage through `mrf_stack` (three one-branch calls) and
+   through `mrf_stack_streamed`, MRF_SHAPES at C = 256 and STREAMED_SHAPES
+   at 512.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 phase 4 plus phase 16's replicas and train CLI ranks and phase 17's and
 phase 18 (c)'s requests, or phase 7 for `mrf_stack_streamed`, or phase
 18 (c) for the denoiser at C = 16, or phase 19 (b)'s request for V2's
-folded MRF, or phase 19 (d)'s checks for the denoiser at C = 512; max
-error in phase 3, 7, 18 or 19; and the time, plain time and bound of one
-B=1 request at frame bucket 1000, or of phase 18 (c)'s stack, or of V2's
-MRF calls in one request at bucket 1000, or of the C = 512 stack at B=1,
-T=1000); the last line is {"ok": true, "device": {...}}.
+folded MRF, or phase 19 (d)'s checks for the denoiser at C = 512, or
+phase 20 (b)'s request for `mrf_stack_c512` (every `mrf_stack` launch of
+the 1024 vocoder's request), or phase 20 (a)'s checks for
+`mrf_stack_shapes` and `mrf_stack_streamed_c512`; max error in phase 3, 7,
+18, 19 or 20; and the time, plain time and bound of one B=1 request at
+frame bucket 1000, or of phase 18 (c)'s stack, or of V2's MRF calls in one
+request at bucket 1000, or of the C = 512 stack at B=1, T=1000, or of the
+512-wide MRF stage at B=1, T=8000 (`mrf_stack_c512`,
+`mrf_stack_streamed_c512`), or of k = (1, 5, 9) at C = 256, B=1, T=8000
+(`mrf_stack_shapes`)); the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -259,7 +286,8 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
 BF16_TOL = 4e-3             # the bf16 kernels against their bf16 plain versions
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 DURATION_FRAMES = 8.0       # frames per phone the random duration predictor is biased to
-KERNELS = ("residual_stack_mma", "mrf_pair_mma", "mrf_stage_streamed")   # __global__ names
+KERNELS = ("residual_stack_mma", "mrf_pair_mma", "mrf_wide_mma",
+           "mrf_stage_streamed")   # __global__ names
 STAGE_SHAPES = ((1, 8000), (4, 4096))   # V1's C=256 stage in a B=1 request at bucket 1000, B=4 at 512
 N_SPEAKERS = 218            # AISHELL3's speakers
 DEVICE = "cuda"             # the card every phase runs on
@@ -275,6 +303,21 @@ V2_CONFIG = {"resblock": "1", "num_mels": 80, "upsample_rates": [8, 8, 2, 2],
              "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 128,
              "resblock_kernel_sizes": [3, 7, 11],
              "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]]}
+# phase 20: HiFi-GAN V1 (config_v1.json) at upsample_initial_channel 1024,
+# whose first stage is 512 wide; the shapes at which (a) holds the MRF
+# kernels, (B, T): that stage's frames at buckets 1000 and 512
+V1_1024_CONFIG = dict(V2_CONFIG, upsample_initial_channel=1024)
+SHAPE_FRAMES = ((1, 8000), (4, 4096))
+WIDE_MRF_WIDTHS = (288, 384, 512)   # mrf_stack above 256 (run at 512)
+# the TPU kernels' shapes beyond V1's, (kernel sizes, dilations): k in
+# {1, 5, 9} with V1's schedule, two schedules at the halo's edge (creeps 36
+# and 60) and the widest conv1 reach (63 frames)
+MRF_SHAPES = (((1, 5, 9), (1, 3, 5)), ((3,), (1, 2, 4, 8, 16)), ((11,), (2, 3, 4)),
+              ((3,), (63,)))
+MRF_SHAPE_WIDTHS = (32, 128, 256, 512)
+STREAMED_WIDTHS = (144, 256, 288, 512)   # the whole-stage kernel (run at 256 and 512)
+STREAMED_SHAPES = (((3, 7, 11), (1, 3, 5)), ((1, 5, 9), (1, 3, 5)), ((3,), (1, 2, 4, 8, 16)),
+                   ((1, 3, 5, 7, 9, 11), (1, 2)))
 
 
 def log(*args):
@@ -401,9 +444,9 @@ def build_kernels():
             report = f.read()
         kernel, usage = None, {}
         for line in report.splitlines():
-            m = re.search(r"(%s)((?:I(?:Li\d+E)+E)?)" % "|".join(KERNELS), line)
+            m = re.search(r"(%s)((?:I(?:L[ib]\d+E)+E)?)" % "|".join(KERNELS), line)
             if m and "entry function" in line:
-                args = re.findall(r"Li(\d+)E", m.group(2))
+                args = re.findall(r"L[ib](\d+)E", m.group(2))
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             elif kernel and ("registers" in line or "spill" in line):
                 usage.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
@@ -422,12 +465,14 @@ def build_kernels():
             raise AssertionError(f"the tensor-core kernel's SASS holds no HGMMA: {hgmma}")
         if name == "mrf_stack_streamed":
             from mixgantts_tpu_torch.ops import mrf
-            for B, T in STAGE_SHAPES:
-                plan = mrf.streamed_plan(B, T)
-                log(f"  mrf_stage_streamed at B={B} T={T}: clusters of {plan['cluster']} "
-                    f"CTAs, {plan['resident']} clusters resident at once, tile "
-                    f"{plan['tile']} frames, {plan['smem']} B of shared memory per CTA, y "
-                    f"in a slab of {4 * plan['slab'] / 1e6:.1f} MB")
+            for C in mrf.STREAMED_WIDTHS:
+                for B, T in STAGE_SHAPES:
+                    plan = mrf.streamed_plan(B, T, C=C)
+                    log(f"  mrf_stage_streamed<{C}> at B={B} T={T}: clusters of "
+                        f"{plan['cluster']} CTAs, {plan['resident']} clusters resident at "
+                        f"once, tile {plan['tile']} frames, passes of {plan['rows']} rows, "
+                        f"{plan['smem']} B of shared memory per CTA, y in a slab of "
+                        f"{4 * plan['slab'] / 1e6:.1f} MB")
             continue
         lib = cuda_build.library(name)
         smem = getattr(lib, f"{name}_smem_bytes")
@@ -443,10 +488,12 @@ def build_kernels():
         else:
             from mixgantts_tpu_torch.ops import mrf
             smem.argtypes = [ctypes.c_int] * 3
-            for c in (32, 64, 128, 256):
-                log(f"  mrf_pair_mma<{c}, k> shared memory per block at dilation 5, and "
-                    f"output frames per block: " + ", ".join(
-                        f"k={k}: {smem(c, k, 5)} B, {mrf.tile_frames(c, k)}" for k in (3, 7, 11)))
+            for c in mrf.KERNEL_WIDTHS:
+                kernel = "mrf_wide_mma" if c > mrf.SPLIT else "mrf_pair_mma"
+                log(f"  {kernel}<{c}, k> shared memory per block at dilation 5 (and at the "
+                    f"widest reach, k = 3 and d = 63), and output frames per block: " + ", ".join(
+                        f"k={k}: {smem(c, k, 5)} B, {mrf.tile_frames(c, k)}"
+                        for k in range(1, 12, 2)) + f"; {smem(c, 3, 63)} B")
 
 
 def sass_hgmma(library):
@@ -461,8 +508,8 @@ def sass_hgmma(library):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"(%s)((?:I(?:Li\d+E)+E)?)" % "|".join(KERNELS), m.group(1))
-            args = re.findall(r"Li(\d+)E", k.group(2)) if k else []
+            k = re.search(r"(%s)((?:I(?:L[ib]\d+E)+E)?)" % "|".join(KERNELS), m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
             fn = (k.group(1) + (f"<{', '.join(args)}>" if args else "")) if k else m.group(1)
             counts[fn] = 0
         elif fn and "HGMMA" in line:
@@ -3127,16 +3174,16 @@ def mrf_widths(torch, records):
                     got, want, BF16_TOL))
 
 
-def random_mrf(torch, C, kernel_sizes, g):
+def random_mrf(torch, C, kernel_sizes, g, n_pair=3):
     """Stacked fp32 MRF weights of one stage at width C from generator g,
     scaled like an initialised conv's (taps outside each k zero)."""
     n_br = len(kernel_sizes)
-    w = torch.zeros(2, n_br, 3, 11, C, C, device=g.device)
+    w = torch.zeros(2, n_br, n_pair, 11, C, C, device=g.device)
     for br, k in enumerate(kernel_sizes):
         pad = (11 - k) // 2
-        w[:, br, :, pad:pad + k] = torch.randn(2, 3, k, C, C, device=g.device,
+        w[:, br, :, pad:pad + k] = torch.randn(2, n_pair, k, C, C, device=g.device,
                                                generator=g) * (k * C) ** -0.5
-    b = torch.randn(2, n_br, 3, C, device=g.device, generator=g) * 0.1
+    b = torch.randn(2, n_br, n_pair, C, device=g.device, generator=g) * 0.1
     return {"w1": w[0].contiguous(), "w2": w[1].contiguous(), "b1": b[0].contiguous(),
             "b2": b[1].contiguous()}
 
@@ -3241,6 +3288,211 @@ def widths_phase(torch, pre, cfg, model, vocoder, records):
     log(f"[widths] phase 19 took {time.perf_counter() - t_start:.1f} s")
 
 
+def mrf_checked(torch, rec, label, fn, run, x, st, ks, ds, launches):
+    """run() on the card must raise fn's launch count by `launches` and
+    agree with the bf16 plain version at BF16_TOL (the error and the
+    launches go into rec)."""
+    from mixgantts_tpu_torch.ops import mrf
+    n0 = fn.launches
+    with torch.no_grad():
+        got = run()
+        sync(torch)
+        if fn.launches - n0 != launches:
+            raise AssertionError(f"{label}: {fn.__name__} launched {fn.launches - n0} times, "
+                                 f"want {launches}")
+        want = mrf.mrf_stack_plain(x, st, ks, ds)
+    rec["checked"] += launches
+    rec["err"] = max(rec["err"], check_close(label, got, want, BF16_TOL))
+
+
+def mrf_shape_checks(torch, records):
+    """Phase 20 (a): every new shape of the MRF kernels against its bf16
+    plain version at SHAPE_FRAMES, the launch counts rising at each call:
+    `mrf_stack` above 256 (WIDE_MRF_WIDTHS, one branch a call, run at 512:
+    two launches a pair), at MRF_SHAPES' kernel sizes and schedules at
+    MRF_SHAPE_WIDTHS, the folded entry point at those shapes (C = 64 and
+    16), and `mrf_stack_streamed` at STREAMED_WIDTHS and STREAMED_SHAPES."""
+    from mixgantts_tpu_torch.ops import mrf
+    g = torch.Generator("cuda").manual_seed(20)
+    wide, shapes, streamed = (records[n] for n in (
+        "mrf_stack_c512", "mrf_stack_shapes", "mrf_stack_streamed_c512"))
+    for B, T in SHAPE_FRAMES:
+        for C in WIDE_MRF_WIDTHS:
+            x = torch.randn(B, T, C, device="cuda", generator=g)
+            for ks in ((3,), (7,), (11,)):
+                st = mrf.kernel_weights(random_mrf(torch, C, ks, g), ks)
+                mrf_checked(torch, wide, f"mrf_stack C={C} (at 512) B={B} T={T} k={ks} (bf16)",
+                            mrf.mrf_stack, lambda: mrf.mrf_stack(x, st, ks), x, st, ks,
+                            (1, 3, 5), 6)
+        for C in MRF_SHAPE_WIDTHS:
+            x = torch.randn(B, T, C, device="cuda", generator=g)
+            for ks, ds in MRF_SHAPES:
+                st = mrf.kernel_weights(random_mrf(torch, C, ks, g, len(ds)), ks)
+                mrf_checked(torch, shapes, f"mrf_stack C={C} B={B} T={T} k={ks} d={ds} (bf16)",
+                            mrf.mrf_stack, lambda: mrf.mrf_stack(x, st, ks, ds), x, st, ks, ds,
+                            len(ks) * len(ds) * mrf.pair_launches(C))
+        for C in (64, 16):
+            fold = 128 // C
+            x = torch.randn(B, T, C, device="cuda", generator=g)
+            for ks, ds in MRF_SHAPES:
+                st = dict(mrf.kernel_weights(random_mrf(torch, C, ks, g, len(ds)), ks), fold=fold)
+                mrf_checked(torch, shapes,
+                            f"mrf_stack_folded C={C} (F={fold}) B={B} T={T} k={ks} d={ds} (bf16)",
+                            mrf.mrf_stack_folded, lambda: mrf.mrf_stack_folded(
+                                x.reshape(B, T // fold, fold * C), st, ks, ds, prefolded=True),
+                            x, st, ks, ds, len(ks) * len(ds))
+        for C in STREAMED_WIDTHS:
+            x = torch.randn(B, T, C, device="cuda", generator=g)
+            for ks, ds in STREAMED_SHAPES:
+                st = mrf.kernel_weights(random_mrf(torch, C, ks, g, len(ds)), ks)
+                mrf_checked(torch, streamed,
+                            f"mrf_stack_streamed C={C} (at {mrf.streamed_width(C)}) B={B} T={T} "
+                            f"k={ks} d={ds} (bf16)",
+                            mrf.mrf_stack_streamed, lambda: mrf.mrf_stack_streamed(x, st, ks, ds),
+                            x, st, ks, ds, 1)
+    for name, reach in (("C=256", (256, ((3,), (63,)))), ("C=512", (512, ((3,), (63,))))):
+        C, (ks, ds) = reach
+        try:
+            plan = mrf.streamed_plan(1, 8000, ks, ds, C=C)
+            log(f"  mrf_stack_streamed {name} at the widest reach k={ks} d={ds}: passes of "
+                f"{plan['rows']} rows, {plan['smem']} B of shared memory per CTA")
+        except ValueError as e:
+            log(f"  mrf_stack_streamed {name} at the widest reach: {e}")
+
+
+def timed_mrf(torch, label, calls, B, T, C, ks_list, plain_iters=2):
+    """Device time of a list of MRF calls (fn(), plain()) on one input, in
+    turns (kernel, plain, kernel), beside the bound of the work at the bf16
+    peak: (ms, plain_ms, bound_ms, bound_by)."""
+    run = lambda: [fn() for fn, _ in calls]
+    warm_up(run)
+    ms1 = time_ms(run, 5)
+    plain = time_ms(lambda: [p() for _, p in calls], plain_iters)
+    ms2 = time_ms(run, 5)
+    flops = nbytes = 0
+    for ks, n_pair in ks_list:
+        f, b = mrf_work(B, T, C, ks, n_pair, weight_bytes=2)
+        flops, nbytes = flops + f, nbytes + b
+    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    ms = (ms1 + ms2) / 2
+    log(f"  {label}: kernel {ms1:.4f}/{ms2:.4f} ms, plain (bf16) {plain:.4f} ms, bound "
+        f"{bound:.4f} ms at bf16 ({by}) for {flops / 1e9:.1f} GFLOP; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s ({100 * flops / ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1f}% "
+        f"of the bf16 peak)")
+    return ms, plain, bound, by
+
+
+def shape_timings(torch, records):
+    """Phase 20 (c): the time of each new kernel shape at B=1, T=8000:
+    the C=512 stage in `mrf_stack` (one call per branch) and in
+    `mrf_stack_streamed`, MRF_SHAPES at C=256, and STREAMED_SHAPES at 512."""
+    from mixgantts_tpu_torch.ops import mrf
+    g = torch.Generator("cuda").manual_seed(22)
+    B, T = SHAPE_FRAMES[0]
+    rks, dils = (3, 7, 11), (1, 3, 5)
+    with torch.no_grad():
+        x = torch.randn(B, T, 512, device="cuda", generator=g)
+        branches = [(mrf.kernel_weights(random_mrf(torch, 512, (k,), g), (k,)), (k,)) for k in rks]
+        calls = [(lambda st=st, ks=ks: mrf.mrf_stack(x, st, ks),
+                  lambda st=st, ks=ks: mrf.mrf_stack_plain(x, st, ks)) for st, ks in branches]
+        ms, plain, b, by = timed_mrf(torch, f"mrf_stack C=512 stage B={B} T={T} (three "
+                                     "one-branch calls, 18 launches)", calls, B, T, 512,
+                                     [((k,), 3) for k in rks])
+        records["mrf_stack_c512"].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        whole = mrf.kernel_weights(random_mrf(torch, 512, rks, g), rks)
+        ms, plain, b, by = timed_mrf(
+            torch, f"mrf_stack_streamed C=512 stage B={B} T={T} (one launch)",
+            [(lambda: mrf.mrf_stack_streamed(x, whole), lambda: mrf.mrf_stack_plain(x, whole))],
+            B, T, 512, [(rks, 3)])
+        records["mrf_stack_streamed_c512"].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        x = torch.randn(B, T, 256, device="cuda", generator=g)
+        for i, (ks, ds) in enumerate(MRF_SHAPES):
+            st = mrf.kernel_weights(random_mrf(torch, 256, ks, g, len(ds)), ks)
+            got = timed_mrf(torch, f"mrf_stack C=256 B={B} T={T} k={ks} d={ds}",
+                            [(lambda: mrf.mrf_stack(x, st, ks, ds),
+                              lambda: mrf.mrf_stack_plain(x, st, ks, ds))],
+                            B, T, 256, [(ks, len(ds))])
+            if i == 0:
+                records["mrf_stack_shapes"].update(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                                                       got))
+        x = torch.randn(B, T, 512, device="cuda", generator=g)
+        for ks, ds in STREAMED_SHAPES[1:]:
+            st = mrf.kernel_weights(random_mrf(torch, 512, ks, g, len(ds)), ks)
+            timed_mrf(torch, f"mrf_stack_streamed C=512 B={B} T={T} k={ks} d={ds}",
+                      [(lambda: mrf.mrf_stack_streamed(x, st, ks, ds),
+                        lambda: mrf.mrf_stack_plain(x, st, ks, ds))], B, T, 512, [(ks, len(ds))])
+
+
+def hifigan_1024_phase(torch, pre, cfg, model, records):
+    """Phase 20 (b): HiFi-GAN V1 at upsample_initial_channel 1024
+    (V1_1024_CONFIG: stages 512, 256, 128, 64) from a seed, as `get_vocoder`
+    builds it from a `config.json`, vocoding phase 4's acoustic model: a
+    B=1 request at bucket 1000 (launches counted: the denoiser once,
+    `mrf_stack` 36 times, 18 of them at 512, and the folded kernel 9), a
+    small request against the CPU at phase 5's bars (`check_against_cpu`),
+    its latency, and each MRF call of the request against its plain
+    version, timed, beside the bound of the request's MRF work."""
+    from mixgantts_tpu_torch.models.vocoder import get_vocoder
+    from mixgantts_tpu_torch.ops import mrf
+    from mixgantts_tpu_torch.pipeline import TTSPipeline
+    rec = records["mrf_stack_c512"]
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+            json.dump(V1_1024_CONFIG, f)
+        voc = get_vocoder(cfg, ckpt_dir=ckpt_dir, device=DEVICE, seed=0)
+        gen = voc.generator
+        log(f"[1024] HiFi-GAN V1 at upsample_initial_channel 1024: stages "
+            f"{[u.out_channels for u in gen.ups]}, "
+            f"{sum(p.numel() for p in gen.parameters()) / 1e6:.2f} M parameters")
+        pipe = TTSPipeline(model, voc, pre, cfg)
+        one = text_batch(1, 64, 24, seed=0)
+        pipe(one)
+        (wavs, mel, lens), launches = counted(torch, lambda: pipe(one))
+        log(f"  B=1 request at bucket {mel.shape[1]}: launches (denoiser, mrf_stack, "
+            f"mrf_stack_folded) {launches}, want (1, 36, 9); mel length {int(lens[0])}")
+        if launches != (1, 36, 9) or mel.shape[1] != 1000:
+            raise AssertionError(f"the 1024 request launched {launches} at bucket "
+                                 f"{mel.shape[1]}")
+        if not np_isfinite(mel) or len(wavs[0]) != int(lens[0]) * 256:
+            raise AssertionError("the 1024 request gave a bad output")
+        rec["launches"] = launches[1]
+        cpu_reference(torch, pre, cfg, model, voc, label="v1 1024", ckpt_dir=ckpt_dir)
+    latency(torch, pipe, pre, one, None, tag="v1 1024 latency")
+    dils = gen.resblock_dilation_sizes[0]
+    g = torch.Generator("cuda").manual_seed(21)
+    ms = flops = nbytes = 0.0
+    with torch.no_grad():
+        for stage, (C, T, call) in enumerate(mrf_calls(gen, gen.resblock_kernel_sizes, dils,
+                                                        T_mel=1000)):
+            x = torch.randn(1, T, C, device="cuda", generator=g)
+            for name, st, ks, run in call:
+                err = check_close(f"1024 vocoder stage {stage} C={C} T={T} {name} k={ks} (bf16)",
+                                  run(x), mrf.mrf_stack_plain(x, st, ks, dils), BF16_TOL)
+                if C > mrf.SPLIT:
+                    rec["err"] = max(rec["err"], err)
+                warm_up(lambda: run(x), 0.2)
+                t = time_ms(lambda: run(x), 10)
+                f, b = mrf_work(1, T, C, ks, weight_bytes=2)
+                log(f"  1024 vocoder stage {stage} C={C} T={T} {name} k={ks}: kernel {t:.4f} ms, "
+                    f"bound {bound_ms(f, b, PEAK_BF16_FLOPS)[0]:.4f} ms ({f / 1e9:.1f} GFLOP)")
+                ms, flops, nbytes = ms + t, flops + f, nbytes + b
+    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"[1024] MRF per B=1 request at bucket 1000: {ms:.4f} ms; bound {bound:.4f} ms at bf16 "
+        f"({by}) for {flops / 1e9:.1f} GFLOP")
+
+
+def shapes_phase(torch, pre, cfg, model, records):
+    """Phase 20: (a) `mrf_shape_checks`; (b) `hifigan_1024_phase`; (c)
+    `shape_timings`."""
+    t_start = time.perf_counter()
+    mrf_shape_checks(torch, records)
+    hifigan_1024_phase(torch, pre, cfg, model, records)
+    shape_timings(torch, records)
+    for name in ("mrf_stack_shapes", "mrf_stack_streamed_c512"):
+        records[name]["launches"] = records[name]["checked"]
+    log(f"[shapes] phase 20 took {time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     if sys.argv[1:2] == ["--train-cli-rank"]:   # a torchrun rank of phase 16 (c)
         train_cli_rank(sys.argv[2], sys.argv[3:])
@@ -3290,9 +3542,15 @@ def main():
                "mrf_stack_folded_v2": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
                                        "mixgantts_tpu/ops/pallas_vocoder.py:303"),
                "fused_residual_stack_c512": ("mixgantts_tpu_torch/csrc/denoiser_stack.cu",
-                                             "mixgantts_tpu/ops/pallas.py:122")}
+                                             "mixgantts_tpu/ops/pallas.py:122"),
+               "mrf_stack_c512": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
+                                  "mixgantts_tpu/ops/pallas_vocoder.py:528"),
+               "mrf_stack_shapes": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
+                                    "mixgantts_tpu/ops/pallas_vocoder.py:528"),
+               "mrf_stack_streamed_c512": ("mixgantts_tpu_torch/csrc/mrf_stack_streamed.cu",
+                                           "mixgantts_tpu/ops/pallas_vocoder.py:461")}
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": 0, "err": 0.0}
+                      "launches": 0, "err": 0.0, "checked": 0}
                for name, (src, rep) in sources.items()}
     log("[check] kernels against their plain versions (TF32 off)")
     kernel_checks(torch, model, vocoder, records)                 # phase 3
@@ -3343,6 +3601,9 @@ def main():
     log("[widths] the MRF kernel at every width up to 256, HiFi-GAN V2, the dryrun at the "
         "JAX dryrun's widths, the denoiser above 256")
     widths_phase(torch, pre, cfg, model, vocoder, records)        # phase 19
+    log("[shapes] the MRF kernels at every shape the TPU kernels take: widths up to 512, "
+        "every odd k, every schedule within the halo; HiFi-GAN V1 at 1024 channels")
+    shapes_phase(torch, pre, cfg, model, records)                 # phase 20
 
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "launches": r["launches"],

@@ -9,7 +9,9 @@
 // into the contraction) each 16-deep K step reads the A tile at a row offset
 // t*d and one 16 x C slab of the weights.  Shapes:
 // - M: 64-row wgmma tiles; each consumer warpgroup owns MT of them.
-// - N: all C output channels in one instruction (m64nCk16, C = 32..256).
+// - N: all C output channels in one instruction (m64nCk16, C = 32..256),
+//   or, at C = 512, the 256 of one half (a block owns one half of the
+//   output channels; its tile holds all 512 input channels).
 // - A comes from registers, loaded with ldmatrix from an unswizzled bf16
 //   tile whose rows are padded by 16 bytes (conflict-free ldmatrix at any
 //   row offset).  A wgmma shared-memory descriptor cannot start at an
@@ -23,6 +25,10 @@
 //     ((s * C/8 + n/8) * 2 + h) * 64 + (n % 8) * 8 + c % 8,   16 s + 8 h + c % 8 = t*C + c
 //   so the descriptor's leading byte offset (between the two K halves) is
 //   128 bytes and its stride byte offset (between channel groups) 256.
+//   Above 256 output channels the layout is split into halves of 256: each
+//   half z (output channels [256 z, 256 z + 256)) holds the whole K axis in
+//   the order above with N = 256, half after half, so one CTA's weights are
+//   again one contiguous run.
 //   A chunk of KCH K rows is one contiguous run of bytes: one cp.async.bulk
 //   lands it in a stage of a shared-memory ring, completing on the stage's
 //   "full" mbarrier; the consumers release the stage on its "empty"
@@ -305,24 +311,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
 
 // --- one convolution over the ring -----------------------------------------
 
-// Geometry of the pass at width C: WG consumer warpgroups of MT 64-row
-// tiles each, KCH K rows per ring stage, S stages.
-template <int C, int MT, int KCH, int S, int WG>
+// Geometry of the pass over C input channels (the tile's width, and K =
+// taps x C) into N output channels (wgmma's N; N = C unless the output
+// channels are split over CTAs): WG consumer warpgroups of MT 64-row tiles
+// each, KCH K rows per ring stage, S stages.
+template <int C, int MT, int KCH, int S, int WG, int N = C>
 struct MmaPass {
-  static_assert(C % 32 == 0 && C <= 256, "C must be 32, 64, 128 or 256");
+  static_assert(C % 32 == 0 && C <= 512, "C must be a multiple of 32 up to 512");
+  static_assert(N % 32 == 0 && N <= 256, "N must be 32, 64, 128 or 256 (one wgmma)");
   static_assert(KCH % 32 == 0, "a stage holds an even number of 16-deep steps");
   static constexpr int kWG = WG;                      // consumer warpgroups
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kThreads = kConsumers + 32;    // + one producer warp
   static constexpr int kRows = 64 * MT * kWG;         // rows of one conv
   static constexpr int kLd = C + 8;                   // bf16 per tile row (16 B pad)
-  static constexpr int kStageBytes = KCH * C * 2;
+  static constexpr int kStageBytes = KCH * N * 2;
   static constexpr int kRingBytes = S * kStageBytes;
   static constexpr int kSPC = KCH / 16;               // 16-deep steps per stage
 };
 
-// acc[mt] (64 x C, fp32) = the conv of rows [64 (wg MT + mt), +64) of a
-// tile: sum over taps t < K and input channels of A[r + t dil, c] W[t][c][n].
+// acc[mt] (64 x N, fp32) = the conv of rows [64 (wg MT + mt), +64) of a
+// tile of C channels: sum over taps t < K and input channels of
+// A[r + t dil, c] W[t][c][n].
 // `a_lane` is this lane's ldmatrix address of row 0 of its warp's first tile
 // (rows 16 w + lane % 16, columns 8 (lane / 16)), `row_bytes` a tile row's
 // bytes.  The weights are ring chunks q0 .. q0 + ceil(K C / KCH) - 1 (the
@@ -333,11 +343,11 @@ struct MmaPass {
 // wgmmas are in flight while the next step's ldmatrix runs, and a buffer is
 // refilled only after the wgmma that read it has completed
 // (wait_group NB - 1).
-template <int C, int K, int MT, int KCH, int S, int NB, int WG>
-__device__ __forceinline__ void conv_mma(float (&acc)[MT][C / 2], uint32_t a_lane,
+template <int C, int K, int MT, int KCH, int S, int NB, int WG, int N = C>
+__device__ __forceinline__ void conv_mma(float (&acc)[MT][N / 2], uint32_t a_lane,
                                          uint32_t row_bytes, int dil, uint32_t ring,
                                          uint32_t full, uint32_t empty, int q0, bool leader) {
-  using P = MmaPass<C, MT, KCH, S, WG>;
+  using P = MmaPass<C, MT, KCH, S, WG, N>;
   constexpr int kSteps = K * C / 16;
   constexpr int kStepsPerTap = C / 16;
   static_assert(kSteps % NB == 0, "steps run in groups of NB");
@@ -361,22 +371,22 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MT][C / 2], uint32_t a_lan
   // one 16-deep step with fragments in buffer B; then the next step's load
   auto step = [&](auto buf, int st) {
     constexpr int B = decltype(buf)::value;
-    constexpr int N = (B + 1) % NB;
+    constexpr int NX = (B + 1) % NB;   // the next step's buffer
     const uint64_t desc = slab_desc(ring + stage_of(q0 + st / P::kSPC) * P::kStageBytes +
-                                    (st % P::kSPC) * 32 * C);
+                                    (st % P::kSPC) * 32 * N);
     wgmma_fence();
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) Wgmma<C>::mma(acc[mt], a[B][mt], desc, st > 0);
+    for (int mt = 0; mt < MT; ++mt) Wgmma<N>::mma(acc[mt], a[B][mt], desc, st > 0);
     wgmma_commit();
     wgmma_wait<NB - 1>();                  // step st - NB + 1 has completed
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) fence_reg(a[N][mt][i]);
+      for (int i = 0; i < 4; ++i) fence_reg(a[NX][mt][i]);
     if (st >= NB - 1) release(st - NB + 1);
     if (st + 1 < kSteps) {
       if ((st + 1) % P::kSPC == 0) wait_full(q0 + (st + 1) / P::kSPC);
-      load_a(a[N], st + 1);
+      load_a(a[NX], st + 1);
     }
   };
 
@@ -393,7 +403,7 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MT][C / 2], uint32_t a_lan
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < C / 2; ++j) fence_reg(acc[mt][j]);
+    for (int j = 0; j < N / 2; ++j) fence_reg(acc[mt][j]);
 #pragma unroll
   for (int d = kSteps - NB + 1; d < kSteps; ++d) release(d);
 }

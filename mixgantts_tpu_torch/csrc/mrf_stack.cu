@@ -8,8 +8,8 @@
 // both Python entry points in mixgantts_tpu_torch/ops/mrf.py launch this
 // kernel on a [B, T, C] view).
 //
-// One stage, x [B, T, C]: for each branch (kernel k = 3, 7, 11), three
-// residual pairs (dilation d = 1, 3, 5)
+// One stage, x [B, T, C]: for each branch (an odd kernel size k <= 11; V1:
+// 3, 7, 11), a chain of residual pairs (dilations d; V1: 1, 3, 5)
 //   y = y + conv_k(lrelu(conv_{k,d}(lrelu(y)) + b1)) + b2      (lrelu 0.1)
 // with zero ("SAME") padding at both ends of [0, T); the stage output is the
 // mean of the branch outputs.  The rounding points are the TPU kernel's
@@ -25,6 +25,16 @@
 // writes fp32, 2 * 4 B * T * C per launch (plus the branch sum), which at
 // C = 32 and 64 is as much time at 3.35 TB/s as the stage's FLOPs at the
 // tensor-core peak.
+//
+// Shapes: the TPU kernels' own.  Every odd k up to 11 (the taps centred in
+// 11, which is SAME padding only for an odd k), any number of branches and
+// pairs, and any dilation schedule whose creep fits the TPU kernels' 64-frame
+// halo: sum over pairs of (k/2)(d + 1) <= 64 per branch (ops/mrf.py checks
+// it).  The dilation is a runtime argument; each launch sets its shared
+// memory for its own reach (mrf_stack_smem_bytes, which ops/mrf.py reads).
+// Widths: C in {32, 64, 128, 256} on the pair kernel below, and C = 512 on
+// the wide kernels (ops/mrf.py runs any C <= 512 at the next of them with
+// zero channels).
 //
 // Design (mrf_mma.cuh holds the pass):
 // - One launch per (branch, pair): a block owns kM2 output frames of one
@@ -57,6 +67,13 @@
 //   or three share an SM (shared memory permitting), so one's memory phases
 //   overlap the others' wgmmas; at C = 128 and 64 four fragment buffers keep
 //   three wgmma groups in flight, which the short n128 and n64 steps need.
+// - C = 512 (a stage of HiFi-GAN with upsample_initial_channel 1024) takes
+//   two launches a pair, conv1's output through device memory in bf16: a
+//   wgmma's N is at most 256, so each block owns one half of the output
+//   channels (grid.z) of 64 frames, and conv2 needs all 512 of conv1's
+//   output channels, which the other half's block computed.  Each launch
+//   is one conv over a tile of all 512 input channels (64 rows + the halo:
+//   (64 + 126) x 1040 B at the widest reach, beside a 2-stage ring).
 
 #include "mrf_mma.cuh"
 
@@ -289,11 +306,229 @@ mrf_pair_mma(const float* __restrict__ y,            // [B, T, C] pair input
   }
 }
 
+
+// --- C = 512: two launches a pair, a block per half of the output channels
+
+constexpr int kWideC = 512;   // the stage width
+constexpr int kWideN = 256;   // output channels a block owns (wgmma's N)
+// one consumer warpgroup of 64 rows; a 2-stage ring of 32 K rows, the most
+// that fits beside the tile at the widest reach
+struct WideCfg {
+  static constexpr int kWG = 1, kMT = 1, kKCH = 32, kS = 2, kNB = 2;
+};
+using WideP = MmaPass<kWideC, WideCfg::kMT, WideCfg::kKCH, WideCfg::kS, WideCfg::kWG, kWideN>;
+
+template <int K>
+struct Wide {
+  static constexpr int kHalf = K / 2;
+  static constexpr int kRows = WideP::kRows;                    // output frames per block
+  static constexpr int kQ = K * kWideC / WideCfg::kKCH;         // ring chunks per conv
+  static constexpr int kBarBytes = 128;                         // full[S], empty[S]
+  static constexpr int kLdH = kWideN + 8;                       // bf16 per staged conv1 row
+  static constexpr int kLdO = kWideN + 4;                       // fp32 per staged conv2 row
+  // conv1's tile has kRows + 2 (k/2) dil rows, conv2's kRows + 2 (k/2)
+  static size_t bytes(int dil) {
+    return kBarBytes + WideP::kRingBytes + (size_t)(kRows + 2 * kHalf * dil) * WideP::kLd * 2;
+  }
+  static_assert(kRows * kLdO * 4 <= WideP::kRingBytes + kRows * WideP::kLd * 2,
+                "conv2's output tile must fit over the ring and the input tile");
+  static_assert(kRows * kLdH <= kRows * WideP::kLd, "conv1's output tile must fit over its input");
+};
+
+// One conv of a residual pair at C = 512, for the output channels [256 z,
+// 256 z + 256) (z = blockIdx.z) of kRows frames:
+// - conv1 (kSecond false): h = bf16(lrelu(conv_{k,d}(bf16(lrelu(y))) + b1))
+//   on [0, T), to h_out; y is rounded to bf16 on load where round_in is set;
+// - conv2 (kSecond true): out = [out +] (y + conv_k(h) + b2) [/ divide].
+// The consumer warpgroup computes; one producer warp streams this half's
+// weights (one contiguous run, ops/mrf.py::_pack_taps).
+template <int K, bool kSecond>
+__global__ void __launch_bounds__(WideP::kThreads, 1)
+mrf_wide_mma(const float* __restrict__ y,              // [B, T, 512] pair input
+             const __nv_bfloat16* __restrict__ h_in,   // [B, T, 512] conv1's output (conv2)
+             __nv_bfloat16* __restrict__ h_out,        // [B, T, 512] (conv1)
+             float* __restrict__ out,                  // [B, T, 512] (conv2)
+             const __nv_bfloat16* __restrict__ w,      // K taps, halves of 256, wgmma order
+             const float* __restrict__ b,              // [512]
+             int T, int dil, int round_in, int accumulate, int divide) {
+  using Q = Wide<K>;
+  using G = WideCfg;
+  using P = WideP;
+  constexpr int C = kWideC, N = kWideN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t full = smem_addr(smem), empty = full + 8 * G::kS;
+  const uint32_t ring = full + Q::kBarBytes;
+  unsigned char* tile = smem + Q::kBarBytes + P::kRingBytes;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.z * N;          // this block's output channels
+  const int u = blockIdx.x * Q::kRows;    // its first output frame
+  const size_t row = (size_t)blockIdx.y * T * C;
+
+  if (tid == 0) {
+    for (int s = 0; s < G::kS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, P::kWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= P::kConsumers) {   // the producer warp: this half's chunks
+    if (tid == P::kConsumers) {
+      const __nv_bfloat16* wz = w + (size_t)blockIdx.z * K * C * N;
+      produce<G::kS>(
+          Q::kQ, ring, P::kStageBytes, full, empty,
+          [&](int q) { return wz + (size_t)q * G::kKCH * N; },
+          [&](int) { return (uint32_t)P::kStageBytes; });
+    }
+  } else {
+    // the input tile, row i = frame u - reach + i (0 outside [0, T)):
+    // bf16(lrelu(y)) for conv1, h for conv2; kBatch loads in flight a thread.
+    // The memory phases repeat pair_consumers' at other widths: shared as
+    // functions, they made ptxas spill mrf_pair_mma<256, k> at its 168
+    // registers a thread (460 B of spill stores at k = 11).
+    const int reach = kSecond ? Q::kHalf : Q::kHalf * dil;
+    const int rows_in = Q::kRows + 2 * reach, t_in = u - reach;
+    if constexpr (!kSecond) {
+      constexpr int kN4 = C / 4;
+      for (int i0 = tid; i0 < rows_in * kN4; i0 += kBatch * P::kConsumers) {
+        float4 v[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * P::kConsumers, t = t_in + i / kN4;
+          v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < rows_in * kN4 && t >= 0 && t < T)
+            v[j] = __ldg(reinterpret_cast<const float4*>(y + row + (size_t)t * C + (i % kN4) * 4));
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * P::kConsumers;
+          if (i >= rows_in * kN4) break;
+          float4 a = v[j];
+          if (round_in) a = make_float4(round_bf16(a.x), round_bf16(a.y), round_bf16(a.z),
+                                        round_bf16(a.w));
+          *reinterpret_cast<uint2*>(tile + 2 * ((i / kN4) * P::kLd + (i % kN4) * 4)) =
+              make_uint2(pack_bf16(lrelu_f(a.x), lrelu_f(a.y)), pack_bf16(lrelu_f(a.z), lrelu_f(a.w)));
+        }
+      }
+    } else {
+      constexpr int kN8 = C / 8;
+      for (int i0 = tid; i0 < rows_in * kN8; i0 += kBatch * P::kConsumers) {
+        uint4 v[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * P::kConsumers, t = t_in + i / kN8;
+          v[j] = make_uint4(0u, 0u, 0u, 0u);
+          if (i < rows_in * kN8 && t >= 0 && t < T)
+            v[j] = __ldg(reinterpret_cast<const uint4*>(h_in + row + (size_t)t * C + (i % kN8) * 8));
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * P::kConsumers;
+          if (i >= rows_in * kN8) break;
+          *reinterpret_cast<uint4*>(tile + 2 * ((i / kN8) * P::kLd + (i % kN8) * 8)) = v[j];
+        }
+      }
+    }
+    consumer_sync<P::kConsumers>();
+
+    const int warp = tid / 32, lane = tid % 32;
+    const bool leader = tid == 0;
+    const uint32_t a_lane =
+        smem_addr(tile) + 2 * ((warp * 16 + (lane & 15)) * P::kLd + (lane >> 4) * 8);
+    const int row0 = warp * 16 + (lane >> 2);   // + 8 h
+    const int col0 = 2 * (lane & 3);             // + 8 g
+    float acc[1][N / 2];
+    conv_mma<C, K, 1, G::kKCH, G::kS, G::kNB, 1, N>(acc, a_lane, 2 * P::kLd,
+                                                     kSecond ? 1 : dil, ring, full,
+                                                     empty, 0, leader);
+    consumer_sync<P::kConsumers>();
+
+    if constexpr (!kSecond) {
+      // h over the input tile (nothing reads it any more), then one
+      // coalesced pass of 16-byte stores
+      __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(tile);   // [kRows][kLdH]
+#pragma unroll
+      for (int g = 0; g < N / 8; ++g) {
+        const int n = 8 * g + col0;
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(b + n0 + n));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = row0 + 8 * hh;
+          *reinterpret_cast<uint32_t*>(staged + r * Q::kLdH + n) =
+              pack_bf16(lrelu_f(acc[0][4 * g + 2 * hh] + bias.x),
+                        lrelu_f(acc[0][4 * g + 2 * hh + 1] + bias.y));
+        }
+      }
+      consumer_sync<P::kConsumers>();
+      constexpr int kN8 = N / 8;
+      const int n_out = min(Q::kRows, T - u) * kN8;
+      for (int i = tid; i < n_out; i += P::kConsumers)
+        *reinterpret_cast<uint4*>(h_out + row + (size_t)(u + i / kN8) * C + n0 + (i % kN8) * 8) =
+            *reinterpret_cast<const uint4*>(staged + (i / kN8) * Q::kLdH + (i % kN8) * 8);
+    } else {
+      // acc + b2 over the ring and the tile, then the residual, the branch
+      // sum and the fp32 store in one coalesced pass, as mrf_pair_mma
+      float* staged = reinterpret_cast<float*>(tile - P::kRingBytes);   // [kRows][kLdO]
+#pragma unroll
+      for (int g = 0; g < N / 8; ++g) {
+        const int n = 8 * g + col0;
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(b + n0 + n));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = row0 + 8 * hh;
+          *reinterpret_cast<float2*>(staged + r * Q::kLdO + n) =
+              make_float2(acc[0][4 * g + 2 * hh] + bias.x, acc[0][4 * g + 2 * hh + 1] + bias.y);
+        }
+      }
+      consumer_sync<P::kConsumers>();
+      constexpr int kN4 = N / 4;
+      const int n_out = min(Q::kRows, T - u) * kN4;
+      for (int i0 = tid; i0 < n_out; i0 += kBatch * P::kConsumers) {
+        float4 res[kBatch], prev[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * P::kConsumers;
+          const size_t at = row + (size_t)(u + i / kN4) * C + n0 + (i % kN4) * 4;
+          if (i < n_out) {
+            res[j] = __ldg(reinterpret_cast<const float4*>(y + at));
+            if (accumulate) prev[j] = *reinterpret_cast<const float4*>(out + at);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * P::kConsumers;
+          if (i >= n_out) break;
+          const float4 a =
+              *reinterpret_cast<const float4*>(staged + (i / kN4) * Q::kLdO + (i % kN4) * 4);
+          float4 r = res[j];
+          if (round_in) r = make_float4(round_bf16(r.x), round_bf16(r.y), round_bf16(r.z),
+                                        round_bf16(r.w));
+          float v[4] = {r.x + a.x, r.y + a.y, r.z + a.z, r.w + a.w};
+          if (accumulate) {
+            v[0] = prev[j].x + v[0];
+            v[1] = prev[j].y + v[1];
+            v[2] = prev[j].z + v[2];
+            v[3] = prev[j].w + v[3];
+          }
+          if (divide) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] = v[e] / (float)divide;
+          }
+          *reinterpret_cast<float4*>(out + row + (size_t)(u + i / kN4) * C + n0 + (i % kN4) * 4) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+  }
+}
+
+// One residual pair on `stream` (hbuf: conv1's bf16 output at C = 512).
 template <int C, int K>
 struct Launch {
-  static int get(const float* y, float* out, const __nv_bfloat16* w1, const float* b1,
-                 const __nv_bfloat16* w2, const float* b2, int B, int T, int dil, int round_in,
-                 int accumulate, int divide, cudaStream_t stream) {
+  static int get(const float* y, float* out, __nv_bfloat16*, const __nv_bfloat16* w1,
+                 const float* b1, const __nv_bfloat16* w2, const float* b2, int B, int T,
+                 int dil, int round_in, int accumulate, int divide, cudaStream_t stream) {
     using Q = Pair<C, K>;
     const size_t smem = Q::bytes(dil);
     cudaError_t err = cudaFuncSetAttribute(
@@ -306,25 +541,63 @@ struct Launch {
   }
 };
 
+template <int K>
+struct Launch<kWideC, K> {
+  static int get(const float* y, float* out, __nv_bfloat16* hbuf, const __nv_bfloat16* w1,
+                 const float* b1, const __nv_bfloat16* w2, const float* b2, int B, int T,
+                 int dil, int round_in, int accumulate, int divide, cudaStream_t stream) {
+    using Q = Wide<K>;
+    if (!hbuf) return (int)cudaErrorInvalidValue;
+    const dim3 grid((T + Q::kRows - 1) / Q::kRows, B, kWideC / kWideN);
+    size_t smem = Q::bytes(dil);
+    cudaError_t err = cudaFuncSetAttribute(
+        mrf_wide_mma<K, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mrf_wide_mma<K, false><<<grid, WideP::kThreads, smem, stream>>>(
+        y, nullptr, hbuf, nullptr, w1, b1, T, dil, round_in, 0, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    smem = Q::bytes(1);
+    err = cudaFuncSetAttribute(mrf_wide_mma<K, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mrf_wide_mma<K, true><<<grid, WideP::kThreads, smem, stream>>>(
+        y, hbuf, nullptr, out, w2, b2, T, 1, round_in, accumulate, divide);
+    return (int)cudaGetLastError();
+  }
+};
+
+// Dynamic shared memory of one pair's (largest) launch at dilation dil.
 template <int C, int K>
 struct SmemBytes {
   static int get(int dil) { return (int)Pair<C, K>::bytes(dil); }
+};
+template <int K>
+struct SmemBytes<kWideC, K> {
+  static int get(int dil) { return (int)Wide<K>::bytes(dil); }
 };
 
 template <int C, int K>
 struct TileFrames {
   static int get() { return Pair<C, K>::kM2; }
 };
+template <int K>
+struct TileFrames<kWideC, K> {
+  static int get() { return Wide<K>::kRows; }
+};
 
 // F<C, k>::get(args...) for a width and kernel size the library is built
-// for, else `fallback`.
+// for (every odd k <= 11), else `fallback`.
 template <template <int, int> class F, class R, class... A>
 R by_width_and_k(int C, int k, R fallback, A... args) {
   auto pick = [&](auto c) -> R {
     constexpr int CC = decltype(c)::value;
     switch (k) {
+      case 1: return F<CC, 1>::get(args...);
       case 3: return F<CC, 3>::get(args...);
+      case 5: return F<CC, 5>::get(args...);
       case 7: return F<CC, 7>::get(args...);
+      case 9: return F<CC, 9>::get(args...);
       case 11: return F<CC, 11>::get(args...);
       default: return fallback;
     }
@@ -334,6 +607,7 @@ R by_width_and_k(int C, int k, R fallback, A... args) {
     case 64: return pick(std::integral_constant<int, 64>());
     case 128: return pick(std::integral_constant<int, 128>());
     case 256: return pick(std::integral_constant<int, 256>());
+    case 512: return pick(std::integral_constant<int, 512>());
     default: return fallback;
   }
 }
@@ -342,12 +616,14 @@ R by_width_and_k(int C, int k, R fallback, A... args) {
 
 extern "C" {
 
-// x, out [B, T, C] fp32; buf0, buf1 [B, T, C] fp32 scratch; w1, w2 [n_br,
-// n_pair, 11 C C] bf16, each (branch, pair) holding its k real taps first in
-// wgmma order (ops/mrf.py::kernel_weights); b1, b2 [n_br, n_pair, C] fp32;
+// x, out [B, T, C] fp32; buf0, buf1 [B, T, C] fp32 scratch; hbuf [B, T, C]
+// bf16 scratch at C = 512 (else unused, may be null); w1, w2 [n_br, n_pair,
+// 11 C C] bf16, each (branch, pair) holding its k real taps first in wgmma
+// order (ops/mrf.py::kernel_weights); b1, b2 [n_br, n_pair, C] fp32;
 // kernel_sizes [n_br] and dilations [n_pair] are host arrays.  Launches
-// n_br * n_pair kernels on `stream` and returns the first CUDA error, or 0.
-int mrf_stack_bf16(const float* x, float* out, float* buf0, float* buf1,
+// n_br * n_pair kernels on `stream` (twice as many at C = 512) and returns
+// the first CUDA error, or 0.
+int mrf_stack_bf16(const float* x, float* out, float* buf0, float* buf1, __nv_bfloat16* hbuf,
                    const __nv_bfloat16* w1, const float* b1, const __nv_bfloat16* w2,
                    const float* b2, int B, int T, int C, int n_br, int n_pair,
                    const int* kernel_sizes, const int* dilations, void* stream) {
@@ -365,8 +641,8 @@ int mrf_stack_bf16(const float* x, float* out, float* buf0, float* buf1,
       const __nv_bfloat16* w1p = w1 + pair * kTapsMax * C * C;
       const __nv_bfloat16* w2p = w2 + pair * kTapsMax * C * C;
       const int err = by_width_and_k<Launch, int>(
-          C, k, (int)cudaErrorInvalidValue, src, dst, w1p, b1 + pair * C, w2p, b2 + pair * C,
-          B, T, dilations[p], (int)(p == 0), accumulate, divide, s);
+          C, k, (int)cudaErrorInvalidValue, src, dst, hbuf, w1p, b1 + pair * C, w2p,
+          b2 + pair * C, B, T, dilations[p], (int)(p == 0), accumulate, divide, s);
       if (err != 0) return err;
     }
   }
@@ -374,7 +650,9 @@ int mrf_stack_bf16(const float* x, float* out, float* buf0, float* buf1,
 }
 
 // Dynamic shared memory a block uses for one pair at width C, kernel size
-// k and dilation dil, or -1 for a width or kernel size it is not built for.
+// k and dilation dil (its largest launch), or -1 for a width or kernel size
+// it is not built for.  ops/mrf.py holds every launch to the card's limit
+// with it.
 int mrf_stack_smem_bytes(int C, int k, int dil) {
   return by_width_and_k<SmemBytes, int>(C, k, -1, dil);
 }

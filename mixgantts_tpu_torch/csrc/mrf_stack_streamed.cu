@@ -1,6 +1,6 @@
-// A whole HiFi-GAN MRF stage at C = 256 in one launch, written by hand for
-// Hopper (sm_90a) on the tensor cores: bf16 operands, fp32 accumulation,
-// fp32 residual state and output.
+// A whole HiFi-GAN MRF stage at C = 256 or 512 in one launch, written by
+// hand for Hopper (sm_90a) on the tensor cores: bf16 operands, fp32
+// accumulation, fp32 residual state and output.
 //
 // Replaces the Pallas TPU kernel mixgantts_tpu/ops/pallas_vocoder.py::
 // mrf_stack_streamed (body _kernel_streamed).  That kernel's grid is
@@ -10,11 +10,24 @@
 // a loop inside a thread-block cluster, and so is everything else.
 //
 // Math (as mrf_stack.cu and the TPU kernel with op_dtype = bf16): for each
-// branch (kernel k), three residual pairs (dilation d)
+// branch (an odd kernel size k <= 11), a chain of residual pairs (dilation d)
 //   y = y + (conv_k(bf16(lrelu(conv_{k,d}(bf16(lrelu(y) * mask)) + b1) * mask)) + b2)
 // with y starting from bf16(x) (the TPU rounds its x tiles), mask = [0, T)
 // (SAME zero padding), products summed in fp32; the output is the sum of
 // the branch outputs, in branch order, divided by the number of branches.
+//
+// Shapes: the TPU kernel's.  Any number of branches and pairs up to
+// kMaxSteps each (a kernel parameter block's worth), every odd k <= 11, and
+// every dilation schedule whose creep fits the TPU kernels' 64-frame halo
+// (sum over pairs of (k/2)(d + 1) <= 64 per branch).  C = 256 runs in
+// clusters of 4 CTAs, C = 512 in clusters of 8 (the portable limit);
+// ops/mrf.py runs 128 < C <= 256 at 256 and 256 < C <= 512 at 512 with zero
+// channels.  The host plans each launch's shared memory from its schedule
+// (geom_of): the X buffer holds a pass plus the widest conv1 reach, the
+// stash the widest h (d + 1) rows.  A pass takes three warpgroups where that
+// fits the 232,448 B a block may hold, else two, else one; where not even
+// one does (C = 512 past a reach of about 45 frames), the plan says so and
+// ops/mrf.py raises, naming the limit.
 //
 // What bounds it on an H100: operations.  The stage does 252 C^2 FLOP per
 // frame: 132 GFLOP at B = 1, T = 8000, 0.134 ms at 989 TFLOP/s of bf16; x in
@@ -23,7 +36,7 @@
 // Design (mbarriers, bulk copies, the weights' layout and the wgmma calls
 // come from mrf_mma.cuh, the cluster's copies and barriers from
 // cluster.cuh):
-// - A cluster of kRanks = 4 CTAs owns a tile of `tile` output frames of one
+// - A cluster of kRanks = C / 64 CTAs owns a tile of `tile` output frames of one
 //   batch row; CTA `rank` owns output channels [64 rank, 64 rank + 64) of
 //   every conv (wgmma m64n64k16) and the fp32 y of those channels.  Tiles
 //   recompute their halo, so clusters never wait on each other, and the
@@ -52,9 +65,11 @@
 //   slab (2 KB, one bulk copy each) through a ring of kS stages of kKCH K
 //   rows, ahead across passes, pairs and branches.  A stage's wgmmas issue
 //   back to back as one group, kFly groups in flight.
-// - Shared memory per CTA: mbarriers 128 B, ring 4 x 16 KB = 65,536 B, X
-//   32 x 242 rows x 16 B = 123,904 B (192 rows + the k = 11, d = 5 halo
-//   2 x 25), a stash of 30 rows of y (8,160 B): 197,728 B, one CTA an SM.
+// - Shared memory per CTA at V1's schedule and C = 256: mbarriers 128 B,
+//   ring 4 x 16 KB = 65,536 B, X 32 x 242 rows x 16 B = 123,904 B (192 rows
+//   + the k = 11, d = 5 reach 2 x 25), a stash of 30 rows of y (8,160 B):
+//   197,728 B, one CTA an SM.  At C = 512 X is twice as wide, and V1's
+//   schedule runs passes of one warpgroup (64 rows): 190,560 B.
 //   y itself, (tile + 2 x 60) rows x 272 B a CTA (68 floats: 64 + 4 against
 //   bank conflicts), lives in a slab of device memory of its own (12.6 MB
 //   at B = 1, T = 8000; 21.5 MB at B = 4, T = 4096; both fit L2): at these tiles
@@ -87,33 +102,43 @@
 
 namespace {
 
-constexpr int kC = 256;                    // the stage width this kernel is built for
-constexpr int kRanks = 4;                  // CTAs per cluster
-constexpr int kN = kC / kRanks;            // output channels per CTA
+constexpr int kN = 64;                     // output channels per CTA
 constexpr int kWG = 3, kMT = 1;            // consumer warpgroups, 64-row tiles each
 constexpr int kKCH = 128, kS = 4;          // K rows per ring stage, stages
 constexpr int kFly = 2;                    // wgmma groups (ring stages) in flight
-constexpr int kMaxSteps = 4;               // branches, and pairs per branch, a launch takes
-constexpr int kMaxHalf = 5, kMaxDil = 5;   // k <= 11, d <= 5
+constexpr int kMaxSteps = 256;             // branches, and pairs per branch, a launch takes
+constexpr int kHalo = 64;                  // a branch's creep fits the TPU kernels' halo
 constexpr int kTapsMax = 11;               // stacked weights reserve 11 taps per pair
+constexpr int kSplit = 256;                // output channels of one run of the weights' layout
+constexpr int kMaxSmem = 232448;           // an H100 block's dynamic shared memory
 
 using P = MmaPass<kN, kMT, kKCH, kS, kWG>;
-static_assert(kN == 64, "wgmma_ss is m64n64k16: clusters of 4 CTAs at C = 256");
-constexpr int kM = P::kRows;                               // rows of a full pass
-constexpr int kXRows = kM + 2 * kMaxHalf * kMaxDil;        // rows of the X buffer
+static_assert(kN == 64, "wgmma_ss is m64n64k16");
 constexpr int kYld = kN + 4;                               // floats per y row
 constexpr int kBarBytes = (2 * kS + 3 + 15) / 16 * 128;      // full[kS], empty[kS], 3 more
 constexpr int kX = kBarBytes + P::kRingBytes;              // byte offset of X
-constexpr int kStash = kX + kC / 8 * kXRows * 16;          // of the stash: rows y takes later
-constexpr int kSmem = kStash + kMaxHalf * (kMaxDil + 1) * kYld * 4;   // bytes per CTA
-static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
 constexpr int kBatch = 2;   // rows of y a thread loads at once building a tile
 constexpr int kGroups = 2;  // groups of 8 columns whose y it loads at once in the epilogue
+
+// CTAs per cluster at stage width C: each owns kN output channels.
+template <int C>
+struct Width {
+  static_assert(C == 256 || C == 512, "built for C = 256 and 512");
+  static constexpr int kRanks = C / kN;
+};
 
 struct Steps {
   int n_br, n_pair;
   int k[kMaxSteps];   // kernel size per branch
   int d[kMaxSteps];   // dilation per pair
+};
+
+// A launch's shared-memory plan (geom_of).
+struct Geom {
+  int wgs;      // consumer warpgroups a pass uses (64 wgs rows), 0 if none fits
+  int x_rows;   // rows of the X buffer: a pass plus the widest conv1 reach each side
+  int stash;    // byte offset of the stash: rows y takes later
+  int smem;     // dynamic shared memory per CTA
 };
 
 // Frames per side that the pairs after pair p of a kernel-k branch still
@@ -137,14 +162,15 @@ __host__ __device__ inline Win window(const Steps& s, int k, int p, int t0, int 
 }
 
 // Rows of a pass with `rem` frames of its window left: the fewest whole
-// warpgroups whose conv2 keeps them all, else every warpgroup.
-__host__ __device__ inline int pass_rows(int rem, int h) {
-  for (int w = 1; w < kWG; ++w)
+// warpgroups whose conv2 keeps them all, else all `wgs` of them.
+__host__ __device__ inline int pass_rows(int rem, int h, int wgs) {
+  for (int w = 1; w < wgs; ++w)
     if (64 * kMT * w - 2 * h >= rem) return 64 * kMT * w;
-  return kM;
+  return 64 * kMT * wgs;
 }
 
-__host__ __device__ inline int chunks(int k) { return k * kC / kKCH; }   // ring chunks per conv
+template <int C>
+__host__ __device__ inline int chunks(int k) { return k * C / kKCH; }   // ring chunks per conv
 
 int lead_of(const Steps& s) {
   int lead = 0;
@@ -155,18 +181,53 @@ int lead_of(const Steps& s) {
   return lead;
 }
 
+// The plan for passes of `wgs` warpgroups.  Valid where it fits a block's
+// shared memory and every full pass keeps more rows than the next pass
+// reads back (h (d + 1) + 2 h <= its rows: the stash holds the overlap of
+// two passes only); else wgs is 0.
+template <int C>
+Geom geom_of(const Steps& s, int wgs) {
+  int reach = 0, stash = 0, overlap = 0;
+  for (int br = 0; br < s.n_br; ++br)
+    for (int p = 0; p < s.n_pair; ++p) {
+      const int h = s.k[br] / 2, d = s.d[p];
+      reach = h * d > reach ? h * d : reach;
+      stash = h * (d + 1) > stash ? h * (d + 1) : stash;
+      overlap = h * (d + 3) > overlap ? h * (d + 3) : overlap;
+    }
+  Geom g;
+  g.x_rows = 64 * kMT * wgs + 2 * reach;
+  g.stash = kX + C / 8 * g.x_rows * 16;
+  g.smem = g.stash + stash * kYld * 4;
+  g.wgs = overlap <= 64 * kMT * wgs && g.smem <= kMaxSmem ? wgs : 0;
+  return g;
+}
+
+// The valid plan with the most warpgroups a pass (one warpgroup's, with
+// wgs 0, where none is valid).
+template <int C>
+Geom pick_geom(const Steps& s) {
+  for (int wgs = kWG; wgs > 1; --wgs) {
+    const Geom g = geom_of<C>(s, wgs);
+    if (g.wgs) return g;
+  }
+  return geom_of<C>(s, 1);
+}
+
 // Ring chunks a CTA of the tile at t0 streams, and (flops != nullptr) the
 // FLOPs its cluster executes, halo recompute included.
-__host__ __device__ inline int plan_of(const Steps& s, int t0, int tile, int T, double* flops) {
+template <int C>
+__host__ __device__ inline int plan_of(const Steps& s, int t0, int tile, int T, int wgs,
+                                       double* flops) {
   int n = 0;
   for (int br = 0; br < s.n_br; ++br) {
     const int k = s.k[br], h = k / 2;
     for (int p = 0; p < s.n_pair; ++p) {
       const Win w = window(s, k, p, t0, tile, T);
       for (int u = w.lo; u < w.hi;) {
-        const int m = pass_rows(w.hi - u, h);
-        n += 2 * chunks(k);
-        if (flops) *flops += 2.0 * 2.0 * m * k * kC * kC;
+        const int m = pass_rows(w.hi - u, h, wgs);
+        n += 2 * chunks<C>(k);
+        if (flops) *flops += 2.0 * 2.0 * m * k * C * C;
         u += m - 2 * h;
       }
     }
@@ -176,16 +237,16 @@ __host__ __device__ inline int plan_of(const Steps& s, int t0, int tile, int T, 
 
 // acc[mt] (64 x kN, fp32) = the conv of X rows [a0 / 16 + 64 mt, +64) (X
 // K-major, `stride` bytes from one group of 8 channels to the next): sum
-// over taps t < K and the kC input channels of A[r + t dil, c] W[t][c][n],
+// over taps t < K and the C input channels of A[r + t dil, c] W[t][c][n],
 // both operands from shared memory.  The weights are ring chunks q0 ..
 // q0 + chunks(K) - 1; each chunk's wgmmas issue back to back as one group,
 // kFly groups in flight, and `leader` releases a chunk's stage once its
 // group has completed.
-template <int K>
+template <int C, int K>
 __device__ __forceinline__ void conv_ss(float (&acc)[kMT][kN / 2], uint32_t a0, uint32_t stride,
                                         int dil, uint32_t ring, uint32_t full, uint32_t empty,
                                         int q0, bool leader) {
-  constexpr int kSPC = kKCH / 16, kChunks = K * kC / kKCH, kPerTap = kC / 16;
+  constexpr int kSPC = kKCH / 16, kChunks = K * C / kKCH, kPerTap = C / 16;
   static_assert(kChunks >= kFly, "a conv fills the groups in flight");
   auto release = [&](int q) {
     if (leader) mbar_arrive(empty + 8 * (q % kS));
@@ -222,13 +283,17 @@ __device__ __forceinline__ void conv_ss(float (&acc)[kMT][kN / 2], uint32_t a0, 
 }
 
 // The consumer warpgroup's conv of its rows at kernel size k.
+template <int C>
 __device__ __forceinline__ void conv(int k, float (&acc)[kMT][kN / 2], uint32_t a0,
                                      uint32_t stride, int dil, uint32_t ring, uint32_t full,
                                      uint32_t empty, int q, bool leader) {
   switch (k) {
-    case 3: conv_ss<3>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
-    case 7: conv_ss<7>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
-    default: conv_ss<11>(acc, a0, stride, dil, ring, full, empty, q, leader);
+    case 1: conv_ss<C, 1>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 3: conv_ss<C, 3>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 5: conv_ss<C, 5>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 7: conv_ss<C, 7>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 9: conv_ss<C, 9>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    default: conv_ss<C, 11>(acc, a0, stride, dil, ring, full, empty, q, leader);
   }
 }
 
@@ -243,7 +308,10 @@ __device__ __forceinline__ void drain(int q, int n, uint32_t full, uint32_t empt
 }
 
 // Grid (kRanks * ceil(T / tile), B), clusters of kRanks CTAs along x; each
-// CTA keeps y in its part of y_slab ([CTAs][tile + 2 lead][kYld] fp32).
+// CTA keeps y in its part of y_slab ([CTAs][tile + 2 lead][kYld] fp32).  The
+// steps are read in place from the parameter block (__grid_constant__: no
+// copy of their arrays per thread).
+template <int C>
 __global__ void __launch_bounds__(P::kThreads, 1)
 mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
                    float* __restrict__ out,                    // [B, T, C]
@@ -252,7 +320,8 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
                    const float* __restrict__ b1,               // [n_br, n_pair, C]
                    const __nv_bfloat16* __restrict__ w2,
                    const float* __restrict__ b2,
-                   int T, int tile, int lead, Steps s) {
+                   int T, int tile, int lead, Geom geo, const __grid_constant__ Steps s) {
+  constexpr int kRanks = Width<C>::kRanks;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_addr(smem);
   const uint32_t full = base, empty = base + 8 * kS;
@@ -263,7 +332,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
   const int ch0 = rank * kN;
   const int t0 = (blockIdx.x / kRanks) * tile, b = blockIdx.y;
   const int s0 = t0 - lead;   // the frame of y's row 0
-  const size_t row = (size_t)b * T * kC;
+  const size_t row = (size_t)b * T * C;
 
   if (tid == 0) {
     for (int i = 0; i < kS; ++i) {
@@ -282,7 +351,8 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
   if (tid >= P::kConsumers) {
     if (tid == P::kConsumers) {
       // the producer: this CTA's columns of every conv of every pass, in the
-      // consumers' order
+      // consumers' order (in the weights' run of 256 output channels
+      // ch0 / 256, ops/mrf.py::_pack_taps)
       int br = 0, p = 0, u = 0, hi = 0, cv = 0, c = 0;
       auto start_pair = [&]() {
         const Win w = window(s, s.k[br], p, t0, tile, T);
@@ -291,20 +361,21 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
       };
       start_pair();
       produce_chunks<kS>(
-          plan_of(s, t0, tile, T, nullptr), ring, P::kStageBytes, full, empty,
+          plan_of<C>(s, t0, tile, T, geo.wgs, nullptr), ring, P::kStageBytes, full, empty,
           [&](int, uint32_t dst, uint32_t bar) {
             const int k = s.k[br], h = k / 2;
             const __nv_bfloat16* src = (cv ? w2 : w1) +
-                                       ((size_t)br * s.n_pair + p) * kTapsMax * kC * kC +
-                                       (size_t)c * kKCH * kC + ch0 * 16;
+                                       ((size_t)br * s.n_pair + p) * kTapsMax * C * C +
+                                       (size_t)(ch0 / kSplit) * k * C * kSplit +
+                                       (size_t)c * kKCH * kSplit + (ch0 % kSplit) * 16;
             mbar_expect_tx(bar, kKCH * kN * 2);
             for (int i = 0; i < kKCH / 16; ++i)
-              bulk_copy(dst + i * 32 * kN, src + (size_t)i * 16 * kC, 32 * kN, bar);
-            if (++c < chunks(k)) return;
+              bulk_copy(dst + i * 32 * kN, src + (size_t)i * 16 * kSplit, 32 * kN, bar);
+            if (++c < chunks<C>(k)) return;
             c = 0;
             if (++cv < 2) return;
             cv = 0;
-            u += pass_rows(hi - u, h) - 2 * h;
+            u += pass_rows(hi - u, h, geo.wgs) - 2 * h;
             if (u < hi) return;
             if (++p == s.n_pair) {
               p = 0;
@@ -320,7 +391,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
     const int col0 = 2 * (lane & 3);                             // + 8 g
     const int wg_row = wg * kMT * 64;   // this warpgroup's first row of a pass
     float* y = y_slab + ((size_t)b * gridDim.x + blockIdx.x) * (tile + 2 * lead) * kYld;
-    float* stash = reinterpret_cast<float*>(smem + kStash);
+    float* stash = reinterpret_cast<float*>(smem + geo.stash);
     float acc[kMT][kN / 2];
     int q = 0, pass = 0;
 
@@ -345,7 +416,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
       consumer_sync<P::kConsumers>();
       for (int i = tid; i < (w0.hi - w0.lo) * (kN / 4); i += P::kConsumers) {
         const int f = w0.lo + i / (kN / 4), c = (i % (kN / 4)) * 4;
-        const float4 v = __ldg(reinterpret_cast<const float4*>(x + row + (size_t)f * kC + ch0 + c));
+        const float4 v = __ldg(reinterpret_cast<const float4*>(x + row + (size_t)f * C + ch0 + c));
         *reinterpret_cast<float4*>(y + (f - s0) * kYld + c) =
             make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
       }
@@ -358,7 +429,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
         const Win w = window(s, k, p, t0, tile, T), w_in = window(s, k, p - 1, t0, tile, T);
         int pend_f = 0, pend_n = 0;   // stashed rows of the last pass, not yet in y
         for (int u = w.lo; u < w.hi;) {
-          const int m = pass_rows(w.hi - u, h), kept = m - 2 * h, sa = m + 2 * h * d;
+          const int m = pass_rows(w.hi - u, h, geo.wgs), kept = m - 2 * h, sa = m + 2 * h * d;
           const bool active = wg * kMT * 64 < m;
           STAMP(0)
           // the other CTAs are done reading X (their conv2 of the last pass)
@@ -409,10 +480,10 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
 
           // conv1: output row r is frame u - h + r
           if (active)
-            conv(k, acc, xt + wg_row * 16, sa * 16, d, ring, full, empty, q, leader);
+            conv<C>(k, acc, xt + wg_row * 16, sa * 16, d, ring, full, empty, q, leader);
           else
-            drain(q, chunks(k), full, empty, leader);
-          q += chunks(k);
+            drain(q, chunks<C>(k), full, empty, leader);
+          q += chunks<C>(k);
           consumer_sync<P::kConsumers>();
           if (tid == 0) arrive_peers();
           STAMP(3)
@@ -421,7 +492,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
 
           // h = bf16(lrelu(conv1 + b1) * mask), this CTA's channels, into X
           if (active) {
-            const float* b1p = b1 + step * kC + ch0;
+            const float* b1p = b1 + step * C + ch0;
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -447,10 +518,10 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
 
           // conv2: output row r is frame u + r, kept for r < kept
           if (active)
-            conv(k, acc, xt + wg_row * 16, m * 16, 1, ring, full, empty, q, leader);
+            conv<C>(k, acc, xt + wg_row * 16, m * 16, 1, ring, full, empty, q, leader);
           else
-            drain(q, chunks(k), full, empty, leader);
-          q += chunks(k);
+            drain(q, chunks<C>(k), full, empty, leader);
+          q += chunks<C>(k);
           consumer_sync<P::kConsumers>();
           if (tid == 0) arrive_peers();
           STAMP(6)
@@ -461,7 +532,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
           // sum (this CTA's rows and channels of the output) instead
           const int ov = last || u + kept >= w.hi ? 0 : h * (d + 1);
           if (active) {
-            const float* b2p = b2 + step * kC + ch0;
+            const float* b2p = b2 + step * C + ch0;
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -479,7 +550,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
                           y + (f - s0) * kYld + 8 * g + col0);
                       if (last && br > 0)
                         prev[g - g0][hh] = *reinterpret_cast<const float2*>(
-                            out + row + (size_t)f * kC + ch0 + 8 * g + col0);
+                            out + row + (size_t)f * C + ch0 + 8 * g + col0);
                     }
                   }
 #pragma unroll
@@ -502,7 +573,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
                       if (br > 0) o = make_float2(prev[g - g0][hh].x + o.x, prev[g - g0][hh].y + o.y);
                       if (br == s.n_br - 1)
                         o = make_float2(o.x / (float)s.n_br, o.y / (float)s.n_br);
-                      *reinterpret_cast<float2*>(out + row + (size_t)f * kC + ch0 + 8 * g + col0) = o;
+                      *reinterpret_cast<float2*>(out + row + (size_t)f * C + ch0 + 8 * g + col0) = o;
                     }
                   }
                 }
@@ -524,7 +595,9 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
   cluster_wait();
 }
 
-// The launch's steps from host arrays, or false for a shape it is not built for.
+// The launch's steps from host arrays, or false for a shape it is not
+// built for: 1 to kMaxSteps branches and pairs, odd k <= 11, d >= 1, and
+// every branch's creep within the halo.
 bool steps_of(int n_br, int n_pair, const int* kernel_sizes, const int* dilations,
               Steps* s) {
   if (n_br < 1 || n_br > kMaxSteps || n_pair < 1 || n_pair > kMaxSteps) return false;
@@ -533,34 +606,40 @@ bool steps_of(int n_br, int n_pair, const int* kernel_sizes, const int* dilation
   for (int i = 0; i < kMaxSteps; ++i) s->k[i] = s->d[i] = 0;
   for (int br = 0; br < n_br; ++br) {
     const int k = kernel_sizes[br];
-    if (k != 3 && k != 7 && k != 11) return false;
+    if (k < 1 || k > kTapsMax || k % 2 == 0) return false;
     s->k[br] = k;
   }
   for (int p = 0; p < n_pair; ++p) {
-    if (dilations[p] < 1 || dilations[p] > kMaxDil) return false;   // the X buffer's halo
+    if (dilations[p] < 1) return false;
     s->d[p] = dilations[p];
   }
+  for (int br = 0; br < n_br; ++br)
+    if (creep_after(*s, s->k[br], -1) > kHalo) return false;   // the X buffer's halo
   return true;
 }
 
-cudaLaunchConfig_t launch_config(int B, int T, int tile, cudaStream_t stream,
+template <int C>
+cudaLaunchConfig_t launch_config(int B, int T, int tile, int smem, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kRanks;
+  attr->val.clusterDim.x = Width<C>::kRanks;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kRanks * ((T + tile - 1) / tile), B, 1);
+  cfg.gridDim = dim3(Width<C>::kRanks * ((T + tile - 1) / tile), B, 1);
   cfg.blockDim = dim3(P::kThreads, 1, 1);
-  cfg.dynamicSmemBytes = kSmem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
 }
 
-// Clusters the current device holds at once (one CTA an SM), worked out
-// once per device.
+// Clusters of width C the current device holds at once, worked out once
+// per device and width.  Every plan takes more than half an SM's shared
+// memory, so a CTA has an SM to itself whatever its plan: the count at the
+// largest plan is the count at every plan.
+template <int C>
 int resident_clusters(int* out) {
   constexpr int kDevices = 64;
   static int known[kDevices];   // clusters + 1, 0 until worked out
@@ -571,59 +650,100 @@ int resident_clusters(int* out) {
     *out = known[dev] - 1;
     return 0;
   }
-  err = cudaFuncSetAttribute(mrf_stage_streamed, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
+  err = cudaFuncSetAttribute(mrf_stage_streamed<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(1, 1000, 1000, nullptr, &attr);
-  err = cudaOccupancyMaxActiveClusters(out, reinterpret_cast<const void*>(mrf_stage_streamed),
+  const cudaLaunchConfig_t cfg = launch_config<C>(1, 1000, 1000, kMaxSmem, nullptr, &attr);
+  err = cudaOccupancyMaxActiveClusters(out, reinterpret_cast<const void*>(mrf_stage_streamed<C>),
                                        &cfg);
   if (err == cudaSuccess && dev < kDevices) known[dev] = *out + 1;
   return (int)err;
+}
+
+template <int C>
+int plan_for(int B, int T, const Steps& s, int* plan) {
+  const Geom g = pick_geom<C>(s);
+  int resident = 0;
+  const int err = resident_clusters<C>(&resident);
+  if (err != 0) return err;
+  const int per_row = resident / B > 1 ? resident / B : 1;
+  const int tile = (T + per_row - 1) / per_row;
+  plan[0] = tile;
+  plan[1] = resident;
+  plan[2] = B * ((T + tile - 1) / tile) * Width<C>::kRanks * (tile + 2 * lead_of(s)) * kYld;
+  plan[3] = g.smem;
+  plan[4] = Width<C>::kRanks;
+  plan[5] = 64 * kMT * g.wgs;
+  return 0;
+}
+
+template <int C>
+double flops_for(int B, int T, int tile, const Steps& s) {
+  const Geom g = pick_geom<C>(s);
+  if (!g.wgs) return -1.0;
+  double flops = 0.0;
+  for (int t0 = 0; t0 < T; t0 += tile) plan_of<C>(s, t0, tile, T, g.wgs, &flops);
+  return flops * B;
+}
+
+template <int C>
+int launch(const float* x, float* out, float* y_slab, const __nv_bfloat16* w1, const float* b1,
+           const __nv_bfloat16* w2, const float* b2, int B, int T, int tile, const Steps& s,
+           cudaStream_t stream) {
+  const Geom g = pick_geom<C>(s);
+  if (!g.wgs) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mrf_stage_streamed<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<C>(B, T, tile, g.smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, mrf_stage_streamed<C>, x, out, y_slab, w1, b1, w2, b2, T, tile,
+                           lead_of(s), g, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch plan at B, T on the current device, into plan[0..4]: frames
-// per cluster (the fewest that put every cluster on the card at once),
-// clusters the device holds at once, floats of the y slab the caller
-// allocates, dynamic shared memory per CTA, CTAs per cluster.  Returns the
-// CUDA error, or cudaErrorInvalidValue for a shape the kernel is not built
-// for.
-int mrf_stack_streamed_plan(int B, int T, int n_br, int n_pair, const int* kernel_sizes,
+// The launch plan at B, T and width C (256 or 512) on the current device,
+// into plan[0..5]: frames per cluster (the fewest that put every cluster on
+// the card at once), clusters the device holds at once, floats of the y
+// slab the caller allocates, dynamic shared memory per CTA, CTAs per
+// cluster, and rows a pass (0: no pass of this schedule fits a block's
+// shared memory, and the launch refuses it).  Returns the CUDA error, or
+// cudaErrorInvalidValue for a shape the kernel is not built for.
+int mrf_stack_streamed_plan(int B, int T, int C, int n_br, int n_pair, const int* kernel_sizes,
                             const int* dilations, int* plan) {
   Steps s;
   if (B < 1 || T < 1 || !steps_of(n_br, n_pair, kernel_sizes, dilations, &s))
     return (int)cudaErrorInvalidValue;
-  int resident = 0;
-  const int err = resident_clusters(&resident);
-  if (err != 0) return err;
-  const int per_row = resident / B > 1 ? resident / B : 1;
-  const int tile = (T + per_row - 1) / per_row;
-  plan[0] = tile;
-  plan[1] = resident;
-  plan[2] = B * ((T + tile - 1) / tile) * kRanks * (tile + 2 * lead_of(s)) * kYld;
-  plan[3] = kSmem;
-  plan[4] = kRanks;
-  return 0;
+  switch (C) {
+    case 256: return plan_for<256>(B, T, s, plan);
+    case 512: return plan_for<512>(B, T, s, plan);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// FLOPs the launch executes at B, T and tile, halo recompute included, or -1.
-double mrf_stack_streamed_flops(int B, int T, int tile, int n_br, int n_pair,
+// FLOPs the launch executes at B, T, C and tile, halo recompute included,
+// or -1.
+double mrf_stack_streamed_flops(int B, int T, int C, int tile, int n_br, int n_pair,
                                 const int* kernel_sizes, const int* dilations) {
   Steps s;
   if (B < 1 || T < 1 || tile < 1 || !steps_of(n_br, n_pair, kernel_sizes, dilations, &s))
     return -1.0;
-  double flops = 0.0;
-  for (int t0 = 0; t0 < T; t0 += tile) plan_of(s, t0, tile, T, &flops);
-  return flops * B;
+  switch (C) {
+    case 256: return flops_for<256>(B, T, tile, s);
+    case 512: return flops_for<512>(B, T, tile, s);
+    default: return -1.0;
+  }
 }
 
-// x, out [B, T, 256] fp32; y_slab as mrf_stack_streamed_plan says for this
-// tile; w1, w2 [n_br, n_pair, 11 C C] bf16 in wgmma order for kernel_sizes
-// (ops/mrf.py::kernel_weights); b1, b2 [n_br, n_pair, 256] fp32;
+// x, out [B, T, C] fp32 (C = 256 or 512); y_slab as mrf_stack_streamed_plan
+// says for this tile; w1, w2 [n_br, n_pair, 11 C C] bf16 in wgmma order for
+// kernel_sizes (ops/mrf.py::kernel_weights); b1, b2 [n_br, n_pair, C] fp32;
 // kernel_sizes [n_br] and dilations [n_pair] are host arrays.  One launch on
 // `stream`; returns its CUDA error, or 0.
 int mrf_stack_streamed_bf16(const float* x, float* out, float* y_slab, const __nv_bfloat16* w1,
@@ -631,19 +751,15 @@ int mrf_stack_streamed_bf16(const float* x, float* out, float* y_slab, const __n
                             int T, int C, int tile, int n_br, int n_pair,
                             const int* kernel_sizes, const int* dilations, void* stream) {
   Steps s;
-  if (C != kC || B < 1 || T < 1 || tile < 1 || !y_slab ||
+  if (B < 1 || T < 1 || tile < 1 || !y_slab ||
       !steps_of(n_br, n_pair, kernel_sizes, dilations, &s))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mrf_stage_streamed, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(B, T, tile, static_cast<cudaStream_t>(stream), &attr);
-  err = cudaLaunchKernelEx(&cfg, mrf_stage_streamed, x, out, y_slab, w1, b1, w2, b2, T, tile,
-                           lead_of(s), s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 256: return launch<256>(x, out, y_slab, w1, b1, w2, b2, B, T, tile, s, st);
+    case 512: return launch<512>(x, out, y_slab, w1, b1, w2, b2, B, T, tile, s, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* mrf_stack_streamed_error_string(int err) {

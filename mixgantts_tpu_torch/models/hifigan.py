@@ -113,7 +113,9 @@ class HiFiGANGenerator(nn.Module):
 def stage_mode(channels, frames):
     """How a stage's MRF runs, as in the JAX `fused_apply`: time-folded for
     C <= 64 (F = 128 / C) when F divides the frames, whole-stage for
-    C <= 128, one call per branch above."""
+    C <= 128, one call per branch above (on CUDA the kernel takes such a
+    call up to C = 512: the first stage of `upsample_initial_channel`
+    1024)."""
     fold = 128 // channels if channels < 128 and 128 % channels == 0 else 0
     if fold and channels <= 64 and frames % fold == 0:
         return "folded"
@@ -168,8 +170,9 @@ def eager_apply(generator, mel):
 
 
 def fused_apply(generator, mel):
-    """HiFi-GAN forward with each stage's MRF in one `ops.mrf` call (three
-    one-branch calls at C > 128).  mel [B, T, n_mels] -> [B, T * hop]."""
+    """HiFi-GAN forward with each stage's MRF in one `ops.mrf` call (one
+    call per branch at C > 128, up to the kernel's 512).
+    mel [B, T, n_mels] -> [B, T * hop]."""
     rks = generator.resblock_kernel_sizes
     dils = generator.resblock_dilation_sizes
     # the kernels share one dilation schedule across branches (true for

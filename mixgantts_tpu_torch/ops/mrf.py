@@ -8,14 +8,22 @@ residual pairs leaky_relu -> dilated conv -> leaky_relu -> conv, added to
 the branch input; the stage returns the mean of the branch outputs.  Convolutions use zero
 ("SAME") padding.
 
+Shapes: the TPU kernels' own.  Every odd kernel size up to TAPS = 11 (the
+taps are centred in 11, which is SAME padding only for an odd k), any
+number of branches and pairs, and any dilation schedule whose creep fits the
+TPU kernels' halo: sum over pairs of (k // 2) * (d + 1) <= HALO = 64 for
+every branch (V1's (3, 7, 11) x (1, 3, 5): 12, 36 and 60).  `_check` raises
+on anything else, naming the limit.
+
 Stacked weights keep the JAX package's layout: w1/w2 [n_br, n_pair, 11, C,
 C] (taps centred in 11, then input channel, output channel), b1/b2
 [n_br, n_pair, C].  The time-folded layout of the TPU kernel holds the same
 bytes as a contiguous [B, T, C] tensor, so `mrf_stack_folded` views it as
 such and runs the same CUDA kernel (`csrc/mrf_stack.cu`, one launch per
-branch and pair).  `mrf_stack_streamed` runs a whole C = 256 stage in one
-launch (`csrc/mrf_stack_streamed.cu`, a tile of frames per cluster of 4
-CTAs that split the output channels).
+branch and pair; two at C = 512).  `mrf_stack_streamed` runs a whole stage
+of 128 < C <= 512 in one launch (`csrc/mrf_stack_streamed.cu` at 256 or
+512, a tile of frames per cluster of C / 64 CTAs that split the output
+channels).
 
 Arithmetic follows the weights' type, as the TPU kernels' operand type
 does (`op_dtype = w1_ref.dtype`): fp32 weights compute in fp32; bf16
@@ -31,16 +39,18 @@ exactly into the fp32-input kernels and plain version, and the output comes
 back in x's type.
 
 Widths: the TPU kernels take any C.  `csrc/mrf_stack.cu` is built for C in
-KERNEL_WIDTHS (its wgmma N is the whole channel axis, a multiple of 32), so
-a stage of any C <= 256 runs there at the next of them, Cp, with zero
-channels above C (`kernel_width`, `pad_mrf_width`, `pad_channels`), and the
-output is cut back to C.  The zero channels are exact: leaky_relu(0) = 0,
+KERNEL_WIDTHS (its wgmma N is the whole channel axis, a multiple of 32, up
+to 256; at 512 a block owns one half of it), so a stage of any C <= 512
+runs there at the next of them, Cp, with zero channels above C
+(`kernel_width`, `pad_mrf_width`, `pad_channels`), and the output is cut
+back to C.  The zero channels are exact: leaky_relu(0) = 0,
 and zero weights and biases keep them zero and add nothing to the fp32 sums
 of the real channels.  The weights are padded once, in `kernel_weights`
 (the keys the kernel reads: `w1_mma`, `w2_mma`, `b1_mma`, `b2_mma`); x
-comes at Cp per call.  Wider than 256 raises: the TPU's branchwise route
-takes such a stage, and no HiFi-GAN config has one.  The whole-stage kernel
-(`mrf_stack_streamed`) takes C = 256 alone.
+comes at Cp per call.  Wider than 512 raises, naming the limit.  The
+whole-stage kernel (`mrf_stack_streamed`) runs 128 < C <= 256 at 256 and
+256 < C <= 512 at 512 (`streamed_width`); at 512 a schedule whose tile does
+not fit a block's shared memory raises (`streamed_plan`).
 """
 
 import contextlib
@@ -53,7 +63,11 @@ from . import cuda_build
 
 LRELU_SLOPE = 0.1
 TAPS = 11  # every kernel is zero-padded to the largest (k = 11)
-KERNEL_WIDTHS = (32, 64, 128, 256)   # the C csrc/mrf_stack.cu is built for
+HALO = 64  # frames a side the TPU kernels' tiles carry: the largest creep
+KERNEL_WIDTHS = (32, 64, 128, 256, 512)   # the C csrc/mrf_stack.cu is built for
+STREAMED_WIDTHS = (256, 512)              # the C csrc/mrf_stack_streamed.cu is built for
+MAX_SMEM = 232448  # dynamic shared memory an H100 block may hold
+SPLIT = 256        # output channels of one run of the packed weights (wgmma's largest N)
 
 
 def stack_mrf_params(generator, stage, kernel_sizes=(3, 7, 11),
@@ -108,8 +122,25 @@ def kernel_width(C):
     for Cp in KERNEL_WIDTHS:
         if C <= Cp:
             return Cp
-    raise ValueError(f"mrf_stack kernel: C={C}; it takes C <= {KERNEL_WIDTHS[-1]} (a wider "
-                     f"stage would need a kernel that splits its channels over a cluster)")
+    raise ValueError(f"mrf_stack kernel: C={C}; it takes C <= {KERNEL_WIDTHS[-1]}")
+
+
+def streamed_width(C):
+    """The width at which `csrc/mrf_stack_streamed.cu` runs a C-channel
+    stage: 256 for 128 < C <= 256, 512 for 256 < C <= 512 (the TPU
+    function's stages above 128).  Raises elsewhere."""
+    if C > 128:
+        for Cp in STREAMED_WIDTHS:
+            if C <= Cp:
+                return Cp
+    raise ValueError(f"mrf_stack_streamed kernel: C={C}; it takes 128 < C <= "
+                     f"{STREAMED_WIDTHS[-1]} (mrf_stack takes the narrower stages)")
+
+
+def creep(k, dilations):
+    """Frames a side by which a kernel-k branch of `dilations` widens what
+    it reads: sum over pairs of (k // 2) * (d + 1)."""
+    return sum((k // 2) * (d + 1) for d in dilations)
 
 
 def pad_mrf_width(stacked, Cp):
@@ -198,21 +229,25 @@ def _pack_taps(w, kernel_sizes):
     (branch, pair) holds its k real taps first, flattened to K = tap * C +
     input channel and laid out in the order `csrc/mrf_mma.cuh` reads it: per
     16-deep K slab s, per group g of 8 output channels, per half h of the
-    slab, an 8 x 8 core matrix [output channel % 8][K % 8]."""
+    slab, an 8 x 8 core matrix [output channel % 8][K % 8].  Above SPLIT
+    output channels the output axis splits into runs of SPLIT (z), each the
+    whole K axis in that order, run after run: a block that owns one run's
+    channels reads one contiguous stretch."""
     n_br, n_pair, _, C, _ = w.shape
+    n = min(C, SPLIT)
     out = torch.zeros(n_br, n_pair, TAPS * C * C, dtype=torch.bfloat16, device=w.device)
     for br, rk in enumerate(kernel_sizes):
         pad = (TAPS - rk) // 2
-        t = w[br, :, pad:pad + rk].to(torch.bfloat16)          # [p, tap, c_in, c_out]
-        t = t.reshape(n_pair, rk * C // 16, 2, 8, C // 8, 8)   # [p, s, h, e, g, r]
-        out[br, :, :rk * C * C] = t.permute(0, 1, 4, 2, 5, 3).reshape(n_pair, -1)
+        t = w[br, :, pad:pad + rk].to(torch.bfloat16)               # [p, tap, c_in, c_out]
+        t = t.reshape(n_pair, rk * C // 16, 2, 8, C // n, n // 8, 8)   # [p, s, h, e, z, g, r]
+        out[br, :, :rk * C * C] = t.permute(0, 4, 1, 5, 2, 6, 3).reshape(n_pair, -1)
     return out
 
 
 def kernel_weights(stacked, kernel_sizes=(3, 7, 11)):
     """Stacked weights as the CUDA kernels take them.  The stack itself,
     for the plain version: w1/w2 in bf16 (the TPU kernel's operand type,
-    `pallas_vocoder.py:535-539`), b1/b2 in fp32.  And, where C <= 256, the
+    `pallas_vocoder.py:535-539`), b1/b2 in fp32.  And, where C <= 512, the
     kernel's own tensors at its width Cp (`kernel_width`; zero channels
     above C, `pad_mrf_width`): the bf16 copies `w1_mma`/`w2_mma` in the
     kernel's order for `kernel_sizes`, and `b1_mma`/`b2_mma` in fp32.
@@ -234,15 +269,27 @@ def kernel_weights(stacked, kernel_sizes=(3, 7, 11)):
 
 def _check(name, x, stacked, kernel_sizes, dilations):
     """Raise unless a CUDA kernel takes x [B, T, C] (fp32) and the stacked
-    weights (bf16 or fp32; `kernel_weights` casts them) as they are."""
+    weights (bf16 or fp32; `kernel_weights` casts them) as they are: the TPU
+    kernels' shapes (every odd k <= 11, a schedule within the halo) at a
+    width the kernels run."""
     B, T, C = x.shape
     n_br, n_pair = len(kernel_sizes), len(dilations)
-    if any(k not in (3, 7, 11) for k in kernel_sizes):
-        raise ValueError(f"{name} kernel: kernel sizes {kernel_sizes}; "
-                         "built for 3, 7 and 11")
-    if any(not 1 <= d <= 5 for d in dilations):
-        raise ValueError(f"{name} kernel: dilations {dilations}; the "
-                         "shared-memory tile holds dilations 1 to 5")
+    if not n_br or not n_pair:
+        raise ValueError(f"{name} kernel: {n_br} branches of {n_pair} pairs; it takes at "
+                         "least one of each")
+    if any(k not in range(1, TAPS + 1, 2) for k in kernel_sizes):
+        raise ValueError(f"{name} kernel: kernel sizes {kernel_sizes}; it takes odd k <= "
+                         f"{TAPS} (the taps are centred in {TAPS}, which is SAME padding "
+                         "only for an odd k)")
+    if any(int(d) != d or d < 1 for d in dilations):
+        raise ValueError(f"{name} kernel: dilations {dilations}; they must be integers >= 1")
+    for k in kernel_sizes:
+        if creep(k, dilations) > HALO:
+            raise ValueError(
+                f"{name} kernel: kernel size {k} with dilations {dilations} creeps "
+                f"{creep(k, dilations)} frames a side, past the {HALO}-frame halo of the TPU "
+                f"kernels (sum over pairs of (k // 2) * (d + 1) <= {HALO})")
+    kernel_width(C)
     want = {"w1": (n_br, n_pair, TAPS, C, C), "w2": (n_br, n_pair, TAPS, C, C),
             "b1": (n_br, n_pair, C), "b2": (n_br, n_pair, C)}
     for key in ("x", *want):
@@ -283,6 +330,23 @@ def _mma_weights(name, x, stacked, kernel_sizes, dilations, Cp):
     return stacked
 
 
+def smem_bytes(Cp, k, dilation):
+    """Dynamic shared memory of the largest block `csrc/mrf_stack.cu`
+    launches for one pair at width Cp, kernel size k and a dilation (the
+    library's own reckoning, `mrf_stack_smem_bytes`)."""
+    lib = cuda_build.library("mrf_stack")
+    lib.mrf_stack_smem_bytes.restype = ctypes.c_int
+    lib.mrf_stack_smem_bytes.argtypes = [ctypes.c_int] * 3
+    return lib.mrf_stack_smem_bytes(Cp, k, dilation)
+
+
+def pair_launches(C):
+    """Kernel launches of one residual pair at width C: two at the width
+    whose blocks split the output channels (conv1's output through device
+    memory), else one."""
+    return 2 if kernel_width(C) > SPLIT else 1
+
+
 def _launch(x, stacked, kernel_sizes, dilations):
     """Run csrc/mrf_stack.cu on a CUDA x [B, T, C] (fp32) with bf16
     operands, at the kernel's width Cp (`kernel_width`: x with zero
@@ -292,10 +356,16 @@ def _launch(x, stacked, kernel_sizes, dilations):
     Cp = kernel_width(C)
     n_br, n_pair = len(kernel_sizes), len(dilations)
     stacked = _mma_weights("mrf_stack", x, stacked, kernel_sizes, dilations, Cp)
+    for k in kernel_sizes:
+        for d in dilations:
+            smem = smem_bytes(Cp, k, d)
+            if not 0 < smem <= MAX_SMEM:
+                raise ValueError(f"mrf_stack kernel: C={Cp}, k={k}, d={d} needs {smem} B of "
+                                 f"shared memory a block; the card holds {MAX_SMEM}")
     lib = cuda_build.library("mrf_stack")
     fn = lib.mrf_stack_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3)
     ks, ds = _int_array(kernel_sizes), _int_array(dilations)
     with torch.cuda.device(x.device):
@@ -303,12 +373,14 @@ def _launch(x, stacked, kernel_sizes, dilations):
         out = torch.empty_like(xp)
         buf0 = torch.empty_like(xp)
         buf1 = torch.empty_like(xp)
+        hbuf = torch.empty_like(xp, dtype=torch.bfloat16) if Cp > SPLIT else None
         err = fn(xp.data_ptr(), out.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
+                 None if hbuf is None else hbuf.data_ptr(),
                  stacked["w1_mma"].data_ptr(), stacked["b1_mma"].data_ptr(),
                  stacked["w2_mma"].data_ptr(), stacked["b2_mma"].data_ptr(), B, T, Cp, n_br,
                  n_pair, ks, ds, torch.cuda.current_stream().cuda_stream)
         cuda_build.check(lib, "mrf_stack", err)
-    return (out if Cp == C else out[..., :C].contiguous()), n_br * n_pair
+    return (out if Cp == C else out[..., :C].contiguous()), n_br * n_pair * pair_launches(C)
 
 
 def tile_frames(C, k):
@@ -325,10 +397,11 @@ def mrf_stack(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     output [B, T, C].
 
     CUDA tensors run the hand-written bf16 tensor-core kernel (one launch
-    per branch and pair, counted in `mrf_stack.launches`; any C <= 256, at
-    `kernel_width`) on the weights of `kernel_weights` (fp32 weights are
-    cast per call); CPU tensors run the plain version in the weights' type.
-    bf16 x is upcast, and the output comes back in x's type."""
+    per branch and pair, two at C > 256 (`pair_launches`), counted in
+    `mrf_stack.launches`; any C <= 512, at `kernel_width`) on the weights of
+    `kernel_weights` (fp32 weights are cast per call); CPU tensors run the
+    plain version in the weights' type.  bf16 x is upcast, and the output
+    comes back in x's type."""
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
     if x.device.type != "cuda":
@@ -377,47 +450,62 @@ def _streamed_lib():
     lib.mrf_stack_streamed_bf16.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                                             + [ctypes.c_void_p] * 3)
     lib.mrf_stack_streamed_plan.restype = ctypes.c_int
-    lib.mrf_stack_streamed_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.mrf_stack_streamed_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     lib.mrf_stack_streamed_flops.restype = ctypes.c_double
-    lib.mrf_stack_streamed_flops.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    lib.mrf_stack_streamed_flops.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     return lib
 
 
-def streamed_plan(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cuda"):
-    """The whole-stage kernel's launch plan at B, T on `device`: `tile`
-    (frames per cluster, the fewest that put every cluster on the card at
-    once), `resident` (clusters the card holds at once), `slab` (floats of
-    device memory for the CTAs' y), `smem` (bytes of shared memory per CTA)
-    and `cluster` (CTAs per cluster)."""
-    plan = (ctypes.c_int * 5)()
+def streamed_plan(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cuda", C=256):
+    """The whole-stage kernel's launch plan at B, T and width C (run at
+    `streamed_width(C)`) on `device`: `tile` (frames per cluster, the fewest
+    that put every cluster on the card at once), `resident` (clusters the
+    card holds at once), `slab` (floats of device memory for the CTAs' y),
+    `smem` (bytes of shared memory per CTA), `cluster` (CTAs per cluster)
+    and `rows` (rows a pass: 64 per warpgroup that fits).  Raises where the
+    kernel does not take the schedule, or no pass of it fits a block's
+    shared memory."""
+    Cp = streamed_width(C)
+    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    plan = (ctypes.c_int * 6)()
     lib = _streamed_lib()
     with torch.cuda.device(device):
-        err = lib.mrf_stack_streamed_plan(B, T, len(kernel_sizes), len(dilations),
+        err = lib.mrf_stack_streamed_plan(B, T, Cp, len(kernel_sizes), len(dilations),
                                           _int_array(kernel_sizes), _int_array(dilations),
                                           ctypes.cast(plan, ctypes.c_void_p))
     cuda_build.check(lib, "mrf_stack_streamed", err)
-    return dict(zip(("tile", "resident", "slab", "smem", "cluster"), plan))
+    plan = dict(zip(("tile", "resident", "slab", "smem", "cluster", "rows"), plan))
+    if not plan["rows"]:
+        reach = max((k // 2) * d for k in kernel_sizes for d in dilations)
+        raise ValueError(
+            f"mrf_stack_streamed kernel: C={Cp} with kernel sizes {kernel_sizes} and "
+            f"dilations {dilations} (a conv1 reach of {reach} frames) needs {plan['smem']} B "
+            f"of shared memory a CTA at one 64-row pass; the card holds {MAX_SMEM}")
+    return plan
 
 
-def streamed_flops(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cuda"):
-    """FLOPs the whole-stage kernel executes at B, T on `device`, halo
-    recompute included (the kernel's own count of its passes)."""
-    tile = streamed_plan(B, T, kernel_sizes, dilations, device)["tile"]
+def streamed_flops(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cuda", C=256):
+    """FLOPs the whole-stage kernel executes at B, T and width C on
+    `device`, halo recompute included (the kernel's own count of its
+    passes), at the width it runs."""
+    tile = streamed_plan(B, T, kernel_sizes, dilations, device, C)["tile"]
     return _streamed_lib().mrf_stack_streamed_flops(
-        B, T, tile, len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
-        _int_array(dilations))
+        B, T, streamed_width(C), tile, len(kernel_sizes), len(dilations),
+        _int_array(kernel_sizes), _int_array(dilations))
 
 
 def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
-    """A whole MRF stage at C = 256 in one launch: x [B, T, C], stacked
-    from `stack_mrf_params` with every branch -> the averaged MRF output
-    [B, T, C], as `mrf_stack`.
+    """A whole MRF stage of 128 < C <= 512 in one launch: x [B, T, C],
+    stacked from `stack_mrf_params` with every branch -> the averaged MRF
+    output [B, T, C], as `mrf_stack`.
 
     CUDA tensors run `csrc/mrf_stack_streamed.cu`, a bf16 tensor-core kernel
-    in clusters of 4 CTAs that split the output channels (counted in `mrf_stack_streamed.launches`), on the
-    weights of `kernel_weights` for the whole stage (fp32 weights are cast
-    per call); CPU tensors run the plain version in the weights' type.  bf16
-    x is upcast, and the output comes back in x's type."""
+    in clusters of Cp / 64 CTAs that split the output channels (counted in
+    `mrf_stack_streamed.launches`), at Cp = `streamed_width(C)` with zero
+    channels above C, on the weights of `kernel_weights` for the whole stage
+    (fp32 weights are cast per call); CPU tensors run the plain version in
+    the weights' type.  bf16 x is upcast, and the output comes back in x's
+    type."""
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
     if x.device.type != "cuda":
@@ -425,23 +513,23 @@ def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5))
     dtype, x = x.dtype, upcast(x)
     kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
     B, T, C = x.shape
-    if C != 256:
-        raise ValueError(f"mrf_stack_streamed kernel: C={C}; built for 256")
-    stacked = _mma_weights("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, C)
-    plan = streamed_plan(B, T, kernel_sizes, dilations, x.device)
+    Cp = streamed_width(C)
+    stacked = _mma_weights("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, Cp)
+    plan = streamed_plan(B, T, kernel_sizes, dilations, x.device, C)
     lib = _streamed_lib()
     with torch.cuda.device(x.device):
-        out = torch.empty_like(x)
+        xp = pad_channels(x, Cp).contiguous()
+        out = torch.empty_like(xp)
         slab = torch.empty(plan["slab"], dtype=torch.float32, device=x.device)
         err = lib.mrf_stack_streamed_bf16(
-            x.data_ptr(), out.data_ptr(), slab.data_ptr(),
+            xp.data_ptr(), out.data_ptr(), slab.data_ptr(),
             stacked["w1_mma"].data_ptr(), stacked["b1_mma"].data_ptr(),
-            stacked["w2_mma"].data_ptr(), stacked["b2_mma"].data_ptr(), B, T, C, plan["tile"],
-            len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
+            stacked["w2_mma"].data_ptr(), stacked["b2_mma"].data_ptr(), B, T, Cp,
+            plan["tile"], len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
             _int_array(dilations), torch.cuda.current_stream().cuda_stream)
         cuda_build.check(lib, "mrf_stack_streamed", err)
     mrf_stack_streamed.launches += 1
-    return out.to(dtype)
+    return (out if Cp == C else out[..., :C].contiguous()).to(dtype)
 
 
 mrf_stack_streamed.launches = 0

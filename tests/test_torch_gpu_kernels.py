@@ -18,9 +18,13 @@ and g) where the two sums straddle a rounding boundary.  The denoiser
 kernel with a multi-speaker model's speaker term (in its conditioner
 projection) is held to the same bar, and so is every width C <= 512 (the
 kernel runs at the next of 64, 128, 256 and 512 with zero channels above
-C), and every MRF width C <= 256 (at the next of 32, 64, 128 and 256):
-HiFi-GAN V2's stages, and the dryrun's synthesis at the JAX dryrun's
-widths, launch the kernels.  Fed bf16 activations (a model
+C), and every MRF width C <= 512 (at the next of 32, 64, 128, 256 and 512;
+at 512 two launches a pair): HiFi-GAN V2's stages, HiFi-GAN V1 at
+`upsample_initial_channel` 1024, and the dryrun's synthesis at the JAX
+dryrun's widths, launch the kernels.  The MRF kernels take the TPU kernels'
+shapes: every odd kernel size up to 11, any number of branches and pairs,
+and every dilation schedule within the 64-frame halo (the whole-stage
+kernel at 128 < C <= 512, run at 256 or 512).  Fed bf16 activations (a model
 computing in bf16), the kernels upcast them exactly and must give the same
 bits as when fed that fp32 upcast, rounded to bf16.
 """
@@ -38,7 +42,7 @@ from mixgantts_tpu_torch.ops.denoiser_stack import (
 from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator
 from mixgantts_tpu_torch.ops.mrf import (
     TAPS, kernel_weights, mrf_stack, mrf_stack_folded, mrf_stack_plain, mrf_stack_streamed,
-    streamed_plan, tile_frames,
+    pair_launches, streamed_plan, tile_frames,
 )
 
 pytestmark = pytest.mark.gpu
@@ -422,6 +426,114 @@ def test_mrf_stack_streamed_fp32_weights_are_cast_and_runs_repeat(cuda, B, T):
     assert B * -(-T // plan["tile"]) <= plan["resident"]
 
 
+# Kernel sizes and dilation schedules of the TPU kernels beyond V1's: k in
+# {1, 5, 9} alone and with V1's, and schedules at the halo's edge (creeps
+# 36, 60, 64, 64, 0) and the widest conv1 reach (k = 3, d = 63: 126 rows of
+# halo in a block's tile).
+SHAPES = [((1, 5, 9), (1, 3, 5)), ((1, 3, 5, 7, 9, 11), (1, 3, 5)),
+          ((3,), (1, 2, 4, 8, 16)), ((11,), (2, 3, 4)), ((9,), (7, 7)),
+          ((3,), (15, 15, 15, 15)), ((1,), (1000,)), ((3,), (63,))]
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("kernel_sizes,dilations", SHAPES)
+def test_mrf_stack_kernel_at_every_shape(cuda, C, kernel_sizes, dilations):
+    """mrf_stack at every odd k and halo schedule, at every width it is
+    built for; launches n_br * n_pair (twice that at 512)."""
+    x = torch.randn(2, 1000, C, device=cuda, generator=torch.Generator(cuda).manual_seed(C))
+    st = kernel_weights(mrf_weights(C, kernel_sizes, n_pair=len(dilations)), kernel_sizes)
+    n0 = mrf_stack.launches
+    got = mrf_stack(x, st, kernel_sizes, dilations)
+    torch.cuda.synchronize()
+    assert mrf_stack.launches == n0 + len(kernel_sizes) * len(dilations) * pair_launches(C)
+    assert_close(got, mrf_stack_plain(x, st, kernel_sizes, dilations), BF16_TOL)
+
+
+@pytest.mark.parametrize("B,T", [(1, 8000), (4, 4096), (2, 37)])
+@pytest.mark.parametrize("C", [288, 384, 512])
+def test_mrf_stack_kernel_above_256(cuda, C, B, T):
+    """C in (256, 512] runs at 512 (blocks of 64 frames own half of the
+    output channels; conv1's output through device memory), one branch a
+    call as `fused_apply` makes it: six launches a branch."""
+    x = torch.randn(B, T, C, device=cuda, generator=torch.Generator(cuda).manual_seed(C + T))
+    for ks in [(3,), (7,), (11,)]:
+        st = kernel_weights(mrf_weights(C, ks), ks)
+        n0 = mrf_stack.launches
+        got = mrf_stack(x, st, ks)
+        torch.cuda.synchronize()
+        assert mrf_stack.launches == n0 + 6
+        assert got.shape == x.shape
+        assert_close(got, mrf_stack_plain(x, st, ks), BF16_TOL)
+    assert tile_frames(512, 11) == 64
+
+
+def test_mrf_stack_folded_kernel_at_new_kernel_sizes(cuda):
+    C, fold, T, ks = 16, 8, 4096, (1, 5, 9)
+    x = torch.randn(2, T, C, device=cuda, generator=torch.Generator(cuda).manual_seed(9))
+    st = dict(kernel_weights(mrf_weights(C, ks, n_pair=2), ks), fold=fold)
+    n0 = mrf_stack_folded.launches
+    got = mrf_stack_folded(x.reshape(2, T // fold, fold * C), st, ks, (2, 7), prefolded=True)
+    torch.cuda.synchronize()
+    assert mrf_stack_folded.launches == n0 + 6
+    assert_close(got, mrf_stack_plain(x, st, ks, (2, 7)), BF16_TOL)
+
+
+STREAMED_SHAPES = [((3, 7, 11), (1, 3, 5)), ((1, 5, 9), (1, 3, 5)),
+                   ((1, 3, 5, 7, 9, 11), (1, 2)), ((3,), (1, 2, 4, 8, 16)),
+                   ((11,), (2, 3, 4)), ((9, 9, 9, 9, 9), (1,)), ((3,), (40,))]
+
+
+@pytest.mark.parametrize("C", [144, 256, 288, 512])
+@pytest.mark.parametrize("kernel_sizes,dilations", STREAMED_SHAPES)
+def test_mrf_stack_streamed_kernel_at_every_shape(cuda, C, kernel_sizes, dilations):
+    """The whole-stage kernel at 128 < C <= 512 (run at 256 in clusters of
+    4, at 512 in clusters of 8), every odd k, more branches and pairs than
+    V1's, and halo schedules; one launch."""
+    x = torch.randn(2, 1000, C, device=cuda, generator=torch.Generator(cuda).manual_seed(C))
+    st = kernel_weights(mrf_weights(C, kernel_sizes, n_pair=len(dilations)), kernel_sizes)
+    n0 = mrf_stack_streamed.launches
+    got = mrf_stack_streamed(x, st, kernel_sizes, dilations)
+    torch.cuda.synchronize()
+    assert mrf_stack_streamed.launches == n0 + 1
+    assert got.shape == x.shape
+    assert_close(got, mrf_stack_plain(x, st, kernel_sizes, dilations), BF16_TOL)
+
+
+def test_mrf_stack_streamed_plans_every_schedule(cuda):
+    """At 256 the widest reach runs passes of two warpgroups; at 512, V1's
+    schedule runs passes of one, and the widest reach fits no pass: the
+    plan names the limit."""
+    assert streamed_plan(1, 8000)["rows"] == 192
+    assert streamed_plan(1, 8000, (3,), (63,))["rows"] == 128
+    plan = streamed_plan(1, 8000, C=512)
+    assert (plan["rows"], plan["cluster"]) == (64, 8) and plan["smem"] <= 232448
+    with pytest.raises(ValueError, match="the card holds 232448"):
+        streamed_plan(1, 8000, (3,), (63,), C=512)
+
+
+def test_hifigan_v1_1024_runs_the_wide_kernel(cuda):
+    """HiFi-GAN V1 at `upsample_initial_channel` 1024 from a seed: a B=1
+    mel at frame bucket 1000 runs the 512 stage on the kernel (one call per
+    branch, 18 launches), the 256 and 128 stages (9 each) and the folded 64
+    stage (9); its wave stays within the JAX package's bf16 vocoder bar
+    (SNR > 30 dB) of the same generator's fp32 plain path on the CPU."""
+    torch.manual_seed(3)
+    config = dict(V2_CONFIG, upsample_initial_channel=1024)
+    gen = HiFiGANGenerator.from_config(config, device="cpu")
+    mel = torch.randn(1, 1000, 80, generator=torch.Generator().manual_seed(3)) - 5.0
+    with torch.no_grad():
+        want = gen(mel)
+        gen.to(cuda)
+        counts = mrf_stack.launches, mrf_stack_folded.launches
+        got = gen(mel.to(cuda))
+        torch.cuda.synchronize()
+    assert (mrf_stack.launches - counts[0], mrf_stack_folded.launches - counts[1]) == (36, 9)
+    got = got.cpu().double()
+    snr = 10 * np.log10((want.double() ** 2).mean().item()
+                        / ((got - want.double()) ** 2).mean().item())
+    assert snr > 30, f"SNR {snr:.1f} dB"
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     """Non-contiguous or non-fp32 input raises; nothing is copied or
     computed another way."""
@@ -443,11 +555,19 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     y = torch.randn(1, 32, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         mrf_stack(y.transpose(1, 2), st, (3,))
-    with pytest.raises(ValueError, match="C <= 256"):   # every narrower width runs
-        mrf_stack(torch.randn(1, 64, 288, device=cuda), mrf_weights(288, (3,)), (3,))
-    with pytest.raises(ValueError, match="built for 256"):
+    with pytest.raises(ValueError, match="C <= 512"):   # every narrower width runs
+        mrf_stack(torch.randn(1, 64, 544, device=cuda), mrf_weights(544, (3,)), (3,))
+    with pytest.raises(ValueError, match="128 < C <= 512"):
         mrf_stack_streamed(torch.randn(1, 64, 128, device=cuda),
                            mrf_weights(128, (3,)), (3,))
+    with pytest.raises(ValueError, match="odd k <= 11"):   # the TPU's taps are centred
+        mrf_stack(torch.randn(1, 64, 32, device=cuda), mrf_weights(32, (4,)), (4,))
+    with pytest.raises(ValueError, match="past the 64-frame halo"):
+        mrf_stack(torch.randn(1, 64, 32, device=cuda), mrf_weights(32, (11,), n_pair=4), (11,),
+                  (1, 3, 5, 1))
+    with pytest.raises(ValueError, match="past the 64-frame halo"):
+        mrf_stack_streamed(torch.randn(1, 64, 256, device=cuda), mrf_weights(256, (3,)), (3,),
+                           (20, 20, 30))
     y = torch.randn(1, 64, 32, device=cuda)
     wide = mrf_weights(256, (3,))
     y256 = torch.randn(1, 64, 256, device=cuda)

@@ -1,7 +1,7 @@
 """The MRF stage at the widths the CUDA kernel is not built for.
 
-`csrc/mrf_stack.cu` runs C in {32, 64, 128, 256}; `ops.mrf` runs any
-C <= 256 at the next of them, Cp, with zero channels above C
+`csrc/mrf_stack.cu` runs C in {32, 64, 128, 256, 512}; `ops.mrf` runs any
+C <= 512 at the next of them, Cp, with zero channels above C
 (`kernel_width`, `pad_mrf_width`, `pad_channels`), and cuts the output back
 to C.  What the card computes is the plain stage (`mrf_stack_plain`) on
 those padded tensors: the weights padded once in `kernel_weights` (the
@@ -22,7 +22,7 @@ cases hold that, here on the CPU:
   as the card's padded route computes it, against the JAX `fused_apply`
   on the same weights (bridged by the JAX package's own
   `convert_torch_generator`; the same tolerance);
-- above 256 the kernel's width raises, naming the limit.
+- above 512 the kernel's width raises, naming the limit.
 """
 
 import jax.numpy as jnp
@@ -184,12 +184,12 @@ def test_v2_shaped_hifigan_matches_jax_fused_apply(monkeypatch):
 
 
 def test_kernel_width_names_its_limit():
-    assert [tmrf.kernel_width(c) for c in (1, 8, 32, 33, 64, 65, 129, 256)] == [
-        32, 32, 32, 64, 64, 128, 256, 256]
-    with pytest.raises(ValueError, match="C <= 256"):
-        tmrf.kernel_width(257)
+    assert [tmrf.kernel_width(c) for c in (1, 8, 32, 33, 64, 65, 129, 256, 257, 512)] == [
+        32, 32, 32, 64, 64, 128, 256, 256, 512, 512]
+    with pytest.raises(ValueError, match="C <= 512"):
+        tmrf.kernel_width(513)
     st = mrf_weights(8, (3,), device="cpu")
     assert set(tmrf.kernel_weights(st, (3,))) >= {"w1_mma", "w2_mma", "b1_mma", "b2_mma"}
-    wide = {k: torch.zeros(*v.shape[:-2], 288, 288) if v.dim() == 5 else torch.zeros(1, 3, 288)
+    wide = {k: torch.zeros(*v.shape[:-2], 544, 544) if v.dim() == 5 else torch.zeros(1, 3, 544)
             for k, v in st.items()}
     assert "w1_mma" not in tmrf.kernel_weights(wide, (3,))   # nothing to pad it to
