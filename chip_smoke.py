@@ -8,7 +8,7 @@ into the train CLI, and the multi-device path: data- and tensor-parallel
 steps on two ranks, the train CLI under torchrun, sharded serving and the
 multi-device dryrun; and the kernels at every width the JAX package's
 configs give them (HiFi-GAN V2, the dryrun's tiny model, the denoiser up
-to 512 channels) and at every shape the TPU kernels take (the MRF kernels
+to 2048 channels) and at every shape the TPU kernels take (the MRF kernels
 up to 512 channels, every odd kernel size up to 11, every dilation
 schedule within the 64-frame halo, HiFi-GAN V1 at 1024 channels).
 
@@ -230,9 +230,14 @@ phase 9's weights; every serving kernel must launch;
    unpadded and padded work; (c) `dryrun_multigpu(2)` at the JAX dryrun's
    widths (denoiser 8, vocoder stages 8 and 4): rank 0's synthesis must
    launch the denoiser and the folded MRF kernel; (d) the denoiser kernel
-   against its plain version at C in WIDE_WIDTHS (run at 512: clusters of
-   16 CTAs), as phase 18 (a), its resident clusters, and its time at
-   C = 512 (B=1, T=1000, 20 layers) beside the bound;
+   against its plain version at C in WIDE_WIDTHS (run at 512 in clusters of
+   16 CTAs up to 512, above on the wide route, two launches a layer), as
+   phase 18 (a), its resident clusters, and its time at C = 512 and
+   WIDE_TIMED (B=1, T=1000, 20 layers) beside the bound; (e) phase 4's
+   acoustic model with the denoiser at WIDE_MODEL_CHANNELS channels from a
+   seed: a B=1 request at bucket 1000 must launch the denoiser 40 times and
+   the MRF kernels 18 and 18, a small request against the CPU at phase 5's
+   bars, its latency;
 20. the MRF kernels at every shape the TPU kernels take: (a) each against
    its bf16 plain version at B=1, T=8000 and B=4, T=4096 (SHAPE_FRAMES, the
    frames of a 512-wide stage at buckets 1000 and 512), its launch count
@@ -241,8 +246,8 @@ phase 9's weights; every serving kernel must launch;
    MRF_SHAPES (k in {1, 5, 9}, schedules at the halo's edge, the widest
    conv1 reach) at MRF_SHAPE_WIDTHS; the folded entry point at those
    shapes (C = 64 and 16); `mrf_stack_streamed` at STREAMED_WIDTHS (run at
-   256 and 512, clusters of 4 and 8) and STREAMED_SHAPES; and the
-   whole-stage kernel's plan at the widest reach; (b) HiFi-GAN V1 at
+   256 and 512, clusters of 4 and 8) and STREAMED_SHAPES, up to the widest
+   conv1 reach; and the whole-stage kernel's plan at each; (b) HiFi-GAN V1 at
    `upsample_initial_channel` 1024 (V1_1024_CONFIG: stages 512, 256, 128,
    64) from a seed through `get_vocoder`, vocoding phase 4's acoustic
    model: a B=1 request at bucket 1000 must launch the denoiser once,
@@ -259,12 +264,14 @@ phase 4 plus phase 16's replicas and train CLI ranks and phase 17's and
 phase 18 (c)'s requests, or phase 7 for `mrf_stack_streamed`, or phase
 18 (c) for the denoiser at C = 16, or phase 19 (b)'s request for V2's
 folded MRF, or phase 19 (d)'s checks for the denoiser at C = 512, or
+phase 19 (e)'s request for the denoiser above 512, or
 phase 20 (b)'s request for `mrf_stack_c512` (every `mrf_stack` launch of
 the 1024 vocoder's request), or phase 20 (a)'s checks for
 `mrf_stack_shapes` and `mrf_stack_streamed_c512`; max error in phase 3, 7,
 18, 19 or 20; and the time, plain time and bound of one B=1 request at
 frame bucket 1000, or of phase 18 (c)'s stack, or of V2's MRF calls in one
-request at bucket 1000, or of the C = 512 stack at B=1, T=1000, or of the
+request at bucket 1000, or of the C = 512 and C = 1024 stacks at B=1,
+T=1000, or of the
 512-wide MRF stage at B=1, T=8000 (`mrf_stack_c512`,
 `mrf_stack_streamed_c512`), or of k = (1, 5, 9) at C = 256, B=1, T=8000
 (`mrf_stack_shapes`)); the last line is {"ok": true, "device": {...}}.
@@ -286,8 +293,8 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
 BF16_TOL = 4e-3             # the bf16 kernels against their bf16 plain versions
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 DURATION_FRAMES = 8.0       # frames per phone the random duration predictor is biased to
-KERNELS = ("residual_stack_mma", "mrf_pair_mma", "mrf_wide_mma",
-           "mrf_stage_streamed")   # __global__ names
+KERNELS = ("residual_stack_mma", "wide_conv_gate", "wide_out_proj", "mrf_pair_mma",
+           "mrf_wide_mma", "mrf_stage_streamed")   # __global__ names
 STAGE_SHAPES = ((1, 8000), (4, 4096))   # V1's C=256 stage in a B=1 request at bucket 1000, B=4 at 512
 N_SPEAKERS = 218            # AISHELL3's speakers
 DEVICE = "cuda"             # the card every phase runs on
@@ -297,7 +304,9 @@ REQUEST_LAUNCHES = {(1, 1000): (1, 18, 18), (4, 512): (2, 18, 18)}
 NARROW_WIDTHS = (16, 32, 48, 64, 80, 192, 256)   # phase 18 (a): the denoiser kernel's widths
 HORIZON_STEPS = (50, 25)    # phase 18 (b): aux steps, then shallow steps from the aux checkpoint
 MRF_WIDTHS = (4, 8, 16, 24, 48, 72, 96, 144, 200)   # phase 19 (a): the MRF kernel's widths
-WIDE_WIDTHS = (288, 384, 512)                       # phase 19 (d): the denoiser above 256
+WIDE_WIDTHS = (288, 384, 512, 544, 768, 1024, 2048)  # phase 19 (d): the denoiser above 256
+WIDE_TIMED = (768, 1024, 2048)   # phase 19 (d): the wide route's widths timed at B=1, T=1000
+WIDE_MODEL_CHANNELS = 1024       # phase 19 (e): the acoustic model's residual_channels
 # phase 19 (b): HiFi-GAN V2, the public config_v2.json of jik876/hifi-gan
 V2_CONFIG = {"resblock": "1", "num_mels": 80, "upsample_rates": [8, 8, 2, 2],
              "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 128,
@@ -316,8 +325,12 @@ MRF_SHAPES = (((1, 5, 9), (1, 3, 5)), ((3,), (1, 2, 4, 8, 16)), ((11,), (2, 3, 4
               ((3,), (63,)))
 MRF_SHAPE_WIDTHS = (32, 128, 256, 512)
 STREAMED_WIDTHS = (144, 256, 288, 512)   # the whole-stage kernel (run at 256 and 512)
+# the whole-stage kernel's shapes: V1's, k in {1, 5, 9}, a halo edge, six
+# branches, then the widest conv1 reaches (63, 62 and 55 frames, and 62 over
+# two branches), whose plans at 512 run y out of place
 STREAMED_SHAPES = (((3, 7, 11), (1, 3, 5)), ((1, 5, 9), (1, 3, 5)), ((3,), (1, 2, 4, 8, 16)),
-                   ((1, 3, 5, 7, 9, 11), (1, 2)))
+                   ((1, 3, 5, 7, 9, 11), (1, 2)), ((3,), (63,)), ((5,), (31,)), ((11,), (11,)),
+                   ((5, 3), (31,)))
 
 
 def log(*args):
@@ -485,6 +498,11 @@ def build_kernels():
                 log(f"  residual_stack_mma<{c}>: {smem(c)} B of shared memory per CTA, "
                     f"clusters of {cluster} CTAs, {resident} clusters resident at once; "
                     f"{ctas} CTAs per launch at B=1, T=1000")
+            c = WIDE_MODEL_CHANNELS
+            ctas, _, resident = den.launch_shape(1, 1000, c)
+            log(f"  wide_conv_gate (C > 512): {smem(c)} B of shared memory per CTA, {resident} "
+                f"CTAs resident at once; {ctas} CTAs per launch at B=1, T=1000, C={c}, two "
+                f"launches a layer")
         else:
             from mixgantts_tpu_torch.ops import mrf
             smem.argtypes = [ctypes.c_int] * 3
@@ -521,10 +539,19 @@ def build_serving(torch, device, dataset="LJSpeech"):
     """The full shallow model of a dataset's configs (AISHELL3: N_SPEAKERS
     speakers, DeepSpeaker embeddings) and its HiFi-GAN V1 on `device`, from
     seeds, through the entry points a user calls."""
-    from mixgantts_tpu_torch.config import NormStats, get_configs_of
-    from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
+    from mixgantts_tpu_torch.config import get_configs_of
     from mixgantts_tpu_torch.models.vocoder import get_vocoder
     pre, cfg, _ = get_configs_of(dataset)
+    model = build_acoustic(torch, pre, cfg, device)
+    vocoder = get_vocoder(cfg, device=device, seed=0)
+    return pre, cfg, model, vocoder
+
+
+def build_acoustic(torch, pre, cfg, device):
+    """The shallow acoustic model of the configs on `device`, random weights
+    from seed 0."""
+    from mixgantts_tpu_torch.config import NormStats
+    from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
     torch.manual_seed(0)
     model = MixGANTTS.from_configs(
         "shallow", pre, cfg,
@@ -538,8 +565,7 @@ def build_serving(torch, device, dataset="LJSpeech"):
             math.log(DURATION_FRAMES))
         out = model.diffusion.denoise_fn.output_projection.conv.weight
         out.copy_(torch.randn(out.shape, generator=torch.Generator().manual_seed(1)) * 0.05)
-    vocoder = get_vocoder(cfg, device=device, seed=0)
-    return pre, cfg, model, vocoder
+    return model
 
 
 def kernel_checks(torch, model, vocoder, records):
@@ -3011,6 +3037,10 @@ def denoiser_widths(torch, rec, widths, seed):
                         raise AssertionError(f"C={C} B={B}: the denoiser kernel did not launch")
                     launches += den.fused_residual_stack.launches - n0
                     want = den.fused_residual_stack_plain(x, cond, step, kw, spk)
+                if den.is_wide(C) and den.fused_residual_stack.launches - n0 != 2 * L:
+                    raise AssertionError(f"C={C} B={B}: the wide route launched "
+                                         f"{den.fused_residual_stack.launches - n0} times, "
+                                         f"want {2 * L}")
                 for part, a, b in zip(("x", "skip"), got, want):
                     rec["err"] = max(rec["err"], check_close(
                         f"fused_residual_stack C={C} (at {den.kernel_width(C)}) B={B} T={T} "
@@ -3273,19 +3303,60 @@ def widths_phase(torch, pre, cfg, model, vocoder, records):
     if not launches or not (launches[0] and launches[2]):
         raise AssertionError("the dryrun's synthesis did not launch the denoiser and the "
                              "folded MRF kernel")
-    rec = records["fused_residual_stack_c512"]
-    rec["launches"] = denoiser_widths(torch, rec, WIDE_WIDTHS, seed=19)
+    t_d = time.perf_counter()
+    rec, wide = records["fused_residual_stack_c512"], records["fused_residual_stack_wide"]
+    rec["launches"] = denoiser_widths(torch, rec, [c for c in WIDE_WIDTHS if not den.is_wide(c)],
+                                      seed=19)
+    wide["checked"] = denoiser_widths(torch, wide, [c for c in WIDE_WIDTHS if den.is_wide(c)],
+                                      seed=19)
     ctas, cluster, resident = den.launch_shape(1, 1000, 512)
     log(f"  residual_stack_mma<512>: clusters of {cluster} CTAs, {resident} resident at once; "
         f"{ctas} CTAs at B=1, T=1000")
     if resident < 1:
         raise AssertionError("no cluster of the C=512 denoiser kernel fits the card")
     g = torch.Generator("cuda").manual_seed(21)
-    ms, plain, b, by = time_denoiser(torch, "fused_residual_stack", 1, 1000,
-                                     den.denoiser_kernel_weights(random_stack(torch, 20, 512,
-                                                                              256, g)))
-    rec.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
-    log(f"[widths] phase 19 took {time.perf_counter() - t_start:.1f} s")
+    for C in (512,) + WIDE_TIMED:
+        kw = den.denoiser_kernel_weights(random_stack(torch, 20, C, 256, g))
+        got = time_denoiser(torch, "fused_residual_stack", 1, 1000, kw)
+        if C in (512, WIDE_MODEL_CHANNELS):
+            records["fused_residual_stack_c512" if C == 512 else "fused_residual_stack_wide"].update(
+                zip(("ms", "plain_ms", "bound_ms", "bound_by"), got))
+        del kw
+    t_e = time.perf_counter()
+    wide_model_phase(torch, pre, cfg, vocoder, wide)
+    log(f"[widths] phase 19 took {time.perf_counter() - t_start:.1f} s: (d) {t_e - t_d:.1f} s, "
+        f"(e) {time.perf_counter() - t_e:.1f} s")
+
+
+def wide_model_phase(torch, pre, cfg, vocoder, rec):
+    """Phase 19 (e): phase 4's LJSpeech acoustic model with the denoiser at
+    WIDE_MODEL_CHANNELS residual channels (20 layers, the wide route) from
+    a seed, vocoded by phase 4's HiFi-GAN V1: a B=1 request at bucket 1000
+    must launch the denoiser 40 times (two a layer) and the MRF kernels 18
+    and 18; a small request against the CPU at phase 5's bars
+    (`cpu_reference`); its latency."""
+    import copy
+    from mixgantts_tpu_torch.pipeline import TTSPipeline
+    wide_cfg = copy.deepcopy(cfg)
+    wide_cfg["denoiser"]["residual_channels"] = WIDE_MODEL_CHANNELS
+    model = build_acoustic(torch, pre, wide_cfg, DEVICE)
+    log(f"[wide] the LJSpeech model at residual_channels {WIDE_MODEL_CHANNELS}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters")
+    pipe = TTSPipeline(model, vocoder, pre, wide_cfg)
+    one = text_batch(1, 64, 24, seed=0)
+    pipe(one)
+    (wavs, mel, lens), launches = counted(torch, lambda: pipe(one))
+    want = (2 * cfg["denoiser"]["residual_layers"],) + REQUEST_LAUNCHES[(1, 1000)][1:]
+    log(f"  B=1 request at bucket {mel.shape[1]}: launches (denoiser, mrf_stack, "
+        f"mrf_stack_folded) {launches}, want {want}; mel length {int(lens[0])}")
+    if launches != want or mel.shape[1] != 1000:
+        raise AssertionError(f"the wide denoiser's request launched {launches} at bucket "
+                             f"{mel.shape[1]}")
+    if not np_isfinite(mel) or len(wavs[0]) != int(lens[0]) * 256:
+        raise AssertionError("the wide denoiser's request gave a bad output")
+    rec["launches"] = launches[0]
+    cpu_reference(torch, pre, wide_cfg, model, vocoder, label=f"denoiser {WIDE_MODEL_CHANNELS}")
+    latency(torch, pipe, pre, one, None, tag=f"denoiser {WIDE_MODEL_CHANNELS} latency")
 
 
 def mrf_checked(torch, rec, label, fn, run, x, st, ks, ds, launches):
@@ -3350,14 +3421,12 @@ def mrf_shape_checks(torch, records):
                             f"k={ks} d={ds} (bf16)",
                             mrf.mrf_stack_streamed, lambda: mrf.mrf_stack_streamed(x, st, ks, ds),
                             x, st, ks, ds, 1)
-    for name, reach in (("C=256", (256, ((3,), (63,)))), ("C=512", (512, ((3,), (63,))))):
-        C, (ks, ds) = reach
-        try:
+    for C in mrf.STREAMED_WIDTHS:   # and the in-place plan's edge at 512: reaches 43 and 44
+        for ks, ds in STREAMED_SHAPES + (((3,), (43,)), ((3,), (44,))):
             plan = mrf.streamed_plan(1, 8000, ks, ds, C=C)
-            log(f"  mrf_stack_streamed {name} at the widest reach k={ks} d={ds}: passes of "
-                f"{plan['rows']} rows, {plan['smem']} B of shared memory per CTA")
-        except ValueError as e:
-            log(f"  mrf_stack_streamed {name} at the widest reach: {e}")
+            log(f"  mrf_stack_streamed C={C} k={ks} d={ds}: passes of {plan['rows']} rows, "
+                f"{plan['stages']} ring stages, y {'out of' if plan['pingpong'] else 'in'} "
+                f"place, {plan['smem']} B of shared memory per CTA")
 
 
 def timed_mrf(torch, label, calls, B, T, C, ks_list, plain_iters=2):
@@ -3543,6 +3612,8 @@ def main():
                                        "mixgantts_tpu/ops/pallas_vocoder.py:303"),
                "fused_residual_stack_c512": ("mixgantts_tpu_torch/csrc/denoiser_stack.cu",
                                              "mixgantts_tpu/ops/pallas.py:122"),
+               "fused_residual_stack_wide": ("mixgantts_tpu_torch/csrc/denoiser_stack.cu",
+                                             "mixgantts_tpu/ops/pallas.py:122"),
                "mrf_stack_c512": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
                                   "mixgantts_tpu/ops/pallas_vocoder.py:528"),
                "mrf_stack_shapes": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
@@ -3599,7 +3670,8 @@ def main():
     log("[horizon] the denoiser kernel below C=256, and the long-horizon drive's stages")
     horizon_phase(torch, records)                                 # phase 18
     log("[widths] the MRF kernel at every width up to 256, HiFi-GAN V2, the dryrun at the "
-        "JAX dryrun's widths, the denoiser above 256")
+        "JAX dryrun's widths, the denoiser above 256 and above 512, the acoustic model at "
+        f"residual_channels {WIDE_MODEL_CHANNELS}")
     widths_phase(torch, pre, cfg, model, vocoder, records)        # phase 19
     log("[shapes] the MRF kernels at every shape the TPU kernels take: widths up to 512, "
         "every odd k, every schedule within the halo; HiFi-GAN V1 at 1024 channels")

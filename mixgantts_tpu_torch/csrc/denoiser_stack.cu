@@ -83,6 +83,9 @@
 //   skip columns: no atomics, the same result every run.
 // - Every wait that could fail to complete traps (mbar_wait, get_halo)
 //   instead of holding the card.
+// - Above C = 512 (a cluster would need more than 16 CTAs) the stack runs
+//   the wide route instead, two launches a layer with y and g built per
+//   K chunk and g in device memory: wide_conv_gate and wide_out_proj below.
 
 #include "cluster.cuh"
 #include "mrf_mma.cuh"
@@ -586,6 +589,309 @@ int run_stack(const float* x, const float* condp, const float* step_proj,
   return (int)err;
 }
 
+// --- the wide route: C > 512, two launches a layer --------------------------
+//
+// Past C = 512 a cluster of C / 32 CTAs would exceed the 16 an H100 runs,
+// and one CTA cannot hold a frame tile's y and g either (66 C and 64 C bf16:
+// 135 KB and 131 KB at C = 1024).  So each layer runs as two launches whose
+// operands go through device memory, for any C that is a multiple of
+// kWideK (ops/denoiser_stack.py pads to it with zero channels):
+// - wide_conv_gate: CTA (n, tile, b) computes gate columns [32 n, 32 n + 32)
+//   and their filter columns of a 64-frame tile (wgmma m64n64k16, the same
+//   B layout as residual_stack_mma's).  K = 3C runs as C / kWideK chunks of
+//   kWideK input channels: per chunk the CTA builds y = bf16((x + step_proj)
+//   + condp) on those channels for rows t0 - 1 .. t0 + 64 (two buffers, the
+//   next built while the last one's wgmmas run) and the chunk's three taps
+//   of weights (three 8 KB runs) land through a ring of kConvSlots slots by
+//   cp.async.bulk.  The gate runs in the epilogue; g goes to device memory
+//   in bf16, as [B, tiles, C / 8, 64, 8], a tile's channel block of 8 one
+//   K-major core-matrix column.
+// - wide_out_proj: CTA (n, tile, b) computes x' columns [32 n, 32 n + 32) and
+//   the same skip columns: K = C in chunks of kWideK, each chunk's g (8 KB,
+//   one contiguous run of that layout) and weights (8 KB) landing in one
+//   ring slot.  The epilogue reads x and step_proj again for y0, writes x'
+//   to the other of two buffers and adds into skip.
+// Every CTA owns its output columns: no atomics, the same bits every run.
+// The 2 L launches are chained by programmatic dependent launch: each loads
+// its first weight chunks, lets the next launch start, and waits in
+// griddepcontrol.wait for the one before.
+//
+// What bounds it: operations, 16 T C^2 FLOP a layer and batch row (0.339 ms
+// at B = 1, T = 1000, C = 1024, L = 20).  This first design rebuilds y in
+// every CTA of a tile (C / 32 of them) from fp32 x and condp, which L2
+// serves: it is right first, and fast later.
+
+constexpr int kWideK = 64;                              // input channels per K chunk
+constexpr int kWideSteps = kWideK / 16;                 // 16-deep K steps per tap and chunk
+constexpr int kTapBytes = kWideK * kN * 2;              // one tap's weights of a chunk: 8 KB
+constexpr int kConvSlots = 3;                           // conv weight chunks in shared memory
+constexpr int kConvSlotBytes = 3 * kTapBytes;           // a chunk's three taps
+constexpr int kYChunkBytes = kRowsY * kWideK * 2;       // y rows t0 - 1 .. t0 + 64, kWideK channels
+constexpr int kConvY = 128 + kConvSlots * kConvSlotBytes;
+constexpr int kConvBytes = kConvY + 2 * kYChunkBytes;   // 90,752: two CTAs an SM
+constexpr int kOutSlots = 4;                            // output-projection chunks
+constexpr int kGChunkBytes = kTile * kWideK * 2;        // g of a chunk: 8 KB
+constexpr int kOutSlotBytes = kGChunkBytes + kTapBytes; // g, then the weights
+constexpr int kOutBytes = 128 + kOutSlots * kOutSlotBytes;   // 65,664: three CTAs an SM
+
+// Layer l's conv: g = bf16(sigmoid(z_gate + b) tanh(z_filter + b)), z = the
+// k = 3 conv of y = bf16((x + step_proj[l]) + condp[l]) (zero outside
+// [0, T)).  Grid (C / 32, ceil(T / 64), B).
+__global__ void __launch_bounds__(kThreads, 2)
+wide_conv_gate(const float* __restrict__ x,               // x_l [B, T, C]
+               const float* __restrict__ condp,           // [B, T, L, C], bias added
+               const float* __restrict__ step_proj,       // [L, B, C]
+               const __nv_bfloat16* __restrict__ conv_w,  // layer l's [C / 32][3C * 64], wgmma order
+               const float* __restrict__ conv_b,          // layer l's [2C]
+               __nv_bfloat16* __restrict__ g,             // [B, tiles, C / 8, 64, 8]
+               int B, int T, int C, int L, int l) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_addr(smem), bar = base, slots = base + 128;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ch0 = blockIdx.x * kGroup, tile = blockIdx.y, b = blockIdx.z, t0 = tile * kTile;
+  const int tiles = gridDim.y, n_chunks = C / kWideK;
+  const size_t row0 = (size_t)b * T;
+  const __nv_bfloat16* w = conv_w + (size_t)blockIdx.x * 3 * C * kN;
+  // chunk q's three taps: K rows tap C + q kWideK .. + kWideK of this CTA's columns
+  auto load = [&](int q) {
+    const uint32_t full = bar + 8 * (q % kConvSlots), dst = slots + (q % kConvSlots) * kConvSlotBytes;
+    mbar_expect_tx(full, kConvSlotBytes);
+    for (int tap = 0; tap < 3; ++tap)
+      bulk_copy(dst + tap * kTapBytes, w + ((size_t)tap * C + q * kWideK) * kN, kTapBytes, full);
+  };
+  auto retire = [&](int q) {   // chunk q's wgmmas have completed
+    if (tid == 0 && q + kConvSlots < n_chunks) load(q + kConvSlots);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kConvSlots; ++i) mbar_init(bar + 8 * i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)   // the weights do not depend on the launch before
+    for (int q = 0; q < kConvSlots && q < n_chunks; ++q) load(q);
+  allow_next_grid();
+  wait_prior_grid();   // x_l is the launch before's output
+
+  // y of chunk q into buffer q % 2, K-major [kWideK / 8][kRowsY][8]: item i
+  // is row i / 8 (frame t0 - 1 + row), channel block i % 8
+  const float* sp = step_proj + ((size_t)l * B + b) * C;
+  auto build = [&](int q) {
+    unsigned char* buf = smem + kConvY + (q % 2) * kYChunkBytes;
+    for (int i = tid; i < kRowsY * (kWideK / 8); i += kThreads) {
+      const int r = i / (kWideK / 8), cb = i % (kWideK / 8), t = t0 - 1 + r;
+      const int c = q * kWideK + 8 * cb;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t >= 0 && t < T) {
+        const float4* xp = reinterpret_cast<const float4*>(x + (row0 + t) * C + c);
+        const float4* cp = reinterpret_cast<const float4*>(condp + ((row0 + t) * L + l) * C + c);
+        const float4* s = reinterpret_cast<const float4*>(sp + c);
+        const float4 x0 = __ldcg(xp), x1 = __ldcg(xp + 1), c0 = __ldg(cp), c1 = __ldg(cp + 1);
+        const float4 s0 = __ldg(s), s1 = __ldg(s + 1);
+        v = make_uint4(pack_bf16((x0.x + s0.x) + c0.x, (x0.y + s0.y) + c0.y),
+                       pack_bf16((x0.z + s0.z) + c0.z, (x0.w + s0.w) + c0.w),
+                       pack_bf16((x1.x + s1.x) + c1.x, (x1.y + s1.y) + c1.y),
+                       pack_bf16((x1.z + s1.z) + c1.z, (x1.w + s1.w) + c1.w));
+      }
+      *reinterpret_cast<uint4*>(buf + (cb * kRowsY + r) * 16) = v;
+    }
+    fence_proxy_async();   // for wgmma
+    __syncthreads();
+  };
+
+  float acc[kN / 2];
+  build(0);
+#pragma unroll 1
+  for (int q = 0; q < n_chunks; ++q) {
+    mbar_wait(bar + 8 * (q % kConvSlots), (uint32_t)((q / kConvSlots) & 1));
+    const uint32_t y = base + kConvY + (q % 2) * kYChunkBytes;
+    const uint32_t wq = slots + (q % kConvSlots) * kConvSlotBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+      for (int k = 0; k < kWideSteps; ++k)   // tap t reads the y chunk from row t
+        wgmma_ss(acc, kmajor_desc(y + tile_at(kRowsY, tap, 16 * k), kRowsY * 16, 128),
+                 slab_desc(wq + tap * kTapBytes + k * kSlabBytes), q > 0 || tap > 0 || k > 0);
+    wgmma_commit();
+    if (q + 1 < n_chunks) {
+      wgmma_wait<1>();   // chunk q - 1 has completed: its slot and y buffer are free
+      if (q > 0) retire(q - 1);
+      build(q + 1);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kN / 2; ++j) fence_reg(acc[j]);
+
+  // g = bf16(sigmoid(z_gate + b) * tanh(z_filter + b)), as residual_stack_mma
+  const int r_lo = warp * 16 + lane / 4, c_lo = 2 * (lane % 4);
+  __nv_bfloat16* gt = g + ((size_t)b * tiles + tile) * C * kTile;
+#pragma unroll
+  for (int j = 0; j < kGroup / 8; ++j) {
+    const int n = 8 * j + c_lo, c = ch0 + n;
+    const float2 bg = __ldg(reinterpret_cast<const float2*>(conv_b + c));
+    const float2 bf = __ldg(reinterpret_cast<const float2*>(conv_b + C + c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h, r = r_lo + 8 * h;
+      *reinterpret_cast<uint32_t*>(gt + ((size_t)(c / 8) * kTile + r) * 8 + c % 8) =
+          pack_bf16(sigmoid(acc[e] + bg.x) * tanh_f(acc[e + 16] + bf.x),
+                    sigmoid(acc[e + 1] + bg.y) * tanh_f(acc[e + 17] + bf.y));
+    }
+  }
+}
+
+// Layer l's output projection: o = g @ out_w + out_b; x_next = (o_x + x +
+// step_proj[l]) / sqrt(2); skip += o_skip (skip = o_skip at l = 0).  Grid
+// (C / 32, ceil(T / 64), B).
+__global__ void __launch_bounds__(kThreads, 3)
+wide_out_proj(const float* __restrict__ x,                // x_l [B, T, C]
+              const float* __restrict__ step_proj,        // [L, B, C]
+              const __nv_bfloat16* __restrict__ g,        // [B, tiles, C / 8, 64, 8]
+              const __nv_bfloat16* __restrict__ out_w,    // layer l's [C / 32][C * 64], wgmma order
+              const float* __restrict__ out_b,            // layer l's [2C]
+              float* __restrict__ x_next,                 // [B, T, C]
+              float* __restrict__ skip,                   // [B, T, C]
+              int B, int T, int C, int l) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_addr(smem), bar = base, slots = base + 128;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ch0 = blockIdx.x * kGroup, tile = blockIdx.y, b = blockIdx.z, t0 = tile * kTile;
+  const int n_chunks = C / kWideK;
+  const size_t row0 = (size_t)b * T;
+  const __nv_bfloat16* w = out_w + (size_t)blockIdx.x * C * kN;
+  const __nv_bfloat16* gt = g + ((size_t)b * gridDim.y + tile) * C * kTile;
+  auto slot = [&](int q) { return slots + (q % kOutSlots) * kOutSlotBytes; };
+  auto full = [&](int q) { return bar + 8 * (q % kOutSlots); };
+  auto load_w = [&](int q) {   // the slot's expected bytes cover both halves
+    mbar_expect_tx(full(q), kOutSlotBytes);
+    bulk_copy(slot(q) + kGChunkBytes, w + (size_t)q * kWideK * kN, kTapBytes, full(q));
+  };
+  auto load_g = [&](int q) {
+    bulk_copy(slot(q), gt + (size_t)q * kWideK * kTile, kGChunkBytes, full(q));
+  };
+  auto retire = [&](int q) {   // chunk q's wgmmas have completed
+    if (tid == 0 && q + kOutSlots < n_chunks) {
+      load_w(q + kOutSlots);
+      load_g(q + kOutSlots);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kOutSlots; ++i) mbar_init(bar + 8 * i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)   // the weights do not depend on the launch before
+    for (int q = 0; q < kOutSlots && q < n_chunks; ++q) load_w(q);
+  allow_next_grid();
+  wait_prior_grid();   // g is the launch before's output
+  if (tid == 0)
+    for (int q = 0; q < kOutSlots && q < n_chunks; ++q) load_g(q);
+
+  float acc[kN / 2];
+#pragma unroll 1
+  for (int q = 0; q < n_chunks; ++q) {
+    mbar_wait(full(q), (uint32_t)((q / kOutSlots) & 1));
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kWideSteps; ++k)
+      wgmma_ss(acc, kmajor_desc(slot(q) + tile_at(kTile, 0, 16 * k), kTile * 16, 128),
+               slab_desc(slot(q) + kGChunkBytes + k * kSlabBytes), q > 0 || k > 0);
+    wgmma_commit();
+    if (q > 0) {
+      wgmma_wait<1>();   // chunk q - 1 has completed
+      retire(q - 1);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kN / 2; ++j) fence_reg(acc[j]);
+
+  // x' = (o_x + out_b + y0) / sqrt(2) with y0 = x + step_proj, as
+  // residual_stack_mma keeps them in registers;  skip += o_skip + out_b
+  const int r_lo = warp * 16 + lane / 4, c_lo = 2 * (lane % 4);
+  const float* sp = step_proj + ((size_t)l * B + b) * C;
+  const float kRsqrt2 = 0.70710678118654752f;
+#pragma unroll
+  for (int j = 0; j < kGroup / 8; ++j) {
+    const int c = ch0 + 8 * j + c_lo;
+    const float2 bx = __ldg(reinterpret_cast<const float2*>(out_b + c));
+    const float2 bs = __ldg(reinterpret_cast<const float2*>(out_b + C + c));
+    const float2 s = __ldg(reinterpret_cast<const float2*>(sp + c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + r_lo + 8 * h, e = 4 * j + 2 * h;
+      if (t >= T) continue;
+      const size_t at = (row0 + t) * C + c;
+      const float2 xv = __ldcg(reinterpret_cast<const float2*>(x + at));
+      const float2 y0 = make_float2(xv.x + s.x, xv.y + s.y);
+      float2 sk = make_float2(0.f, 0.f);
+      if (l > 0) sk = __ldcg(reinterpret_cast<const float2*>(skip + at));
+      *reinterpret_cast<float2*>(x_next + at) =
+          make_float2(((acc[e] + bx.x) + y0.x) * kRsqrt2, ((acc[e + 1] + bx.y) + y0.y) * kRsqrt2);
+      *reinterpret_cast<float2*>(skip + at) =
+          make_float2(sk.x + (acc[e + 16] + bs.x), sk.y + (acc[e + 17] + bs.y));
+    }
+  }
+}
+
+// The L layers of the wide route as 2 L launches, each after the first
+// launched early (programmatic dependent launch).  Layer l reads x_l (x for
+// l = 0, then the ping-pong buffers, the last layer's output being x_out).
+int run_wide(const float* x, const float* condp, const float* step_proj,
+             const __nv_bfloat16* conv_w, const float* conv_b, const __nv_bfloat16* out_w,
+             const float* out_b, float* x_out, float* skip, float* scratch, __nv_bfloat16* g,
+             int B, int T, int C, int L, cudaStream_t stream, int* launches) {
+  *launches = 0;
+  if (C % kWideK != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(wide_conv_gate,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kConvBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wide_out_proj, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kOutBytes);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C / kGroup, (T + kTile - 1) / kTile, B);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  for (int l = 0; err == cudaSuccess && l < L; ++l) {
+    const float* cur = l == 0 ? x : ((L - l) % 2 == 0 ? x_out : scratch);   // x_l
+    float* nxt = (L - 1 - l) % 2 == 0 ? x_out : scratch;                     // x_{l+1}
+    cfg.dynamicSmemBytes = kConvBytes;
+    cfg.numAttrs = l > 0 ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, wide_conv_gate, cur, condp, step_proj,
+                             conv_w + (size_t)l * 3 * C * 2 * C, conv_b + (size_t)l * 2 * C, g,
+                             B, T, C, L, l);
+    *launches += err == cudaSuccess;
+    if (err != cudaSuccess) break;
+    cfg.dynamicSmemBytes = kOutBytes;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, wide_out_proj, cur, step_proj, g,
+                             out_w + (size_t)l * C * 2 * C, out_b + (size_t)l * 2 * C, nxt, skip,
+                             B, T, C, l);
+    *launches += err == cudaSuccess;
+  }
+  return (int)err;
+}
+
+// CTAs of wide_conv_gate the current device holds at once, into *out.
+int wide_resident(int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wide_conv_gate, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kConvBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wide_conv_gate, kThreads,
+                                                         kConvBytes);
+  *out = per_sm * sms;
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -622,37 +928,54 @@ int denoiser_stack_bf16(const float* x, const float* condp, const float* step_pr
   }
 }
 
-// Dynamic shared memory a CTA of the C-channel kernel uses, or -1.
+// The wide route (C > 512, a multiple of 64): x, condp, step_proj and the
+// weights as denoiser_stack_bf16 takes them; g [B, ceil(T / 64), C / 8, 64, 8]
+// bf16 scratch.  Launches 2 L kernels on `stream`, writes their number to
+// *launches, and returns the first CUDA error, or 0.
+int denoiser_stack_wide_bf16(const float* x, const float* condp, const float* step_proj,
+                             const __nv_bfloat16* conv_w, const float* conv_b,
+                             const __nv_bfloat16* out_w, const float* out_b, float* x_out,
+                             float* skip, float* scratch, __nv_bfloat16* g, int B, int T, int C,
+                             int L, void* stream, int* launches) {
+  if (C <= 512) return (int)cudaErrorInvalidValue;
+  return run_wide(x, condp, step_proj, conv_w, conv_b, out_w, out_b, x_out, skip, scratch, g, B,
+                  T, C, L, static_cast<cudaStream_t>(stream), launches);
+}
+
+// Dynamic shared memory a CTA of the C-channel kernel uses (above 512, the
+// wide route's conv kernel, the larger of its two), or -1.
 int denoiser_stack_smem_bytes(int C) {
   switch (C) {
     case 64: return Layout<64>::kBytes;
     case 128: return Layout<128>::kBytes;
     case 256: return Layout<256>::kBytes;
     case 512: return Layout<512>::kBytes;
-    default: return -1;
+    default: return C > 512 && C % kWideK == 0 ? kConvBytes : -1;
   }
 }
 
-// CTAs per cluster (one cluster per 64-frame tile) at width C, or -1.
+// CTAs per cluster (one cluster per 64-frame tile) at width C (1 above 512:
+// the wide route runs no clusters), or -1.
 int denoiser_stack_cluster_size(int C) {
   switch (C) {
     case 64: return Layout<64>::kRanks;
     case 128: return Layout<128>::kRanks;
     case 256: return Layout<256>::kRanks;
     case 512: return Layout<512>::kRanks;
-    default: return -1;
+    default: return C > 512 && C % kWideK == 0 ? 1 : -1;
   }
 }
 
-// Clusters of the C-channel kernel the current device holds at once, into
-// *out; returns the CUDA error, or 0.
+// Clusters of the C-channel kernel the current device holds at once (above
+// 512, CTAs of the wide route's conv kernel), into *out; returns the CUDA
+// error, or 0.
 int denoiser_stack_max_active_clusters(int C, int* out) {
   switch (C) {
     case 64: return resident_clusters<64>(out);
     case 128: return resident_clusters<128>(out);
     case 256: return resident_clusters<256>(out);
     case 512: return resident_clusters<512>(out);
-    default: return (int)cudaErrorInvalidValue;
+    default: return C > 512 && C % kWideK == 0 ? wide_resident(out) : (int)cudaErrorInvalidValue;
   }
 }
 

@@ -23,11 +23,21 @@
 // clusters of 4 CTAs, C = 512 in clusters of 8 (the portable limit);
 // ops/mrf.py runs 128 < C <= 256 at 256 and 256 < C <= 512 at 512 with zero
 // channels.  The host plans each launch's shared memory from its schedule
-// (geom_of): the X buffer holds a pass plus the widest conv1 reach, the
-// stash the widest h (d + 1) rows.  A pass takes three warpgroups where that
-// fits the 232,448 B a block may hold, else two, else one; where not even
-// one does (C = 512 past a reach of about 45 frames), the plan says so and
-// ops/mrf.py raises, naming the limit.
+// (geom_of, pick_geom): the X buffer holds a pass plus the widest conv1
+// reach R = max (k/2) d each side, the stash the widest h (d + 1) rows.  A
+// pass takes three warpgroups where that fits the 232,448 B a block may
+// hold, else two, else one.  At C = 512 a 64-row pass's X is 1,024 (64 + 2R)
+// B, so the budget there is (mbarriers 128 B, a stage of the ring 16,384 B,
+// S_y = max h (d + 1) rows of stash at 272 B):
+//   y in place, 4 stages:     65,664 + 1,024 (64 + 2R) + 272 S_y <= 232,448
+//     (R <= 43 at k = 3; V1's schedule, R = 25, takes 190,560 B);
+//   y out of place, 2 stages: 32,896 + 1,024 (64 + 2R) <= 232,448, R <= 65,
+// and the halo bounds R by 63 (k = 3, d = 63: 227,456 B), so every schedule
+// the halo admits has a plan.  Out of place, y lives in two slabs of device
+// memory (pair p reads one and writes the other), so no pass keeps rows
+// back for the next: no stash, and no bound on h (d + 3) against a pass's
+// rows, which in place rules out one-warpgroup passes at the halo's edge
+// (k = 3, d = 63: 66 > 64).
 //
 // What bounds it on an H100: operations.  The stage does 252 C^2 FLOP per
 // frame: 132 GFLOP at B = 1, T = 8000, 0.134 ms at 989 TFLOP/s of bf16; x in
@@ -76,9 +86,10 @@
 //   it needs 105-192 KB, which the 192-row pass and its ring took.  Loads
 //   from it are batched (kBatch rows, kGroups column groups) to hide L2
 //   latency.
-// - y is updated in place.  The last h (d + 1) rows a pass keeps are the
-//   old rows the next pass of the pair still reads: they wait in the stash
-//   until that pass has built its tile.  The last pair of a branch adds its
+// - y is updated in place where the plan's stash fits.  The last h (d + 1)
+//   rows a pass keeps are the old rows the next pass of the pair still
+//   reads: they wait in the stash until that pass has built its tile
+//   (out of place, they go straight to the other slab).  The last pair of a branch adds its
 //   rows of the tile into the output, which only this CTA writes: no
 //   atomics, the same bits every run.
 // - Every wait traps after a bounded number of polls (mbar_wait,
@@ -104,7 +115,7 @@ namespace {
 
 constexpr int kN = 64;                     // output channels per CTA
 constexpr int kWG = 3, kMT = 1;            // consumer warpgroups, 64-row tiles each
-constexpr int kKCH = 128, kS = 4;          // K rows per ring stage, stages
+constexpr int kKCH = 128, kS = 4;          // K rows per ring stage, stages (2 for the widest reaches)
 constexpr int kFly = 2;                    // wgmma groups (ring stages) in flight
 constexpr int kMaxSteps = 256;             // branches, and pairs per branch, a launch takes
 constexpr int kHalo = 64;                  // a branch's creep fits the TPU kernels' halo
@@ -115,8 +126,10 @@ constexpr int kMaxSmem = 232448;           // an H100 block's dynamic shared mem
 using P = MmaPass<kN, kMT, kKCH, kS, kWG>;
 static_assert(kN == 64, "wgmma_ss is m64n64k16");
 constexpr int kYld = kN + 4;                               // floats per y row
-constexpr int kBarBytes = (2 * kS + 3 + 15) / 16 * 128;      // full[kS], empty[kS], 3 more
-constexpr int kX = kBarBytes + P::kRingBytes;              // byte offset of X
+constexpr int kBarBytes = (2 * kS + 3 + 15) / 16 * 128;      // full[S], empty[S], 3 more
+
+// Byte offset of X behind a ring of `stages` stages.
+__host__ __device__ constexpr int x_at(int stages) { return kBarBytes + stages * P::kStageBytes; }
 constexpr int kBatch = 2;   // rows of y a thread loads at once building a tile
 constexpr int kGroups = 2;  // groups of 8 columns whose y it loads at once in the epilogue
 
@@ -136,8 +149,9 @@ struct Steps {
 // A launch's shared-memory plan (geom_of).
 struct Geom {
   int wgs;      // consumer warpgroups a pass uses (64 wgs rows), 0 if none fits
+  int stages;   // ring stages: kS with y in place, or 2 with y out of place (out_of_place)
   int x_rows;   // rows of the X buffer: a pass plus the widest conv1 reach each side
-  int stash;    // byte offset of the stash: rows y takes later
+  int stash;    // byte offset of the stash: rows y takes later (in place only)
   int smem;     // dynamic shared memory per CTA
 };
 
@@ -181,12 +195,17 @@ int lead_of(const Steps& s) {
   return lead;
 }
 
-// The plan for passes of `wgs` warpgroups.  Valid where it fits a block's
-// shared memory and every full pass keeps more rows than the next pass
-// reads back (h (d + 1) + 2 h <= its rows: the stash holds the overlap of
-// two passes only); else wgs is 0.
+// Whether a ring of `stages` stages updates y out of place, in two slabs
+// (pair p reads one and writes the other, no stash), or in place (kS).
+__host__ __device__ constexpr bool out_of_place(int stages) { return stages < kS; }
+
+// The plan for passes of `wgs` warpgroups behind a ring of `stages`
+// stages.  In place, valid where it fits a block's shared memory and every
+// full pass keeps more rows than the next pass reads back (h (d + 1) + 2 h
+// <= its rows: the stash holds the overlap of two passes only); out of
+// place, where it fits.  Else wgs is 0.
 template <int C>
-Geom geom_of(const Steps& s, int wgs) {
+Geom geom_of(const Steps& s, int wgs, int stages) {
   int reach = 0, stash = 0, overlap = 0;
   for (int br = 0; br < s.n_br; ++br)
     for (int p = 0; p < s.n_pair; ++p) {
@@ -195,23 +214,32 @@ Geom geom_of(const Steps& s, int wgs) {
       stash = h * (d + 1) > stash ? h * (d + 1) : stash;
       overlap = h * (d + 3) > overlap ? h * (d + 3) : overlap;
     }
+  const bool oop = out_of_place(stages);
   Geom g;
+  g.stages = stages;
   g.x_rows = 64 * kMT * wgs + 2 * reach;
-  g.stash = kX + C / 8 * g.x_rows * 16;
-  g.smem = g.stash + stash * kYld * 4;
-  g.wgs = overlap <= 64 * kMT * wgs && g.smem <= kMaxSmem ? wgs : 0;
+  g.stash = x_at(stages) + C / 8 * g.x_rows * 16;
+  g.smem = g.stash + (oop ? 0 : stash * kYld * 4);
+  g.wgs = (oop || overlap <= 64 * kMT * wgs) && g.smem <= kMaxSmem ? wgs : 0;
   return g;
 }
 
-// The valid plan with the most warpgroups a pass (one warpgroup's, with
-// wgs 0, where none is valid).
+// The first valid plan, most warpgroups a pass first: y in place behind
+// kS stages (every schedule at C = 256, and V1's at 512), else (C = 512
+// only) y out of place behind 2 stages; the in-place plan of one
+// warpgroup, with wgs 0, where none is valid.
 template <int C>
 Geom pick_geom(const Steps& s) {
-  for (int wgs = kWG; wgs > 1; --wgs) {
-    const Geom g = geom_of<C>(s, wgs);
+  for (int wgs = kWG; wgs > 0; --wgs) {
+    const Geom g = geom_of<C>(s, wgs, kS);
     if (g.wgs) return g;
   }
-  return geom_of<C>(s, 1);
+  if (C == 512)
+    for (int wgs = kWG; wgs > 0; --wgs) {
+      const Geom g = geom_of<C>(s, wgs, 2);
+      if (g.wgs) return g;
+    }
+  return geom_of<C>(s, 1, kS);
 }
 
 // Ring chunks a CTA of the tile at t0 streams, and (flops != nullptr) the
@@ -242,20 +270,20 @@ __host__ __device__ inline int plan_of(const Steps& s, int t0, int tile, int T, 
 // q0 + chunks(K) - 1; each chunk's wgmmas issue back to back as one group,
 // kFly groups in flight, and `leader` releases a chunk's stage once its
 // group has completed.
-template <int C, int K>
+template <int C, int K, int S>
 __device__ __forceinline__ void conv_ss(float (&acc)[kMT][kN / 2], uint32_t a0, uint32_t stride,
                                         int dil, uint32_t ring, uint32_t full, uint32_t empty,
                                         int q0, bool leader) {
   constexpr int kSPC = kKCH / 16, kChunks = K * C / kKCH, kPerTap = C / 16;
-  static_assert(kChunks >= kFly, "a conv fills the groups in flight");
+  static_assert(kChunks >= kFly && S >= kFly, "a conv fills the groups in flight");
   auto release = [&](int q) {
-    if (leader) mbar_arrive(empty + 8 * (q % kS));
+    if (leader) mbar_arrive(empty + 8 * (q % S));
   };
 #pragma unroll 1
   for (int i = 0; i < kChunks; ++i) {
     const int q = q0 + i;
-    mbar_wait(full + 8 * (q % kS), (uint32_t)((q / kS) & 1));
-    const uint32_t b = ring + (q % kS) * P::kStageBytes;
+    mbar_wait(full + 8 * (q % S), (uint32_t)((q / S) & 1));
+    const uint32_t b = ring + (q % S) * P::kStageBytes;
     // a fence before every group: without it ptxas puts its own in the
     // leader's divergent path and serializes the wgmmas (C7520)
     wgmma_fence();
@@ -283,35 +311,37 @@ __device__ __forceinline__ void conv_ss(float (&acc)[kMT][kN / 2], uint32_t a0, 
 }
 
 // The consumer warpgroup's conv of its rows at kernel size k.
-template <int C>
+template <int C, int S>
 __device__ __forceinline__ void conv(int k, float (&acc)[kMT][kN / 2], uint32_t a0,
                                      uint32_t stride, int dil, uint32_t ring, uint32_t full,
                                      uint32_t empty, int q, bool leader) {
   switch (k) {
-    case 1: conv_ss<C, 1>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
-    case 3: conv_ss<C, 3>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
-    case 5: conv_ss<C, 5>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
-    case 7: conv_ss<C, 7>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
-    case 9: conv_ss<C, 9>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
-    default: conv_ss<C, 11>(acc, a0, stride, dil, ring, full, empty, q, leader);
+    case 1: conv_ss<C, 1, S>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 3: conv_ss<C, 3, S>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 5: conv_ss<C, 5, S>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 7: conv_ss<C, 7, S>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    case 9: conv_ss<C, 9, S>(acc, a0, stride, dil, ring, full, empty, q, leader); break;
+    default: conv_ss<C, 11, S>(acc, a0, stride, dil, ring, full, empty, q, leader);
   }
 }
 
 // A warpgroup with no rows in a short pass still releases each ring stage
 // of the conv (chunks q .. q + n - 1) once it has landed.
+template <int S>
 __device__ __forceinline__ void drain(int q, int n, uint32_t full, uint32_t empty, bool leader) {
   if (!leader) return;
   for (int i = q; i < q + n; ++i) {
-    mbar_wait(full + 8 * (i % kS), (uint32_t)((i / kS) & 1));
-    mbar_arrive(empty + 8 * (i % kS));
+    mbar_wait(full + 8 * (i % S), (uint32_t)((i / S) & 1));
+    mbar_arrive(empty + 8 * (i % S));
   }
 }
 
-// Grid (kRanks * ceil(T / tile), B), clusters of kRanks CTAs along x; each
-// CTA keeps y in its part of y_slab ([CTAs][tile + 2 lead][kYld] fp32).  The
-// steps are read in place from the parameter block (__grid_constant__: no
-// copy of their arrays per thread).
-template <int C>
+// Grid (kRanks * ceil(T / tile), B), clusters of kRanks CTAs along x, a
+// ring of S stages; each CTA keeps y in its part of y_slab ([CTAs][tile +
+// 2 lead][kYld] fp32, twice over out of place: pair p reads slab p % 2 and
+// writes the other).  The steps are read in place from the parameter
+// block (__grid_constant__: no copy of their arrays per thread).
+template <int C, int S>
 __global__ void __launch_bounds__(P::kThreads, 1)
 mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
                    float* __restrict__ out,                    // [B, T, C]
@@ -324,8 +354,14 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
   constexpr int kRanks = Width<C>::kRanks;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_addr(smem);
-  const uint32_t full = base, empty = base + 8 * kS;
-  const uint32_t a_bar = base + 16 * kS, h_bar = a_bar + 8, free_bar = a_bar + 16;
+  const uint32_t full = base, empty = base + 8 * S;
+  const uint32_t a_bar = base + 16 * S, h_bar = a_bar + 8, free_bar = a_bar + 16;
+  constexpr int kX = x_at(S);
+  // out of place, one row and one column group of y at a time: the second
+  // slab's pointer leaves no room for more under the 128 registers a thread
+  // of 13 warps may hold (ptxas spills otherwise)
+  constexpr int kBatchS = out_of_place(S) ? 1 : kBatch;
+  constexpr int kGroupsS = out_of_place(S) ? 1 : kGroups;
   const uint32_t ring = base + kBarBytes, xt = base + kX;
   const int tid = threadIdx.x;
   const uint32_t rank = cluster_rank();
@@ -335,7 +371,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
   const size_t row = (size_t)b * T * C;
 
   if (tid == 0) {
-    for (int i = 0; i < kS; ++i) {
+    for (int i = 0; i < S; ++i) {
       mbar_init(full + 8 * i, 1);
       mbar_init(empty + 8 * i, kWG);
     }
@@ -360,7 +396,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
         hi = w.hi;
       };
       start_pair();
-      produce_chunks<kS>(
+      produce_chunks<S>(
           plan_of<C>(s, t0, tile, T, geo.wgs, nullptr), ring, P::kStageBytes, full, empty,
           [&](int, uint32_t dst, uint32_t bar) {
             const int k = s.k[br], h = k / 2;
@@ -390,7 +426,10 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
     const int row0 = wg * kMT * 64 + warp * 16 + (lane >> 2);   // + 64 mt + 8 hh
     const int col0 = 2 * (lane & 3);                             // + 8 g
     const int wg_row = wg * kMT * 64;   // this warpgroup's first row of a pass
-    float* y = y_slab + ((size_t)b * gridDim.x + blockIdx.x) * (tile + 2 * lead) * kYld;
+    const size_t cta_floats = (size_t)(tile + 2 * lead) * kYld;
+    float* const y = y_slab + ((size_t)b * gridDim.x + blockIdx.x) * cta_floats;
+    // pair p reads y (odd p: y2) and writes y2 (odd p: y): the same slab in place
+    float* const y2 = out_of_place(S) ? y + (size_t)gridDim.y * gridDim.x * cta_floats : y;
     float* stash = reinterpret_cast<float*>(smem + geo.stash);
     float acc[kMT][kN / 2];
     int q = 0, pass = 0;
@@ -425,6 +464,8 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
       for (int p = 0; p < s.n_pair; ++p) {
         const int d = s.d[p];
         const bool last = p == s.n_pair - 1;
+        const float* yin = p % 2 ? y2 : y;
+        float* yout = p % 2 ? y : y2;
         const size_t step = (size_t)br * s.n_pair + p;
         const Win w = window(s, k, p, t0, tile, T), w_in = window(s, k, p - 1, t0, tile, T);
         int pend_f = 0, pend_n = 0;   // stashed rows of the last pass, not yet in y
@@ -439,20 +480,20 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
           // conv1's input, bf16(lrelu(y) * mask), this CTA's channels: tile
           // row i is frame u - h - h d + i; frames outside the window of y
           // (outside [0, T), or feeding only rows no pass keeps) are 0
-          for (int i0 = tid; i0 < sa * (kN / 8); i0 += kBatch * P::kConsumers) {
-            float4 lo4[kBatch], hi4[kBatch];   // kBatch rows' loads in flight
+          for (int i0 = tid; i0 < sa * (kN / 8); i0 += kBatchS * P::kConsumers) {
+            float4 lo4[kBatchS], hi4[kBatchS];   // kBatchS rows' loads in flight
 #pragma unroll
-            for (int j = 0; j < kBatch; ++j) {
+            for (int j = 0; j < kBatchS; ++j) {
               const int i = i0 + j * P::kConsumers, f = u - h - h * d + i % sa;
               lo4[j] = hi4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
               if (i < sa * (kN / 8) && f >= w_in.lo && f < w_in.hi) {
-                const float* yr = y + (f - s0) * kYld + 8 * (i / sa);
+                const float* yr = yin + (f - s0) * kYld + 8 * (i / sa);
                 lo4[j] = *reinterpret_cast<const float4*>(yr);
                 hi4[j] = *reinterpret_cast<const float4*>(yr + 4);
               }
             }
 #pragma unroll
-            for (int j = 0; j < kBatch; ++j) {
+            for (int j = 0; j < kBatchS; ++j) {
               const int i = i0 + j * P::kConsumers;
               if (i >= sa * (kN / 8)) break;
               *reinterpret_cast<uint4*>(smem + kX + ((ch0 / 8 + i / sa) * sa + i % sa) * 16) =
@@ -480,9 +521,9 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
 
           // conv1: output row r is frame u - h + r
           if (active)
-            conv<C>(k, acc, xt + wg_row * 16, sa * 16, d, ring, full, empty, q, leader);
+            conv<C, S>(k, acc, xt + wg_row * 16, sa * 16, d, ring, full, empty, q, leader);
           else
-            drain(q, chunks<C>(k), full, empty, leader);
+            drain<S>(q, chunks<C>(k), full, empty, leader);
           q += chunks<C>(k);
           consumer_sync<P::kConsumers>();
           if (tid == 0) arrive_peers();
@@ -518,43 +559,44 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
 
           // conv2: output row r is frame u + r, kept for r < kept
           if (active)
-            conv<C>(k, acc, xt + wg_row * 16, m * 16, 1, ring, full, empty, q, leader);
+            conv<C, S>(k, acc, xt + wg_row * 16, m * 16, 1, ring, full, empty, q, leader);
           else
-            drain(q, chunks<C>(k), full, empty, leader);
+            drain<S>(q, chunks<C>(k), full, empty, leader);
           q += chunks<C>(k);
           consumer_sync<P::kConsumers>();
           if (tid == 0) arrive_peers();
           STAMP(6)
 
-          // y += conv2 + b2 on the kept rows of the window; the last `ov` of
-          // them go to the stash while the next pass of the pair still reads
-          // their old values; the last pair adds y on the tile into the branch
-          // sum (this CTA's rows and channels of the output) instead
-          const int ov = last || u + kept >= w.hi ? 0 : h * (d + 1);
+          // y += conv2 + b2 on the kept rows of the window; in place, the last
+          // `ov` of them go to the stash while the next pass of the pair
+          // still reads their old values; the last pair adds y on the tile
+          // into the branch sum (this CTA's rows and channels of the output)
+          // instead
+          const int ov = out_of_place(S) || last || u + kept >= w.hi ? 0 : h * (d + 1);
           if (active) {
             const float* b2p = b2 + step * C + ch0;
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-              for (int g0 = 0; g0 < kN / 8; g0 += kGroups) {
-                // the loads of kGroups column groups first, then the stores
-                float2 yv[kGroups][2], prev[kGroups][2];
+              for (int g0 = 0; g0 < kN / 8; g0 += kGroupsS) {
+                // the loads of kGroupsS column groups first, then the stores
+                float2 yv[kGroupsS][2], prev[kGroupsS][2];
 #pragma unroll
-                for (int g = g0; g < g0 + kGroups; ++g)
+                for (int g = g0; g < g0 + kGroupsS; ++g)
 #pragma unroll
                   for (int hh = 0; hh < 2; ++hh) {
                     const int r = row0 + 64 * mt + 8 * hh, f = u + r;
                     yv[g - g0][hh] = prev[g - g0][hh] = make_float2(0.f, 0.f);
                     if (r < kept - ov && f >= w.lo && f < w.hi) {
                       yv[g - g0][hh] = *reinterpret_cast<const float2*>(
-                          y + (f - s0) * kYld + 8 * g + col0);
+                          yin + (f - s0) * kYld + 8 * g + col0);
                       if (last && br > 0)
                         prev[g - g0][hh] = *reinterpret_cast<const float2*>(
                             out + row + (size_t)f * C + ch0 + 8 * g + col0);
                     }
                   }
 #pragma unroll
-                for (int g = g0; g < g0 + kGroups; ++g) {
+                for (int g = g0; g < g0 + kGroupsS; ++g) {
                   const float2 bias = __ldg(reinterpret_cast<const float2*>(b2p + 8 * g + col0));
 #pragma unroll
                   for (int hh = 0; hh < 2; ++hh) {
@@ -566,7 +608,7 @@ mrf_stage_streamed(const float* __restrict__ x,                // [B, T, C]
                     if (r >= kept - ov) {
                       *reinterpret_cast<float2*>(stash + (r - (kept - ov)) * kYld + 8 * g + col0) = v;
                     } else if (!last) {
-                      *reinterpret_cast<float2*>(y + (f - s0) * kYld + 8 * g + col0) =
+                      *reinterpret_cast<float2*>(yout + (f - s0) * kYld + 8 * g + col0) =
                           make_float2(a.x + v.x, a.y + v.y);
                     } else {
                       float2 o = make_float2(a.x + v.x, a.y + v.y);
@@ -650,13 +692,13 @@ int resident_clusters(int* out) {
     *out = known[dev] - 1;
     return 0;
   }
-  err = cudaFuncSetAttribute(mrf_stage_streamed<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxSmem);
+  err = cudaFuncSetAttribute(mrf_stage_streamed<C, kS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config<C>(1, 1000, 1000, kMaxSmem, nullptr, &attr);
-  err = cudaOccupancyMaxActiveClusters(out, reinterpret_cast<const void*>(mrf_stage_streamed<C>),
-                                       &cfg);
+  err = cudaOccupancyMaxActiveClusters(
+      out, reinterpret_cast<const void*>(mrf_stage_streamed<C, kS>), &cfg);
   if (err == cudaSuccess && dev < kDevices) known[dev] = *out + 1;
   return (int)err;
 }
@@ -671,10 +713,13 @@ int plan_for(int B, int T, const Steps& s, int* plan) {
   const int tile = (T + per_row - 1) / per_row;
   plan[0] = tile;
   plan[1] = resident;
-  plan[2] = B * ((T + tile - 1) / tile) * Width<C>::kRanks * (tile + 2 * lead_of(s)) * kYld;
+  plan[2] = (out_of_place(g.stages) ? 2 : 1) * B * ((T + tile - 1) / tile) * Width<C>::kRanks *
+            (tile + 2 * lead_of(s)) * kYld;
   plan[3] = g.smem;
   plan[4] = Width<C>::kRanks;
   plan[5] = 64 * kMT * g.wgs;
+  plan[6] = g.stages;
+  plan[7] = out_of_place(g.stages);
   return 0;
 }
 
@@ -687,21 +732,32 @@ double flops_for(int B, int T, int tile, const Steps& s) {
   return flops * B;
 }
 
+template <int C, int S>
+int launch_with(const float* x, float* out, float* y_slab, const __nv_bfloat16* w1,
+                const float* b1, const __nv_bfloat16* w2, const float* b2, int B, int T, int tile,
+                const Steps& s, const Geom& g, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mrf_stage_streamed<C, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<C>(B, T, tile, g.smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, mrf_stage_streamed<C, S>, x, out, y_slab, w1, b1, w2, b2, T,
+                           tile, lead_of(s), g, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int launch(const float* x, float* out, float* y_slab, const __nv_bfloat16* w1, const float* b1,
            const __nv_bfloat16* w2, const float* b2, int B, int T, int tile, const Steps& s,
            cudaStream_t stream) {
   const Geom g = pick_geom<C>(s);
   if (!g.wgs) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mrf_stage_streamed<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config<C>(B, T, tile, g.smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, mrf_stage_streamed<C>, x, out, y_slab, w1, b1, w2, b2, T, tile,
-                           lead_of(s), g, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (g.stages == kS)
+    return launch_with<C, kS>(x, out, y_slab, w1, b1, w2, b2, B, T, tile, s, g, stream);
+  if constexpr (C == 512)
+    return launch_with<C, 2>(x, out, y_slab, w1, b1, w2, b2, B, T, tile, s, g, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -709,11 +765,13 @@ int launch(const float* x, float* out, float* y_slab, const __nv_bfloat16* w1, c
 extern "C" {
 
 // The launch plan at B, T and width C (256 or 512) on the current device,
-// into plan[0..5]: frames per cluster (the fewest that put every cluster on
+// into plan[0..7]: frames per cluster (the fewest that put every cluster on
 // the card at once), clusters the device holds at once, floats of the y
-// slab the caller allocates, dynamic shared memory per CTA, CTAs per
-// cluster, and rows a pass (0: no pass of this schedule fits a block's
-// shared memory, and the launch refuses it).  Returns the CUDA error, or
+// slab the caller allocates (both slabs out of place), dynamic shared
+// memory per CTA, CTAs per cluster, rows a pass (0: no pass of this
+// schedule fits a block's shared memory, and the launch refuses it; no
+// schedule within the halo comes to that), ring stages, and 1 where y is
+// updated out of place.  Returns the CUDA error, or
 // cudaErrorInvalidValue for a shape the kernel is not built for.
 int mrf_stack_streamed_plan(int B, int T, int C, int n_br, int n_pair, const int* kernel_sizes,
                             const int* dilations, int* plan) {

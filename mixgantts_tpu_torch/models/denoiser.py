@@ -3,8 +3,9 @@ channel-last.
 
 The 20 gated residual blocks run as one call of
 `ops.denoiser_stack.fused_residual_stack`: the hand-written bf16
-tensor-core kernel for CUDA tensors (any `residual_channels` up to 256),
-its plain PyTorch version for CPU tensors.  Their weights are stacked once, in bf16 with the kernel's layout
+tensor-core kernel for CUDA tensors (any `residual_channels`: up to 512 in
+clusters, above on its wide route of two launches a layer), its plain
+PyTorch version for CPU tensors.  Their weights are stacked once, in bf16 with the kernel's layout
 on CUDA (the kernel's operand type, and the TPU kernel's), in the
 parameters' own type elsewhere (`Denoiser.stack_dtype` overrides).  (The
 JAX package takes its TPU kernel only at batch >= 2; that rule was

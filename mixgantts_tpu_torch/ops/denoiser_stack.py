@@ -39,7 +39,11 @@ The zero channels are exact: a zero gate channel gives sigmoid(0) * tanh(0)
 = 0, and zero weight rows add nothing to the fp32 sums.  The weights are
 padded once, in `denoiser_kernel_weights`; x, the step projections and the
 conditioner projections come at Cp per call.  Wider than 512 would take
-clusters of more than 16 CTAs, which an H100 does not run, and raises.
+clusters of more than 16 CTAs, which an H100 does not run: such a stack
+runs the wide route of the same source (`wide_conv_gate` and
+`wide_out_proj`, two launches a layer, g through device memory) at the next
+multiple of WIDE_UNIT, with the same zero channels and the same weight
+layout.  Only device memory limits C.
 """
 
 import ctypes
@@ -53,6 +57,7 @@ from .mrf import no_tf32, pad_channels, upcast
 
 GROUP = 32   # gate channels per CTA of the CUDA kernel (`kGroup` in the source)
 KERNEL_WIDTHS = (64, 128, 256, 512)   # the C the CUDA kernel is built for (`Layout<C>`)
+WIDE_UNIT = 64   # above 512 the wide route runs C padded to a multiple of this (`kWideK`)
 
 
 def stack_denoiser_params(denoiser):
@@ -172,13 +177,17 @@ def _layers_bf16(x, step_proj, condp, stacked):
 
 def kernel_width(C):
     """The width Cp at which the CUDA kernel runs a C-channel stack: the
-    least of KERNEL_WIDTHS that is >= C.  Raises above the widest."""
+    least of KERNEL_WIDTHS that is >= C, or above the widest (the wide
+    route) C rounded up to a multiple of WIDE_UNIT."""
     for Cp in KERNEL_WIDTHS:
         if C <= Cp:
             return Cp
-    raise ValueError(f"denoiser_stack kernel: C={C}; it takes C <= {KERNEL_WIDTHS[-1]} "
-                     f"(a wider stack would need clusters of more than "
-                     f"{KERNEL_WIDTHS[-1] // GROUP} CTAs)")
+    return -(-C // WIDE_UNIT) * WIDE_UNIT
+
+
+def is_wide(C):
+    """Whether a C-channel stack runs the wide route (two launches a layer)."""
+    return C > KERNEL_WIDTHS[-1]
 
 
 def _pad_halves(w, C, Cp):
@@ -229,8 +238,8 @@ def denoiser_kernel_weights(stacked):
     """Stacked weights as the CUDA kernel takes them.  The stack itself,
     for the plain version: conv_w/out_w in bf16 (the TPU kernel's operand
     type, `pallas.py:133-138`), conv_b/out_b, cond_w/cond_b, step_w (and a
-    multi-speaker stack's spk_w) in fp32.  And, where C <= 512, the
-    kernel's own tensors at its width Cp (`kernel_width`; zero channels
+    multi-speaker stack's spk_w) in fp32.  And the kernel's own tensors at
+    its width Cp (`kernel_width`, the same layout on both routes; zero channels
     above C, `pad_denoiser_width`): the bf16 copies `conv_w_mma` [L, Cp / 32,
     3Cp * 64] (K = tap * Cp + input channel) and `out_w_mma` [L, Cp / 32,
     Cp * 64] in the kernel's order (`_pack`), `conv_b_mma`/`out_b_mma`
@@ -246,16 +255,15 @@ def denoiser_kernel_weights(stacked):
     for key in ("conv_b", "out_b", "cond_w", "cond_b", "step_w", "spk_w"):
         if key in stacked:
             out[key] = stacked[key].float().contiguous()
-    if C <= KERNEL_WIDTHS[-1]:
-        Cp = kernel_width(C)
-        padded = pad_denoiser_width(out, Cp)
-        Hc = padded["cond_w"].shape[1]
-        out.update(
-            conv_w_mma=_pack(padded["conv_w"].reshape(L, 3 * Cp, 2 * Cp)),
-            out_w_mma=_pack(padded["out_w"]),
-            conv_b_mma=padded["conv_b"].contiguous(), out_b_mma=padded["out_b"].contiguous(),
-            cond_w_cat=padded["cond_w"].permute(1, 0, 2).reshape(Hc, L * Cp).contiguous(),
-            cond_b_cat=padded["cond_b"].reshape(L * Cp).contiguous())
+    Cp = kernel_width(C)
+    padded = pad_denoiser_width(out, Cp)
+    Hc = padded["cond_w"].shape[1]
+    out.update(
+        conv_w_mma=_pack(padded["conv_w"].reshape(L, 3 * Cp, 2 * Cp)),
+        out_w_mma=_pack(padded["out_w"]),
+        conv_b_mma=padded["conv_b"].contiguous(), out_b_mma=padded["out_b"].contiguous(),
+        cond_w_cat=padded["cond_w"].permute(1, 0, 2).reshape(Hc, L * Cp).contiguous(),
+        cond_b_cat=padded["cond_b"].reshape(L * Cp).contiguous())
     return out
 
 
@@ -264,6 +272,8 @@ def _library():
     lib.denoiser_stack_bf16.restype = ctypes.c_int
     lib.denoiser_stack_bf16.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                                         + [ctypes.c_void_p] * 2)
+    lib.denoiser_stack_wide_bf16.restype = ctypes.c_int
+    lib.denoiser_stack_wide_bf16.argtypes = lib.denoiser_stack_bf16.argtypes
     return lib
 
 
@@ -275,7 +285,6 @@ def _check(x, cond, step_emb, stacked, spk_proj=None):
     L = stacked["conv_w"].shape[0]
     want = {"conv_w": (L, 3, C, 2 * C), "conv_b": (L, 2 * C),
             "out_w": (L, C, 2 * C), "out_b": (L, 2 * C)}
-    kernel_width(C)   # raises above the widest the kernel takes
     tensors = {"x": x, "cond": cond, "step_emb": step_emb,
                **{k: stacked[k] for k in want}}
     if spk_proj is not None:
@@ -301,7 +310,8 @@ def _check(x, cond, step_emb, stacked, spk_proj=None):
 def _launch(x, cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
     """Run csrc/denoiser_stack.cu on CUDA tensors with bf16 operands, at
     the kernel's width Cp (`kernel_width`: x, the step and conditioner
-    projections with zero channels above C, the outputs cut back to C);
+    projections with zero channels above C, the outputs cut back to C;
+    above 512 the wide route, `is_wide`);
     fp32 weights are cast (`denoiser_kernel_weights`) for this call, and the
     hoisted projections are rounded to `dtype`, the activations' type.
     Returns (x_final, skip_sum, launches)."""
@@ -340,13 +350,19 @@ def _launch(x, cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
         x_out = torch.empty_like(xp)
         skip = torch.empty_like(xp)
         scratch = torch.empty_like(xp)
-        halo = torch.empty(B * -(-T // 64) * 4 * Cp, dtype=torch.int64, device=x.device)
+        tiles = -(-T // 64)
+        if is_wide(Cp):   # g of a layer, [B, tiles, Cp / 8, 64, 8] bf16
+            run = lib.denoiser_stack_wide_bf16
+            buf = torch.empty(B * tiles * 64 * Cp, dtype=torch.bfloat16, device=x.device)
+        else:             # the tiles' tagged edge rows, [B, tiles, 4, Cp]
+            run = lib.denoiser_stack_bf16
+            buf = torch.empty(B * tiles * 4 * Cp, dtype=torch.int64, device=x.device)
         launches = ctypes.c_int(0)
-        err = lib.denoiser_stack_bf16(
+        err = run(
             xp.data_ptr(), condp.data_ptr(), step_proj.data_ptr(),
             stacked["conv_w_mma"].data_ptr(), stacked["conv_b_mma"].data_ptr(),
             stacked["out_w_mma"].data_ptr(), stacked["out_b_mma"].data_ptr(),
-            x_out.data_ptr(), skip.data_ptr(), scratch.data_ptr(), halo.data_ptr(),
+            x_out.data_ptr(), skip.data_ptr(), scratch.data_ptr(), buf.data_ptr(),
             B, T, Cp, L, torch.cuda.current_stream().cuda_stream, ctypes.addressof(launches))
         cuda_build.check(lib, "denoiser_stack", err)
     return x_out[..., :C].contiguous(), skip[..., :C].contiguous(), launches.value
@@ -354,7 +370,8 @@ def _launch(x, cond, step_emb, stacked, spk_proj=None, dtype=torch.float32):
 
 def launch_shape(B, T, C):
     """(CTAs of the whole grid, CTAs per cluster, clusters the device holds
-    at once) of the CUDA kernel at B, T and width C (run at `kernel_width`)."""
+    at once) of the CUDA kernel at B, T and width C (run at `kernel_width`;
+    above 512 the wide route's conv launch, clusters of one CTA)."""
     C = kernel_width(C)
     lib = _library()
     lib.denoiser_stack_cluster_size.restype = ctypes.c_int
@@ -365,7 +382,7 @@ def launch_shape(B, T, C):
     n = ctypes.c_int(0)
     cuda_build.check(lib, "denoiser_stack",
                      lib.denoiser_stack_max_active_clusters(C, ctypes.addressof(n)))
-    return B * -(-T // 64) * cluster, cluster, n.value
+    return B * -(-T // 64) * (C // GROUP), cluster, n.value
 
 
 def fused_residual_stack(x, cond, step_emb, stacked, spk_proj=None):
@@ -376,12 +393,12 @@ def fused_residual_stack(x, cond, step_emb, stacked, spk_proj=None):
     [B, T, C]) in x's type.  Activations are fp32, or bf16 (upcast exactly,
     the projections rounded to bf16).
 
-    CUDA tensors run the hand-written bf16 tensor-core kernel (any C <=
-    512, at `kernel_width`; fp32 weights are cast per call) and add the number of kernel
+    CUDA tensors run the hand-written bf16 tensor-core kernel (any C, at
+    `kernel_width`; fp32 weights are cast per call) and add the number of kernel
     launches (one for all the layers, a few for a batch larger than the
-    card holds at once, one per layer for a sequence too long for that) to
-    `fused_residual_stack.launches`; CPU tensors run the plain version in
-    the weights' type."""
+    card holds at once, one per layer for a sequence too long for that, two
+    per layer above 512) to `fused_residual_stack.launches`; CPU tensors run
+    the plain version in the weights' type."""
     if x.device.type == "cpu":
         return fused_residual_stack_plain(x, cond, step_emb, stacked, spk_proj)
     if x.device.type != "cuda":

@@ -47,10 +47,12 @@ back to C.  The zero channels are exact: leaky_relu(0) = 0,
 and zero weights and biases keep them zero and add nothing to the fp32 sums
 of the real channels.  The weights are padded once, in `kernel_weights`
 (the keys the kernel reads: `w1_mma`, `w2_mma`, `b1_mma`, `b2_mma`); x
-comes at Cp per call.  Wider than 512 raises, naming the limit.  The
-whole-stage kernel (`mrf_stack_streamed`) runs 128 < C <= 256 at 256 and
-256 < C <= 512 at 512 (`streamed_width`); at 512 a schedule whose tile does
-not fit a block's shared memory raises (`streamed_plan`).
+comes at Cp per call.  Wider than 512 raises, naming the limit: the TPU
+kernels keep a stage's stacked weights [n_br, n_pair, 11, C, C] resident,
+138 MB of bf16 for one branch at C = 1024, which no TPU core holds, so no
+TPU kernel takes such a stage.  The whole-stage kernel
+(`mrf_stack_streamed`) runs 128 < C <= 256 at 256 and 256 < C <= 512 at
+512 (`streamed_width`), every schedule within the halo (`streamed_plan`).
 """
 
 import contextlib
@@ -461,20 +463,24 @@ def streamed_plan(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cu
     `streamed_width(C)`) on `device`: `tile` (frames per cluster, the fewest
     that put every cluster on the card at once), `resident` (clusters the
     card holds at once), `slab` (floats of device memory for the CTAs' y),
-    `smem` (bytes of shared memory per CTA), `cluster` (CTAs per cluster)
-    and `rows` (rows a pass: 64 per warpgroup that fits).  Raises where the
-    kernel does not take the schedule, or no pass of it fits a block's
-    shared memory."""
+    `smem` (bytes of shared memory per CTA), `cluster` (CTAs per cluster),
+    `rows` (rows a pass: 64 per warpgroup that fits), `stages` (of the
+    weight ring: 4, or 2 where y is updated out of place) and `pingpong` (1
+    where y is updated out of place, in two slabs: at 512 where the
+    in-place plan does not fit, as past a conv1 reach of 43 frames).  Every
+    schedule within the halo has a plan (the arithmetic is in the source's
+    header); raises where the kernel does not take the schedule."""
     Cp = streamed_width(C)
     kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
-    plan = (ctypes.c_int * 6)()
+    plan = (ctypes.c_int * 8)()
     lib = _streamed_lib()
     with torch.cuda.device(device):
         err = lib.mrf_stack_streamed_plan(B, T, Cp, len(kernel_sizes), len(dilations),
                                           _int_array(kernel_sizes), _int_array(dilations),
                                           ctypes.cast(plan, ctypes.c_void_p))
     cuda_build.check(lib, "mrf_stack_streamed", err)
-    plan = dict(zip(("tile", "resident", "slab", "smem", "cluster", "rows"), plan))
+    plan = dict(zip(("tile", "resident", "slab", "smem", "cluster", "rows", "stages",
+                     "pingpong"), plan))
     if not plan["rows"]:
         reach = max((k // 2) * d for k in kernel_sizes for d in dilations)
         raise ValueError(

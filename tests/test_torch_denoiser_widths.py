@@ -1,25 +1,28 @@
 """The denoiser stack at the widths the CUDA kernel is not built for.
 
 The CUDA kernel runs C in {64, 128, 256, 512}; `ops.denoiser_stack` runs any
-C <= 512 at the next of them, Cp, with zero channels above C
-(`pad_denoiser_width`, `pad_channels`), and cuts the outputs back to C.
-What the card computes is the plain layers (`residual_layers_plain`) on
-those padded tensors: the weights it reads padded once, the step
-projections and the speaker term projected at C and padded per call, as
-`_launch` pads them (`padded_stack` below).  These cases hold that, here on
-the CPU:
+C <= 512 at the next of them, Cp, and any wider C on its wide route (two
+launches a layer) at the next multiple of 64, with zero channels above C
+(`kernel_width`, `pad_denoiser_width`, `pad_channels`), and cuts the
+outputs back to C.  What the card computes is the plain layers
+(`residual_layers_plain`) on those padded tensors: the weights it reads
+padded once, the step projections and the speaker term projected at C and
+padded per call, as `_launch` pads them (`padded_stack` below).  These
+cases hold that, here on the CPU:
 
 - padded and cut back, the layers equal the unpadded stack within
   1e-6 of max|unpadded| (the same fp32 sums plus zero terms, which a
   convolution of another width may add in another order), with and
-  without a speaker term, and the channels above C stay exactly zero;
+  without a speaker term, and the channels above C stay exactly zero,
+  up to the wide route's 544 and 768;
 - each half of the 2C weight axes (gate | filter, residual | skip) and
   each layer's block of the conditioner projection is padded on its own;
 - at C = 16 (the tiny test configs' width) the padded stack against JAX's
   `fused_residual_stack` in interpret mode: fp32 at the pinned 2e-5
   (test_pallas.py), bf16 operands at the MRF's bf16 bar
   (test_torch_kernels.py);
-- above 512 the kernel's width raises, naming the limit.
+- the width rule: the next kernel width up to 512, the next multiple of 64
+  above, and `_check` takes every width.
 """
 
 import jax.numpy as jnp
@@ -60,14 +63,16 @@ def padded_stack(x, cond, step, st, Cp, spk=None):
 
 
 @pytest.mark.parametrize("speaker", [False, True], ids=["one_speaker", "multi_speaker"])
-@pytest.mark.parametrize("C", [16, 48, 80, 200, 288, 512])
+@pytest.mark.parametrize("C", [16, 48, 80, 200, 288, 512, 544, 768])
 def test_padded_stack_equals_unpadded(C, speaker):
-    B, T, L, Hc, H = 2, 70, 3, 24, 12
+    B, T, Hc, H = 2, 70, 24, 12
+    L = 2 if tden.is_wide(C) else 3
     st, t = numpy_stack(L, C, Hc, H, seed=C, speaker=speaker)
     x, cond, step = t(B, T, C), t(B, T, Hc), t(B, C)
     spk = tden.speaker_projections(t(B, H), st) if speaker else None
     Cp = tden.kernel_width(C)
-    assert Cp == min(w for w in (64, 128, 256, 512) if w >= C)
+    assert Cp == (min(w for w in (64, 128, 256, 512) if w >= C) if C <= 512
+                  else -(-C // 64) * 64)
     got = padded_stack(x, cond, step, st, Cp, spk)
     want = tden.fused_residual_stack_plain(x, cond, step, st, spk)
     for g, w in zip(got, want):
@@ -125,11 +130,17 @@ def test_padded_stack_matches_pallas_at_c16(dtype):
 
 
 def test_kernel_width_names_its_limit():
+    """Up to 512 the next of the kernel's widths; above, the wide route at
+    the next multiple of 64, at any width: nothing raises for width."""
     assert [tden.kernel_width(c) for c in (1, 16, 64, 65, 128, 129, 256, 257, 512)] == [
         64, 64, 64, 128, 128, 256, 256, 512, 512]
-    with pytest.raises(ValueError, match="C <= 512"):
-        tden.kernel_width(513)
-    x = torch.zeros(1, 8, 544, device="meta")
-    with pytest.raises(ValueError, match="C <= 512"):
-        tden._check(x, torch.zeros(1, 8, 4, device="meta"), torch.zeros(1, 544, device="meta"),
-                    {"conv_w": torch.zeros(1, 3, 544, 1088)})
+    assert [tden.kernel_width(c) for c in (513, 544, 1000, 2048)] == [576, 576, 1024, 2048]
+    assert [tden.is_wide(c) for c in (512, 513, 2048)] == [False, True, True]
+    for C in (544, 1000, 2048):
+        x = torch.zeros(1, 8, C, device="meta")
+        st = {"conv_w": torch.zeros(1, 3, C, 2 * C, device="meta"),
+              "conv_b": torch.zeros(1, 2 * C, device="meta"),
+              "out_w": torch.zeros(1, C, 2 * C, device="meta"),
+              "out_b": torch.zeros(1, 2 * C, device="meta")}
+        tden._check(x, torch.zeros(1, 8, 4, device="meta"), torch.zeros(1, C, device="meta"),
+                    st)

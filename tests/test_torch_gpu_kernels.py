@@ -18,13 +18,15 @@ and g) where the two sums straddle a rounding boundary.  The denoiser
 kernel with a multi-speaker model's speaker term (in its conditioner
 projection) is held to the same bar, and so is every width C <= 512 (the
 kernel runs at the next of 64, 128, 256 and 512 with zero channels above
-C), and every MRF width C <= 512 (at the next of 32, 64, 128, 256 and 512;
+C) and above (the wide route, two launches a layer, at the next multiple of
+64; the plain version never runs on CUDA), and every MRF width C <= 512 (at the next of 32, 64, 128, 256 and 512;
 at 512 two launches a pair): HiFi-GAN V2's stages, HiFi-GAN V1 at
 `upsample_initial_channel` 1024, and the dryrun's synthesis at the JAX
 dryrun's widths, launch the kernels.  The MRF kernels take the TPU kernels'
 shapes: every odd kernel size up to 11, any number of branches and pairs,
 and every dilation schedule within the 64-frame halo (the whole-stage
-kernel at 128 < C <= 512, run at 256 or 512).  Fed bf16 activations (a model
+kernel at 128 < C <= 512, run at 256 or 512, up to the widest conv1 reach,
+63 frames).  Fed bf16 activations (a model
 computing in bf16), the kernels upcast them exactly and must give the same
 bits as when fed that fp32 upcast, rounded to bf16.
 """
@@ -159,16 +161,21 @@ def test_denoiser_kernel_with_speaker_term_matches_plain(cuda, B, T):
 
 @pytest.mark.parametrize("speaker", [False, True], ids=["one_speaker", "multi_speaker"])
 @pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("C", [16, 32, 48, 64, 80, 192, 256, 288, 384, 512])
+@pytest.mark.parametrize("C", [16, 32, 48, 64, 80, 192, 256, 288, 384, 512,
+                               544, 768, 1024, 2048])
 def test_denoiser_kernel_at_every_width(cuda, C, B, speaker):
     """Every C <= 512 runs the kernel, at the next of 64, 128, 256 and 512
-    with zero channels above C (`kernel_width`), and matches its plain
-    version at C; the launch count rises."""
-    x, cond, step, stacked = denoiser_inputs(B, 300, C=C, Hc=64, seed=C + B)
+    with zero channels above C (`kernel_width`), every wider C the wide
+    route (4 layers at T = 150 here: 8 launches), and matches its plain
+    version at C; the launch count rises, and a second run gives the same
+    bits."""
+    wide = denoiser_stack.is_wide(C)
+    L, T = (4, 150) if wide else (20, 300)
+    x, cond, step, stacked = denoiser_inputs(B, T, C=C, Hc=64, L=L, seed=C + B)
     spk = None
     if speaker:
         r = np.random.RandomState(C)
-        stacked["spk_w"] = torch.tensor(r.randn(20, 64, C) * 64 ** -0.5, dtype=torch.float32,
+        stacked["spk_w"] = torch.tensor(r.randn(L, 64, C) * 64 ** -0.5, dtype=torch.float32,
                                         device=cuda)
     kw = denoiser_kernel_weights(stacked)
     if speaker:
@@ -176,10 +183,47 @@ def test_denoiser_kernel_at_every_width(cuda, C, B, speaker):
     n0 = fused_residual_stack.launches
     got = fused_residual_stack(x, cond, step, kw, spk)
     torch.cuda.synchronize()
-    assert fused_residual_stack.launches > n0
+    launched = fused_residual_stack.launches - n0
+    assert launched == 2 * L if wide else launched > 0
+    again = fused_residual_stack(x, cond, step, kw, spk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     for a, b in zip(got, fused_residual_stack_plain(x, cond, step, kw, spk)):
-        assert a.shape == (B, 300, C)
+        assert a.shape == (B, T, C)
         assert_close(a, b, BF16_TOL)
+
+
+def test_wide_denoiser_never_runs_the_plain_version(cuda, monkeypatch):
+    """A `Denoiser` with residual_channels 768 runs inference on the wide
+    route: with the plain layers and the block path made to raise, the
+    kernel's launch count rises by two a layer, and the output matches the
+    same module's bf16 plain stack on the CPU."""
+    torch.manual_seed(0)
+    den = Denoiser(n_mels=20, d_encoder=32, residual_channels=768, residual_layers=3).to(cuda)
+    with torch.no_grad():
+        den.output_projection.conv.weight.normal_(0, 0.1)
+    r = np.random.RandomState(768)
+    x_t = torch.tensor(r.randn(1, 200, 20), dtype=torch.float32)
+    t = torch.tensor([2])
+    cond = torch.tensor(r.randn(1, 200, 32), dtype=torch.float32)
+    cpu = Denoiser(n_mels=20, d_encoder=32, residual_channels=768, residual_layers=3)
+    cpu.load_state_dict({k: v.cpu() for k, v in den.state_dict().items()})
+    cpu.stack_dtype = torch.bfloat16
+    with torch.no_grad():
+        want = cpu(x_t, t, cond)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA")
+
+    for name in ("fused_residual_stack_plain", "residual_layers_plain", "_layers",
+                 "_layers_bf16"):
+        monkeypatch.setattr(denoiser_stack, name, refuse)
+    monkeypatch.setattr(type(den.residual_layers[0]), "forward", refuse)
+    n0 = fused_residual_stack.launches
+    with torch.no_grad():
+        got = den(x_t.to(cuda), t.to(cuda), cond.to(cuda))
+        torch.cuda.synchronize()
+    assert fused_residual_stack.launches - n0 == 6
+    assert_close(got.cpu(), want, BF16_TOL)
 
 
 def test_denoiser_of_width_16_runs_the_kernel(cuda):
@@ -501,14 +545,44 @@ def test_mrf_stack_streamed_kernel_at_every_shape(cuda, C, kernel_sizes, dilatio
 
 def test_mrf_stack_streamed_plans_every_schedule(cuda):
     """At 256 the widest reach runs passes of two warpgroups; at 512, V1's
-    schedule runs passes of one, and the widest reach fits no pass: the
-    plan names the limit."""
+    schedule runs passes of one with y in place behind four ring stages,
+    and the widest reach (63 frames) passes of one with y out of place
+    behind two, and runs."""
     assert streamed_plan(1, 8000)["rows"] == 192
     assert streamed_plan(1, 8000, (3,), (63,))["rows"] == 128
     plan = streamed_plan(1, 8000, C=512)
-    assert (plan["rows"], plan["cluster"]) == (64, 8) and plan["smem"] <= 232448
-    with pytest.raises(ValueError, match="the card holds 232448"):
-        streamed_plan(1, 8000, (3,), (63,), C=512)
+    assert (plan["rows"], plan["cluster"], plan["stages"], plan["pingpong"]) == (64, 8, 4, 0)
+    assert plan["smem"] <= 232448
+    plan = streamed_plan(1, 8000, (3,), (63,), C=512)
+    assert (plan["rows"], plan["stages"], plan["pingpong"]) == (64, 2, 1)
+    assert plan["smem"] == 227456
+    x = torch.randn(1, 8000, 512, device=cuda, generator=torch.Generator(cuda).manual_seed(63))
+    st = kernel_weights(mrf_weights(512, (3,), n_pair=1), (3,))
+    n0 = mrf_stack_streamed.launches
+    got = mrf_stack_streamed(x, st, (3,), (63,))
+    torch.cuda.synchronize()
+    assert mrf_stack_streamed.launches == n0 + 1
+    assert_close(got, mrf_stack_plain(x, st, (3,), (63,)), BF16_TOL)
+
+
+# every single pair at the halo's edge, (k // 2) * (d + 1) <= 64 (conv1
+# reaches 63, 62, 60, 60 and 55 frames), and at a reach of 44, one past the
+# in-place plan's limit at 512
+REACH_PAIRS = [(3, 63), (5, 31), (7, 20), (9, 15), (11, 11), (3, 44), (5, 22), (9, 11)]
+
+
+@pytest.mark.parametrize("C", [288, 512])
+@pytest.mark.parametrize("k,d", REACH_PAIRS)
+def test_mrf_stack_streamed_at_the_widest_reaches(cuda, C, k, d):
+    """The whole-stage kernel at 512 (288 runs there too) takes every
+    single-pair schedule the halo admits, in one launch."""
+    x = torch.randn(2, 1000, C, device=cuda, generator=torch.Generator(cuda).manual_seed(k * d))
+    st = kernel_weights(mrf_weights(C, (k,), n_pair=1), (k,))
+    n0 = mrf_stack_streamed.launches
+    got = mrf_stack_streamed(x, st, (k,), (d,))
+    torch.cuda.synchronize()
+    assert mrf_stack_streamed.launches == n0 + 1
+    assert_close(got, mrf_stack_plain(x, st, (k,), (d,)), BF16_TOL)
 
 
 def test_hifigan_v1_1024_runs_the_wide_kernel(cuda):
@@ -546,8 +620,9 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         fused_residual_stack(x, cond, step, dict(stacked, conv_w=stacked["conv_w"].half()))
     with pytest.raises(ValueError, match="on cuda"):
         fused_residual_stack(x, cond.cpu(), step, stacked)
-    with pytest.raises(ValueError, match="C <= 512"):   # every narrower width runs
-        fused_residual_stack(*denoiser_inputs(1, 64, C=544, Hc=64, L=2))
+    n0 = fused_residual_stack.launches   # every width runs: 544 on the wide route
+    fused_residual_stack(*denoiser_inputs(1, 64, C=544, Hc=64, L=2))
+    assert fused_residual_stack.launches - n0 == 4
     kw = denoiser_kernel_weights(stacked)
     with pytest.raises(ValueError, match="denoiser_kernel_weights"):
         fused_residual_stack(x, cond, step, dict(kw, out_w_mma=kw["out_w_mma"].float()))

@@ -66,10 +66,12 @@ def test_relative_fft_block_matches_flax(L):
     assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
-def test_denoiser_matches_flax():
+@pytest.mark.parametrize("C,L", [(16, 3), (544, 2)])
+def test_denoiser_matches_flax(C, L):
     """The denoiser module, whose residual stack is kernel 1 (its plain
-    version on CPU tensors), against the flax layer-by-layer path."""
-    B, T, M, Hc, C, L = 2, 23, 20, 24, 16, 3
+    version on CPU tensors), against the flax layer-by-layer path; 544 is
+    a width the CUDA kernel runs on its wide route."""
+    B, T, M, Hc = 2, 23, 20, 24
     r = np.random.RandomState(0)
     x_t = r.randn(B, T, M).astype(np.float32)
     steps = np.array([0, 3])

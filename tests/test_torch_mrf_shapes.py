@@ -116,6 +116,11 @@ def test_mrf_stack_shapes_match_pallas(kernel_sizes, dilations, T, arithmetic):
 
 FOLDED = [0, 3, 6, 8]      # SHAPES indices: k1-11, and three halo edges
 STREAMED = [2, 4, 5, 9]
+# the whole-stage kernel's widest conv1 reaches, (k // 2) * d of 63, 62, 55
+# and 62 (creeps 64, 64, 60 and 64, 32): the plans that run y out of place
+REACH_EDGES = [((3,), (63,), 160), ((5,), (31,), 160), ((11,), (11,), 160),
+               ((5, 3), (31,), 160)]
+REACH_IDS = ["k3-d63", "k5-d31", "k11-d11", "k5,3-d31"]
 
 
 @pytest.mark.parametrize("arithmetic", ARITHMETIC)
@@ -139,8 +144,8 @@ def test_mrf_stack_folded_shapes_match_pallas(kernel_sizes, dilations, T, arithm
 
 
 @pytest.mark.parametrize("arithmetic", ARITHMETIC)
-@pytest.mark.parametrize("kernel_sizes,dilations,T", [SHAPES[i] for i in STREAMED],
-                         ids=[SHAPE_IDS[i] for i in STREAMED])
+@pytest.mark.parametrize("kernel_sizes,dilations,T", [SHAPES[i] for i in STREAMED] + REACH_EDGES,
+                         ids=[SHAPE_IDS[i] for i in STREAMED] + REACH_IDS)
 def test_mrf_stack_streamed_shapes_match_pallas(kernel_sizes, dilations, T, arithmetic):
     """The whole-stage entry point at C = 144 (run at 256 on the card)
     against the TPU's streamed kernel, tiles of 48 frames."""
