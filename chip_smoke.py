@@ -21,9 +21,11 @@ prints no result line):
    per source, all started together) and print ptxas's registers, shared
    memory and spills per kernel; count the tensor-core instructions
    (`HGMMA`) in each kernel's SASS (`cuobjdump -sass`): every kernel (the
-   denoiser's, the MRF's and the whole-stage MRF kernel's) must hold them
-   and spill nothing; print the clusters each cluster kernel holds
-   resident at once, and the whole-stage kernel's plan at phase 7's shapes;
+   denoiser's, the MRF's, the whole-stage MRF kernel's and the narrow
+   stages' kernel's) must hold them and spill nothing; print the clusters
+   each cluster kernel holds resident at once, the whole-stage kernel's
+   plan at phase 7's shapes, and the narrow stages' kernel's plan at
+   HiFi-GAN V2's C = 16 and 8 stages;
 2. turn TF32 off for cuDNN convolutions and matmuls (matmul precision
    "highest"), so the plain versions run without TF32, and seed;
 3. hold each kernel against its plain PyTorch version at the main path's
@@ -216,18 +218,22 @@ phase 9's weights; every serving kernel must launch;
    with injected noise, each MRF kernel against its plain version at the
    stages of that request's frame bucket, and the denoiser's stack there
    against its plain version, timed;
-19. the kernels' widths: (a) the MRF kernel against its bf16 plain version
-   at every C in MRF_WIDTHS (run at 32, 64, 128 or 256 with zero channels
-   above C), B in {1, 4}: the whole three-branch stage up to 128 (the
-   folded entry point where `fused_apply` takes it), one branch a call
-   above, the launch count rising at each call; (b) HiFi-GAN V2 (V2_CONFIG,
-   jik876/hifi-gan's config_v2.json: stages 64, 32, 16, 8) from a seed,
-   through `get_vocoder` on a directory holding its config.json, vocoding
-   phase 4's acoustic model: a B=1 request at bucket 1000 must launch the
-   denoiser once, the folded MRF kernel 36 times and `mrf_stack` none; a
-   small request against the CPU at phase 5's bars; its latency beside
-   V1's; its MRF time per request beside V1's and beside the bounds of its
-   unpadded and padded work; (c) `dryrun_multigpu(2)` at the JAX dryrun's
+19. the kernels' widths: (a) the MRF kernels against their bf16 plain
+   version at every C in MRF_WIDTHS (run at 8, 16, 32, 64, 128 or 256 with
+   zero channels above C; the whole stage in one launch of
+   `csrc/mrf_stage_narrow.cu` up to 16), B in {1, 4}: the whole
+   three-branch stage up to 128 (the folded entry point where `fused_apply`
+   takes it), one branch a call above, the launch count rising at each call
+   by what the route launches; (b) HiFi-GAN V2 (V2_CONFIG, jik876/hifi-gan's
+   config_v2.json: stages 64, 32, 16, 8) from a seed, through `get_vocoder`
+   on a directory holding its config.json, vocoding phase 4's acoustic
+   model: a B=1 request at bucket 1000 must launch the denoiser once, the
+   folded entry point 20 times (the pair kernel 9 times at each of 64 and
+   32, the narrow stages' kernel once at each of 16 and 8: `narrow_stage` 2)
+   and `mrf_stack` none; a small request against the CPU at phase 5's bars;
+   its latency beside V1's; each stage's MRF against its plain version and
+   timed, the request's MRF time beside V1's and beside the bound of its
+   work; (c) `dryrun_multigpu(2)` at the JAX dryrun's
    widths (denoiser 8, vocoder stages 8 and 4): rank 0's synthesis must
    launch the denoiser and the folded MRF kernel; (d) the denoiser kernel
    against its plain version at C in WIDE_WIDTHS (run at 512 in clusters of
@@ -245,7 +251,8 @@ phase 9's weights; every serving kernel must launch;
    (run at 512, two launches a pair), one branch a call; `mrf_stack` at
    MRF_SHAPES (k in {1, 5, 9}, schedules at the halo's edge, the widest
    conv1 reach) at MRF_SHAPE_WIDTHS; the folded entry point at those
-   shapes (C = 64 and 16); `mrf_stack_streamed` at STREAMED_WIDTHS (run at
+   shapes (C = 64 on the pair kernel, C = 16 on the narrow stages' kernel,
+   one launch); `mrf_stack_streamed` at STREAMED_WIDTHS (run at
    256 and 512, clusters of 4 and 8) and STREAMED_SHAPES, up to the widest
    conv1 reach; and the whole-stage kernel's plan at each; (b) HiFi-GAN V1 at
    `upsample_initial_channel` 1024 (V1_1024_CONFIG: stages 512, 256, 128,
@@ -263,14 +270,17 @@ The line before the last is {"kernels": [...]} (per kernel: launches in
 phase 4 plus phase 16's replicas and train CLI ranks and phase 17's and
 phase 18 (c)'s requests, or phase 7 for `mrf_stack_streamed`, or phase
 18 (c) for the denoiser at C = 16, or phase 19 (b)'s request for V2's
-folded MRF, or phase 19 (d)'s checks for the denoiser at C = 512, or
+folded MRF on the pair kernel (`mrf_stack_folded_v2`: C = 64 and 32) and on
+the narrow stages' kernel (`mrf_stage_narrow`: C = 16 and 8), or phase 19
+(d)'s checks for the denoiser at C = 512, or
 phase 19 (e)'s request for the denoiser above 512, or
 phase 20 (b)'s request for `mrf_stack_c512` (every `mrf_stack` launch of
 the 1024 vocoder's request), or phase 20 (a)'s checks for
 `mrf_stack_shapes` and `mrf_stack_streamed_c512`; max error in phase 3, 7,
 18, 19 or 20; and the time, plain time and bound of one B=1 request at
-frame bucket 1000, or of phase 18 (c)'s stack, or of V2's MRF calls in one
-request at bucket 1000, or of the C = 512 and C = 1024 stacks at B=1,
+frame bucket 1000, or of phase 18 (c)'s stack, or of V2's MRF calls of
+each kernel in one request at bucket 1000, or of the C = 512 and C = 1024
+stacks at B=1,
 T=1000, or of the
 512-wide MRF stage at B=1, T=8000 (`mrf_stack_c512`,
 `mrf_stack_streamed_c512`), or of k = (1, 5, 9) at C = 256, B=1, T=8000
@@ -294,7 +304,7 @@ BF16_TOL = 4e-3             # the bf16 kernels against their bf16 plain versions
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 DURATION_FRAMES = 8.0       # frames per phone the random duration predictor is biased to
 KERNELS = ("residual_stack_mma", "wide_conv_gate", "wide_out_proj", "mrf_pair_mma",
-           "mrf_wide_mma", "mrf_stage_streamed")   # __global__ names
+           "mrf_wide_mma", "mrf_stage_streamed", "mrf_stage_narrow")   # __global__ names
 STAGE_SHAPES = ((1, 8000), (4, 4096))   # V1's C=256 stage in a B=1 request at bucket 1000, B=4 at 512
 N_SPEAKERS = 218            # AISHELL3's speakers
 DEVICE = "cuda"             # the card every phase runs on
@@ -303,7 +313,9 @@ DEVICE = "cuda"             # the card every phase runs on
 REQUEST_LAUNCHES = {(1, 1000): (1, 18, 18), (4, 512): (2, 18, 18)}
 NARROW_WIDTHS = (16, 32, 48, 64, 80, 192, 256)   # phase 18 (a): the denoiser kernel's widths
 HORIZON_STEPS = (50, 25)    # phase 18 (b): aux steps, then shallow steps from the aux checkpoint
-MRF_WIDTHS = (4, 8, 16, 24, 48, 72, 96, 144, 200)   # phase 19 (a): the MRF kernel's widths
+MRF_WIDTHS = (4, 8, 16, 24, 48, 72, 96, 144, 200)   # phase 19 (a): the MRF kernels' widths
+V2_LAUNCHES = (1, 0, 20)   # phase 19 (b): a V2 request's (denoiser, mrf_stack, mrf_stack_folded)
+V2_NARROW = ((16, 128000), (8, 256000))   # V2's stages on the narrow kernel at bucket 1000
 WIDE_WIDTHS = (288, 384, 512, 544, 768, 1024, 2048)  # phase 19 (d): the denoiser above 256
 WIDE_TIMED = (768, 1024, 2048)   # phase 19 (d): the wide route's widths timed at B=1, T=1000
 WIDE_MODEL_CHANNELS = 1024       # phase 19 (e): the acoustic model's residual_channels
@@ -476,6 +488,21 @@ def build_kernels():
         mma = {fn: n for fn, n in hgmma.items() if fn.startswith(KERNELS)}
         if not mma or not all(mma.values()):
             raise AssertionError(f"the tensor-core kernel's SASS holds no HGMMA: {hgmma}")
+        if name == "mrf_stage_narrow":
+            from mixgantts_tpu_torch.ops import mrf
+            for C, T in V2_NARROW + ((16, 65536), (8, 131072)):   # B=1 at 1000, B=4 at 512
+                B = 1 if T in (128000, 256000) else 4
+                plan = mrf.narrow_plan(B, T, C=C)
+                log(f"  mrf_stage_narrow<{C}> at B={B} T={T}: tile {plan['tile']} frames "
+                    f"(halo {plan['lead']} a side), {plan['blocks']} blocks, {plan['resident']} "
+                    f"resident at once, passes of {plan['rows']} rows, {plan['smem']} B of "
+                    f"shared memory per block")
+            for C in mrf.NARROW_WIDTHS:
+                for ks, ds in (((3, 7, 11), (1, 3, 5)), ((3,), (63,)), ((11,), (2, 3, 4))):
+                    smem, tile = mrf.narrow_smem_bytes(C, ks, ds)
+                    log(f"  mrf_stage_narrow<{C}> k={ks} d={ds}: at most {tile} frames a "
+                        f"block, {smem} B of shared memory")
+            continue
         if name == "mrf_stack_streamed":
             from mixgantts_tpu_torch.ops import mrf
             for C in mrf.STREAMED_WIDTHS:
@@ -506,7 +533,7 @@ def build_kernels():
         else:
             from mixgantts_tpu_torch.ops import mrf
             smem.argtypes = [ctypes.c_int] * 3
-            for c in mrf.KERNEL_WIDTHS:
+            for c in mrf.PAIR_WIDTHS:
                 kernel = "mrf_wide_mma" if c > mrf.SPLIT else "mrf_pair_mma"
                 log(f"  {kernel}<{c}, k> shared memory per block at dilation 5 (and at the "
                     f"widest reach, k = 3 and d = 63), and output frames per block: " + ", ".join(
@@ -3168,11 +3195,13 @@ def horizon_phase(torch, records):
     log(f"[horizon] phase 18 took {time.perf_counter() - t_start:.1f} s")
 
 def mrf_widths(torch, records):
-    """Phase 19 (a): the MRF kernel against its bf16 plain version at every
-    C in MRF_WIDTHS (run at 32, 64, 128 or 256 with zero channels above C),
-    B in {1, 4}: the whole three-branch stage up to C = 128 (the folded
-    entry point where F = 128 / C divides the frames, as `fused_apply`
-    calls it), one branch a call above; each call's launch count must rise."""
+    """Phase 19 (a): the MRF kernels against their bf16 plain version at
+    every C in MRF_WIDTHS (run at 8, 16, 32, 64, 128 or 256 with zero
+    channels above C), B in {1, 4}: the whole three-branch stage up to
+    C = 128 (the folded entry point where F = 128 / C divides the frames, as
+    `fused_apply` calls it), one branch a call above; each call's launch
+    count must rise by what its route launches (`stage_launches`: one at
+    C <= 16, the narrow stages' kernel, whose error goes to its record)."""
     from mixgantts_tpu_torch.models.hifigan import stage_mode
     from mixgantts_tpu_torch.ops import mrf
     g = torch.Generator("cuda").manual_seed(19)
@@ -3194,12 +3223,14 @@ def mrf_widths(torch, records):
                     else:
                         got = fn(x, st, ks)
                     sync(torch)
-                    if fn.launches != n0 + 3 * len(ks):
+                    n = mrf.stage_launches(C, len(ks), 3)
+                    if fn.launches != n0 + n:
                         raise AssertionError(f"C={C} B={B}: {fn.__name__} launched "
-                                             f"{fn.launches - n0} times, want {3 * len(ks)}")
+                                             f"{fn.launches - n0} times, want {n}")
                     want = mrf.mrf_stack_plain(x, st, ks)
                 name = fn.__name__
-                records[name]["err"] = max(records[name]["err"], check_close(
+                rec = records["mrf_stage_narrow" if mrf.route(C) == "mrf_stage_narrow" else name]
+                rec["err"] = max(rec["err"], check_close(
                     f"{name} C={C} (at {mrf.kernel_width(C)}) B={B} T={T} k={ks} (bf16)",
                     got, want, BF16_TOL))
 
@@ -3222,14 +3253,18 @@ def hifigan_v2_phase(torch, pre, cfg, model, vocoder, records):
     """Phase 19 (b): HiFi-GAN V2 (V2_CONFIG) from a seed, as `get_vocoder`
     builds it from a `config.json` beside a checkpoint directory without
     weights, vocoding phase 4's acoustic model: a B=1 request at bucket
-    1000 (launches counted: the folded kernel at every stage, 36, and
-    `mrf_stack` none), a small request against the CPU at phase 5's bars,
-    its latency beside V1's, and the MRF time of one request at bucket
-    1000 beside V1's and beside the bounds of the padded and unpadded work."""
+    1000 (launches counted: V2_LAUNCHES, the folded entry point at every
+    stage and `mrf_stack` none, of them `narrow_stage`'s one at each V2_NARROW
+    stage), a small request against the CPU at phase 5's bars, its latency
+    beside V1's, and each MRF call of one request at bucket 1000 against its
+    plain version and timed, by kernel (the pair kernel at C = 64 and 32,
+    `mrf_stack_folded_v2`; the narrow stages' kernel at 16 and 8,
+    `mrf_stage_narrow`), beside the bound of each kernel's work and the
+    request's MRF time beside V1's."""
     from mixgantts_tpu_torch.models.vocoder import get_vocoder
     from mixgantts_tpu_torch.ops import mrf
     from mixgantts_tpu_torch.pipeline import TTSPipeline
-    rec = records["mrf_stack_folded_v2"]
+    rec, narrow_rec = records["mrf_stack_folded_v2"], records["mrf_stage_narrow"]
     with tempfile.TemporaryDirectory() as ckpt_dir:
         with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
             json.dump(V2_CONFIG, f)
@@ -3240,21 +3275,26 @@ def hifigan_v2_phase(torch, pre, cfg, model, vocoder, records):
         pipe = TTSPipeline(model, v2, pre, cfg)
         one = text_batch(1, 64, 24, seed=0)
         pipe(one)
+        mrf.narrow_stage.launches = 0
         (wavs, mel, lens), launches = counted(torch, lambda: pipe(one))
+        narrow = mrf.narrow_stage.launches
         log(f"  B=1 request at bucket {mel.shape[1]}: launches (denoiser, mrf_stack, "
-            f"mrf_stack_folded) {launches}, want (1, 0, 36); mel length {int(lens[0])}")
-        if launches != (1, 0, 36) or mel.shape[1] != 1000:
-            raise AssertionError(f"the V2 request launched {launches} at bucket {mel.shape[1]}")
+            f"mrf_stack_folded) {launches}, want {V2_LAUNCHES}; of them the narrow stages' "
+            f"kernel {narrow}, want {len(V2_NARROW)}; mel length {int(lens[0])}")
+        if launches != V2_LAUNCHES or narrow != len(V2_NARROW) or mel.shape[1] != 1000:
+            raise AssertionError(f"the V2 request launched {launches} ({narrow} narrow) at "
+                                 f"bucket {mel.shape[1]}")
         if not np_isfinite(mel) or len(wavs[0]) != int(lens[0]) * 256:
             raise AssertionError("the V2 request gave a bad output")
-        rec["launches"] = launches[2]
+        rec["launches"] = launches[2] - narrow
+        narrow_rec["launches"] = narrow
         cpu_reference(torch, pre, cfg, model, v2, label="v2", ckpt_dir=ckpt_dir)
     latency(torch, pipe, pre, one, None, tag="v2 latency")
     latency(torch, TTSPipeline(model, vocoder, pre, cfg), pre, one, None, tag="v1 latency")
     # the MRF calls of one request at bucket 1000, as in phase 6
     dils = gen.resblock_dilation_sizes[0]
     g = torch.Generator("cuda").manual_seed(20)
-    ms = plain = flops = flops_padded = nbytes = 0.0
+    work = {id(r): [0.0, 0.0, 0.0, 0.0] for r in (rec, narrow_rec)}   # ms, plain, FLOP, bytes
     with torch.no_grad():
         for stage, (C, T, call) in enumerate(mrf_calls(gen, gen.resblock_kernel_sizes, dils,
                                                         T_mel=1000)):
@@ -3262,25 +3302,32 @@ def hifigan_v2_phase(torch, pre, cfg, model, vocoder, records):
             for name, st, ks, run in call:
                 if name != "mrf_stack_folded":
                     raise AssertionError(f"V2 stage {stage} (C={C}) runs {name}")
-                rec["err"] = max(rec["err"], check_close(
-                    f"V2 stage {stage} C={C} (at {mrf.kernel_width(C)}) T={T} (bf16)", run(x),
-                    mrf.mrf_stack_plain(x, st, ks, dils), BF16_TOL))
+                r = narrow_rec if mrf.route(C) == "mrf_stage_narrow" else rec
+                r["err"] = max(r["err"], check_close(
+                    f"V2 stage {stage} C={C} (at {mrf.kernel_width(C)}, {mrf.route(C)}) T={T} "
+                    f"(bf16)", run(x), mrf.mrf_stack_plain(x, st, ks, dils), BF16_TOL))
                 warm_up(lambda: run(x))
                 t = time_ms(lambda: run(x), 10)
                 p = time_ms(lambda: mrf.mrf_stack_plain(x, st, ks, dils), 3)
                 f, b = mrf_work(1, T, C, ks, weight_bytes=2)
-                fp = mrf_work(1, T, mrf.kernel_width(C), ks, weight_bytes=2)[0]
-                log(f"  V2 stage {stage} C={C} T={T}: kernel {t:.4f} ms, plain (bf16) {p:.4f} "
-                    f"ms; {f / 1e9:.1f} GFLOP ({fp / 1e9:.1f} at the padded width)")
-                ms, plain, flops, flops_padded, nbytes = (
-                    ms + t, plain + p, flops + f, flops_padded + fp, nbytes + b)
-    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
-    bound_padded = bound_ms(flops_padded, nbytes, PEAK_BF16_FLOPS)[0]
+                log(f"  V2 stage {stage} C={C} T={T} ({mrf.route(C)}, "
+                    f"{mrf.stage_launches(C, len(ks), len(dils))} launch(es)): kernel {t:.4f} ms, "
+                    f"plain (bf16) {p:.4f} ms; {f / 1e9:.2f} GFLOP, {b / 1e6:.1f} MB, bound "
+                    f"{bound_ms(f, b, PEAK_BF16_FLOPS)[0]:.4f} ms")
+                w = work[id(r)]
+                w[:] = [w[0] + t, w[1] + p, w[2] + f, w[3] + b]
+    for r in (rec, narrow_rec):
+        ms, plain, flops, nbytes = work[id(r)]
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        r.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        log(f"  V2's MRF on {r['name']} per B=1 request at bucket 1000: {ms:.4f} ms, plain "
+            f"{plain:.4f} ms; bound {bound:.4f} ms at bf16 ({by}) for {flops / 1e9:.1f} GFLOP")
+    flops = sum(w[2] for w in work.values())
+    nbytes = sum(w[3] for w in work.values())
     v1 = records["mrf_stack"]["ms"] + records["mrf_stack_folded"]["ms"]
-    log(f"[v2] MRF per B=1 request at bucket 1000: {ms:.4f} ms (V1 {v1:.4f} ms in phase 6); "
-        f"bound {bound:.4f} ms at bf16 ({by}) for the unpadded {flops / 1e9:.1f} GFLOP, "
-        f"{bound_padded:.4f} ms for the padded {flops_padded / 1e9:.1f} GFLOP")
-    rec.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    log(f"[v2] MRF per B=1 request at bucket 1000: {rec['ms'] + narrow_rec['ms']:.4f} ms (V1 "
+        f"{v1:.4f} ms in phase 6); bound {bound_ms(flops, nbytes, PEAK_BF16_FLOPS)[0]:.4f} ms at "
+        f"bf16 for {flops / 1e9:.1f} GFLOP")
 
 
 def widths_phase(torch, pre, cfg, model, vocoder, records):
@@ -3381,12 +3428,14 @@ def mrf_shape_checks(torch, records):
     plain version at SHAPE_FRAMES, the launch counts rising at each call:
     `mrf_stack` above 256 (WIDE_MRF_WIDTHS, one branch a call, run at 512:
     two launches a pair), at MRF_SHAPES' kernel sizes and schedules at
-    MRF_SHAPE_WIDTHS, the folded entry point at those shapes (C = 64 and
-    16), and `mrf_stack_streamed` at STREAMED_WIDTHS and STREAMED_SHAPES."""
+    MRF_SHAPE_WIDTHS, the folded entry point at those shapes (C = 64 on the
+    pair kernel, C = 16 on the narrow stages' kernel, whose error goes to
+    its record), and `mrf_stack_streamed` at STREAMED_WIDTHS and
+    STREAMED_SHAPES."""
     from mixgantts_tpu_torch.ops import mrf
     g = torch.Generator("cuda").manual_seed(20)
-    wide, shapes, streamed = (records[n] for n in (
-        "mrf_stack_c512", "mrf_stack_shapes", "mrf_stack_streamed_c512"))
+    wide, shapes, streamed, narrow = (records[n] for n in (
+        "mrf_stack_c512", "mrf_stack_shapes", "mrf_stack_streamed_c512", "mrf_stage_narrow"))
     for B, T in SHAPE_FRAMES:
         for C in WIDE_MRF_WIDTHS:
             x = torch.randn(B, T, C, device="cuda", generator=g)
@@ -3407,11 +3456,12 @@ def mrf_shape_checks(torch, records):
             x = torch.randn(B, T, C, device="cuda", generator=g)
             for ks, ds in MRF_SHAPES:
                 st = dict(mrf.kernel_weights(random_mrf(torch, C, ks, g, len(ds)), ks), fold=fold)
-                mrf_checked(torch, shapes,
-                            f"mrf_stack_folded C={C} (F={fold}) B={B} T={T} k={ks} d={ds} (bf16)",
+                mrf_checked(torch, narrow if mrf.route(C) == "mrf_stage_narrow" else shapes,
+                            f"mrf_stack_folded C={C} (F={fold}, {mrf.route(C)}) B={B} T={T} "
+                            f"k={ks} d={ds} (bf16)",
                             mrf.mrf_stack_folded, lambda: mrf.mrf_stack_folded(
                                 x.reshape(B, T // fold, fold * C), st, ks, ds, prefolded=True),
-                            x, st, ks, ds, len(ks) * len(ds))
+                            x, st, ks, ds, mrf.stage_launches(C, len(ks), len(ds)))
         for C in STREAMED_WIDTHS:
             x = torch.randn(B, T, C, device="cuda", generator=g)
             for ks, ds in STREAMED_SHAPES:
@@ -3610,6 +3660,8 @@ def main():
                                             "mixgantts_tpu/ops/pallas.py:122"),
                "mrf_stack_folded_v2": ("mixgantts_tpu_torch/csrc/mrf_stack.cu",
                                        "mixgantts_tpu/ops/pallas_vocoder.py:303"),
+               "mrf_stage_narrow": ("mixgantts_tpu_torch/csrc/mrf_stage_narrow.cu",
+                                    "mixgantts_tpu/ops/pallas_vocoder.py:303"),
                "fused_residual_stack_c512": ("mixgantts_tpu_torch/csrc/denoiser_stack.cu",
                                              "mixgantts_tpu/ops/pallas.py:122"),
                "fused_residual_stack_wide": ("mixgantts_tpu_torch/csrc/denoiser_stack.cu",
@@ -3669,7 +3721,7 @@ def main():
     bench_phase(torch, pre, cfg, model, vocoder, records)         # phase 17
     log("[horizon] the denoiser kernel below C=256, and the long-horizon drive's stages")
     horizon_phase(torch, records)                                 # phase 18
-    log("[widths] the MRF kernel at every width up to 256, HiFi-GAN V2, the dryrun at the "
+    log("[widths] the MRF kernels at every width up to 256, HiFi-GAN V2, the dryrun at the "
         "JAX dryrun's widths, the denoiser above 256 and above 512, the acoustic model at "
         f"residual_channels {WIDE_MODEL_CHANNELS}")
     widths_phase(torch, pre, cfg, model, vocoder, records)        # phase 19

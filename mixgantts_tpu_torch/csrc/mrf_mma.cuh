@@ -9,7 +9,7 @@
 // into the contraction) each 16-deep K step reads the A tile at a row offset
 // t*d and one 16 x C slab of the weights.  Shapes:
 // - M: 64-row wgmma tiles; each consumer warpgroup owns MT of them.
-// - N: all C output channels in one instruction (m64nCk16, C = 32..256),
+// - N: all C output channels in one instruction (m64nCk16, C = 8..256),
 //   or, at C = 512, the 256 of one half (a block owns one half of the
 //   output channels; its tile holds all 512 input channels).
 // - A comes from registers, loaded with ldmatrix from an unswizzled bf16
@@ -34,6 +34,8 @@
 //   "full" mbarrier; the consumers release the stage on its "empty"
 //   mbarrier once the wgmmas that read it have completed.
 //
+// The narrow stages' kernel (mrf_stage_narrow.cu) takes the wgmma calls at
+// N = 8 and 16, the mbarriers and the producer, with a pass of its own.
 // The denoiser kernel (denoiser_stack.cu) and the whole-stage MRF kernel
 // (mrf_stack_streamed.cu) take from it the mbarriers, bulk_copy, pack_bf16,
 // smem_addr, kmajor_desc, slab_desc, the producer (produce_chunks) and the
@@ -166,6 +168,40 @@ __device__ __forceinline__ uint64_t slab_desc(uint32_t addr) { return kmajor_des
 // column 8 (j / 4) + 2 (l % 4) + j % 2.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
 
 template <>
 struct Wgmma<32> {

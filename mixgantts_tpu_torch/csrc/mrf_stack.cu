@@ -3,10 +3,12 @@
 // residual state.
 //
 // Replaces the Pallas TPU kernels mixgantts_tpu/ops/pallas_vocoder.py::
-// mrf_stack and ::mrf_stack_folded (the folding into 128 lanes serves the
-// TPU's lane width; the folded layout holds the same bytes as [B, T, C], so
-// both Python entry points in mixgantts_tpu_torch/ops/mrf.py launch this
-// kernel on a [B, T, C] view).
+// mrf_stack and ::mrf_stack_folded above 16 channels (the folding into 128
+// lanes serves the TPU's lane width; the folded layout holds the same bytes
+// as [B, T, C], so both Python entry points in
+// mixgantts_tpu_torch/ops/mrf.py launch this kernel on a [B, T, C] view).
+// Stages of C <= 16 run mrf_stage_narrow.cu, the whole stage in one launch;
+// at 32 and 64 this kernel is the faster (that file's header).
 //
 // One stage, x [B, T, C]: for each branch (an odd kernel size k <= 11; V1:
 // 3, 7, 11), a chain of residual pairs (dilations d; V1: 1, 3, 5)
@@ -33,8 +35,8 @@
 // it).  The dilation is a runtime argument; each launch sets its shared
 // memory for its own reach (mrf_stack_smem_bytes, which ops/mrf.py reads).
 // Widths: C in {32, 64, 128, 256} on the pair kernel below, and C = 512 on
-// the wide kernels (ops/mrf.py runs any C <= 512 at the next of them with
-// zero channels).
+// the wide kernels (ops/mrf.py runs any 16 < C <= 512 at the next of them
+// with zero channels).
 //
 // Design (mrf_mma.cuh holds the pass):
 // - One launch per (branch, pair): a block owns kM2 output frames of one

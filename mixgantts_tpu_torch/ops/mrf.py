@@ -19,40 +19,51 @@ Stacked weights keep the JAX package's layout: w1/w2 [n_br, n_pair, 11, C,
 C] (taps centred in 11, then input channel, output channel), b1/b2
 [n_br, n_pair, C].  The time-folded layout of the TPU kernel holds the same
 bytes as a contiguous [B, T, C] tensor, so `mrf_stack_folded` views it as
-such and runs the same CUDA kernel (`csrc/mrf_stack.cu`, one launch per
-branch and pair; two at C = 512).  `mrf_stack_streamed` runs a whole stage
-of 128 < C <= 512 in one launch (`csrc/mrf_stack_streamed.cu` at 256 or
-512, a tile of frames per cluster of C / 64 CTAs that split the output
-channels).
+such.  Which CUDA kernel runs a stage follows from its width alone
+(`route`), for both entry points:
+- C <= 16: `csrc/mrf_stage_narrow.cu`, the whole stage in one launch (a
+  block per tile of frames runs every branch and pair with y in shared
+  memory; x read once, the output written once), at the next of
+  NARROW_WIDTHS (8, 16);
+- 16 < C <= 256: `csrc/mrf_stack.cu`'s pair kernel, one launch per branch
+  and pair, at 32, 64, 128 or 256 (at 32 and 64 it is faster than the
+  whole-stage design, whose shared-memory phases and halo recompute cost
+  more there than the pair kernel's device-memory traffic: the source's
+  header);
+- 256 < C <= 512: the same file's wide kernel, two launches a pair, at 512.
+`mrf_stack_streamed` runs a whole stage of 128 < C <= 512 in one launch
+(`csrc/mrf_stack_streamed.cu` at 256 or 512, a tile of frames per cluster
+of C / 64 CTAs that split the output channels).
 
 Arithmetic follows the weights' type, as the TPU kernels' operand type
 does (`op_dtype = w1_ref.dtype`): fp32 weights compute in fp32; bf16
 weights round the stage input and every conv input to bf16, accumulate in
 fp32 and keep biases, residual and branch mean in fp32.  On the TPU the
 JAX package always casts the weights to bf16, and so do the three entry
-points on CUDA: `csrc/mrf_stack.cu` and `csrc/mrf_stack_streamed.cu` are
-bf16 tensor-core kernels, fed by `kernel_weights`.
+points on CUDA: the three sources are bf16 tensor-core kernels, fed by
+`kernel_weights`.
 
 The signal x may be fp32 or bf16 (a vocoder computing in bf16, as the TPU
 kernels read it under the JAX package's bf16 compute): bf16 is upcast
 exactly into the fp32-input kernels and plain version, and the output comes
 back in x's type.
 
-Widths: the TPU kernels take any C.  `csrc/mrf_stack.cu` is built for C in
-KERNEL_WIDTHS (its wgmma N is the whole channel axis, a multiple of 32, up
-to 256; at 512 a block owns one half of it), so a stage of any C <= 512
-runs there at the next of them, Cp, with zero channels above C
-(`kernel_width`, `pad_mrf_width`, `pad_channels`), and the output is cut
-back to C.  The zero channels are exact: leaky_relu(0) = 0,
-and zero weights and biases keep them zero and add nothing to the fp32 sums
-of the real channels.  The weights are padded once, in `kernel_weights`
-(the keys the kernel reads: `w1_mma`, `w2_mma`, `b1_mma`, `b2_mma`); x
-comes at Cp per call.  Wider than 512 raises, naming the limit: the TPU
-kernels keep a stage's stacked weights [n_br, n_pair, 11, C, C] resident,
-138 MB of bf16 for one branch at C = 1024, which no TPU core holds, so no
-TPU kernel takes such a stage.  The whole-stage kernel
-(`mrf_stack_streamed`) runs 128 < C <= 256 at 256 and 256 < C <= 512 at
-512 (`streamed_width`), every schedule within the halo (`streamed_plan`).
+Widths: the TPU kernels take any C.  The kernels are built for C in
+KERNEL_WIDTHS (wgmma's N is the whole channel axis, a multiple of 8, up to
+256; at 512 a block owns one half of it), so a stage of any C <= 512 runs
+at the next of them, Cp, with zero channels above C (`kernel_width`,
+`pad_mrf_width`, `pad_channels`), and the output is cut back to C.  The
+zero channels are exact: leaky_relu(0) = 0, and zero weights and biases
+keep them zero and add nothing to the fp32 sums of the real channels.  The
+weights are padded once, in `kernel_weights` (the keys the kernels read:
+`w1_mma`, `w2_mma`, `b1_mma`, `b2_mma`); x comes at Cp per call.  Wider
+than 512 raises, naming the limit: the TPU kernels keep a stage's stacked
+weights [n_br, n_pair, 11, C, C] resident, 138 MB of bf16 for one branch at
+C = 1024, which no TPU core holds, so no TPU kernel takes such a stage.
+The whole-stage kernel (`mrf_stack_streamed`) runs 128 < C <= 256 at 256
+and 256 < C <= 512 at 512 (`streamed_width`), every schedule within the
+halo (`streamed_plan`); the narrow kernel plans its tile per schedule
+(`narrow_plan`), every schedule within the halo.
 """
 
 import contextlib
@@ -66,7 +77,9 @@ from . import cuda_build
 LRELU_SLOPE = 0.1
 TAPS = 11  # every kernel is zero-padded to the largest (k = 11)
 HALO = 64  # frames a side the TPU kernels' tiles carry: the largest creep
-KERNEL_WIDTHS = (32, 64, 128, 256, 512)   # the C csrc/mrf_stack.cu is built for
+NARROW_WIDTHS = (8, 16)                   # the C csrc/mrf_stage_narrow.cu is built for
+PAIR_WIDTHS = (32, 64, 128, 256, 512)     # the C csrc/mrf_stack.cu is built for
+KERNEL_WIDTHS = NARROW_WIDTHS + PAIR_WIDTHS
 STREAMED_WIDTHS = (256, 512)              # the C csrc/mrf_stack_streamed.cu is built for
 MAX_SMEM = 232448  # dynamic shared memory an H100 block may hold
 SPLIT = 256        # output channels of one run of the packed weights (wgmma's largest N)
@@ -119,12 +132,39 @@ def pad_channels(t, Cp):
 
 
 def kernel_width(C):
-    """The width Cp at which `csrc/mrf_stack.cu` runs a C-channel stage:
-    the least of KERNEL_WIDTHS that is >= C.  Raises above the widest."""
+    """The width Cp at which the CUDA kernels run a C-channel stage: the
+    least of KERNEL_WIDTHS that is >= C (`csrc/mrf_stage_narrow.cu` up to
+    16, `csrc/mrf_stack.cu` above).  Raises above the widest."""
     for Cp in KERNEL_WIDTHS:
         if C <= Cp:
             return Cp
     raise ValueError(f"mrf_stack kernel: C={C}; it takes C <= {KERNEL_WIDTHS[-1]}")
+
+
+def route(C):
+    """The CUDA kernel that runs a C-channel stage from `mrf_stack` or
+    `mrf_stack_folded`: "mrf_stage_narrow" (the whole stage in one launch)
+    for C <= 16, "mrf_pair_mma" (one launch per branch and pair) up to 256,
+    "mrf_wide_mma" (two launches a pair) up to 512.  Raises above."""
+    Cp = kernel_width(C)
+    if Cp in NARROW_WIDTHS:
+        return "mrf_stage_narrow"
+    return "mrf_pair_mma" if Cp <= SPLIT else "mrf_wide_mma"
+
+
+def stage_launches(C, n_br, n_pair):
+    """Kernel launches of one `mrf_stack` / `mrf_stack_folded` call of n_br
+    branches of n_pair pairs at width C: one for the whole stage at C <= 16,
+    else `pair_launches` per branch and pair."""
+    if route(C) == "mrf_stage_narrow":
+        return 1
+    return n_br * n_pair * pair_launches(C)
+
+
+def packed_taps(Cp):
+    """Elements of one (branch, pair)'s packed weights at width Cp: 11 taps of
+    Cp input channels, K rounded up to a 16-deep step, times Cp outputs."""
+    return -(-TAPS * Cp // 16) * 16 * Cp
 
 
 def streamed_width(C):
@@ -227,22 +267,25 @@ def _mrf_stack_plain_bf16(x, stacked, kernel_sizes, dilations):
 
 
 def _pack_taps(w, kernel_sizes):
-    """[n_br, n_pair, 11, C, C] -> bf16 [n_br, n_pair, 11 * C * C]: each
+    """[n_br, n_pair, 11, C, C] -> bf16 [n_br, n_pair, packed_taps(C)]: each
     (branch, pair) holds its k real taps first, flattened to K = tap * C +
-    input channel and laid out in the order `csrc/mrf_mma.cuh` reads it: per
-    16-deep K slab s, per group g of 8 output channels, per half h of the
-    slab, an 8 x 8 core matrix [output channel % 8][K % 8].  Above SPLIT
-    output channels the output axis splits into runs of SPLIT (z), each the
-    whole K axis in that order, run after run: a block that owns one run's
-    channels reads one contiguous stretch."""
+    input channel, zero rows up to a multiple of 16 (k C at C = 8 and odd k)
+    and laid out in the order `csrc/mrf_mma.cuh` reads it: per 16-deep K
+    slab s, per group g of 8 output channels, per half h of the slab, an 8 x
+    8 core matrix [output channel % 8][K % 8].  Above SPLIT output channels
+    the output axis splits into runs of SPLIT (z), each the whole K axis in
+    that order, run after run: a block that owns one run's channels reads one
+    contiguous stretch."""
     n_br, n_pair, _, C, _ = w.shape
     n = min(C, SPLIT)
-    out = torch.zeros(n_br, n_pair, TAPS * C * C, dtype=torch.bfloat16, device=w.device)
+    out = torch.zeros(n_br, n_pair, packed_taps(C), dtype=torch.bfloat16, device=w.device)
     for br, rk in enumerate(kernel_sizes):
         pad = (TAPS - rk) // 2
-        t = w[br, :, pad:pad + rk].to(torch.bfloat16)               # [p, tap, c_in, c_out]
-        t = t.reshape(n_pair, rk * C // 16, 2, 8, C // n, n // 8, 8)   # [p, s, h, e, z, g, r]
-        out[br, :, :rk * C * C] = t.permute(0, 4, 1, 5, 2, 6, 3).reshape(n_pair, -1)
+        K = -(-rk * C // 16) * 16
+        t = w[br, :, pad:pad + rk].to(torch.bfloat16).reshape(n_pair, rk * C, C)
+        t = F.pad(t, (0, 0, 0, K - rk * C))                            # [p, K, c_out]
+        t = t.reshape(n_pair, K // 16, 2, 8, C // n, n // 8, 8)         # [p, s, h, e, z, g, r]
+        out[br, :, :K * C] = t.permute(0, 4, 1, 5, 2, 6, 3).reshape(n_pair, -1)
     return out
 
 
@@ -319,7 +362,7 @@ def _mma_weights(name, x, stacked, kernel_sizes, dilations, Cp):
     _check(name, x, stacked, kernel_sizes, dilations)
     if "w1_mma" not in stacked:
         stacked = kernel_weights(stacked, kernel_sizes)
-    packed = (len(kernel_sizes), len(dilations), TAPS * Cp * Cp)
+    packed = (len(kernel_sizes), len(dilations), packed_taps(Cp))
     bias = (len(kernel_sizes), len(dilations), Cp)
     if (stacked["mma_kernel_sizes"] != kernel_sizes
             or any(stacked[k].shape != packed or stacked[k].dtype != torch.bfloat16
@@ -350,9 +393,9 @@ def pair_launches(C):
 
 
 def _launch(x, stacked, kernel_sizes, dilations):
-    """Run csrc/mrf_stack.cu on a CUDA x [B, T, C] (fp32) with bf16
-    operands, at the kernel's width Cp (`kernel_width`: x with zero
-    channels above C, the output cut back to C); fp32 weights are cast
+    """Run csrc/mrf_stack.cu on a CUDA x [B, T, C] (fp32, 16 < C <= 512)
+    with bf16 operands, at the kernel's width Cp (`kernel_width`: x with
+    zero channels above C, the output cut back to C); fp32 weights are cast
     (`kernel_weights`) for this call.  Returns (out, launches)."""
     B, T, C = x.shape
     Cp = kernel_width(C)
@@ -386,31 +429,145 @@ def _launch(x, stacked, kernel_sizes, dilations):
 
 
 def tile_frames(C, k):
-    """Output frames one block of the CUDA kernel owns at width C and
-    kernel size k (blocks per launch = B * ceil(T / frames))."""
+    """Output frames one block of the pair kernel owns at width C (32 to
+    512) and kernel size k (blocks per launch = B * ceil(T / frames))."""
     lib = cuda_build.library("mrf_stack")
     lib.mrf_stack_tile_frames.restype = ctypes.c_int
     lib.mrf_stack_tile_frames.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib.mrf_stack_tile_frames(C, k)
 
 
+def _narrow_lib():
+    lib = cuda_build.library("mrf_stage_narrow")
+    lib.mrf_stage_narrow_bf16.restype = ctypes.c_int
+    lib.mrf_stage_narrow_bf16.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                                          + [ctypes.c_void_p] * 3)
+    lib.mrf_stage_narrow_plan.restype = ctypes.c_int
+    lib.mrf_stage_narrow_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    lib.mrf_stage_narrow_smem_bytes.restype = ctypes.c_int
+    lib.mrf_stage_narrow_smem_bytes.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                                                + [ctypes.c_int, ctypes.c_void_p])
+    lib.mrf_stage_narrow_flops.restype = ctypes.c_double
+    lib.mrf_stage_narrow_flops.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    return lib
+
+
+def narrow_smem_bytes(C, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), tile=None):
+    """The narrow kernel's reckoning at width C (<= 16, run at
+    `kernel_width`) for a schedule, with no device: (bytes of shared memory
+    a block takes at `tile` frames, the longest tile whose every window fits
+    one pass and the card's shared memory); `tile` None is that longest."""
+    Cp = kernel_width(C)
+    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    got = (ctypes.c_int * 2)()
+    lib = _narrow_lib()
+    args = (Cp, len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
+            _int_array(dilations))
+    err = lib.mrf_stage_narrow_smem_bytes(*args, 1, ctypes.cast(got, ctypes.c_void_p))
+    cuda_build.check(lib, "mrf_stage_narrow", err)
+    if tile is None:
+        tile = got[1]
+        err = lib.mrf_stage_narrow_smem_bytes(*args, tile, ctypes.cast(got, ctypes.c_void_p))
+        cuda_build.check(lib, "mrf_stage_narrow", err)
+    return got[0], tile
+
+
+def narrow_plan(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cuda", C=16):
+    """The narrow kernel's launch plan at B, T and width C (<= 16, run at
+    `kernel_width`) on `device`: `tile` (output frames per block: the
+    longest whose windows fit one pass and the shared memory, shortened to
+    fill whole waves of resident blocks), `blocks` (per launch), `resident`
+    (blocks the card holds at once), `smem` (bytes of shared memory per
+    block), `rows` (rows of a pass) and `lead` (frames of halo a side, the
+    widest creep).  Raises where the kernel does not take the schedule."""
+    Cp = kernel_width(C)
+    if Cp not in NARROW_WIDTHS:
+        raise ValueError(f"mrf_stage_narrow kernel: C={C}; it takes C <= {NARROW_WIDTHS[-1]}")
+    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    plan = (ctypes.c_int * 6)()
+    lib = _narrow_lib()
+    with torch.cuda.device(device):
+        err = lib.mrf_stage_narrow_plan(B, T, Cp, len(kernel_sizes), len(dilations),
+                                        _int_array(kernel_sizes), _int_array(dilations),
+                                        ctypes.cast(plan, ctypes.c_void_p))
+    cuda_build.check(lib, "mrf_stage_narrow", err)
+    plan = dict(zip(("tile", "blocks", "resident", "smem", "rows", "lead"), plan))
+    if not plan["tile"]:
+        raise ValueError(
+            f"mrf_stage_narrow kernel: C={Cp} with kernel sizes {kernel_sizes} and dilations "
+            f"{dilations} fits no tile: {plan['smem']} B of shared memory a block at one frame; "
+            f"the card holds {MAX_SMEM}")
+    return plan
+
+
+def narrow_flops(B, T, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), device="cuda", C=16):
+    """FLOPs the narrow kernel executes at B, T and width C on `device`: the
+    64-row tiles of every conv, halo recompute and K's padding to 16
+    included, at the width it runs."""
+    tile = narrow_plan(B, T, kernel_sizes, dilations, device, C)["tile"]
+    return _narrow_lib().mrf_stage_narrow_flops(
+        B, T, kernel_width(C), tile, len(kernel_sizes), len(dilations),
+        _int_array(tuple(kernel_sizes)), _int_array(tuple(dilations)))
+
+
+def narrow_stage(x, stacked, kernel_sizes, dilations):
+    """Run csrc/mrf_stage_narrow.cu on a CUDA x [B, T, C] (fp32, C <= 16):
+    the whole stage in one launch, at the kernel's width Cp (`kernel_width`:
+    x with zero channels above C, the output cut back to C), counted in
+    `narrow_stage.launches` (as well as in the entry point's count); fp32
+    weights are cast (`kernel_weights`) for this call.  Returns (out, 1)."""
+    B, T, C = x.shape
+    Cp = kernel_width(C)
+    stacked = _mma_weights("mrf_stage_narrow", x, stacked, kernel_sizes, dilations, Cp)
+    plan = narrow_plan(B, T, kernel_sizes, dilations, x.device, C)
+    if not 0 < plan["smem"] <= MAX_SMEM:
+        raise ValueError(f"mrf_stage_narrow kernel: C={Cp} needs {plan['smem']} B of shared "
+                         f"memory a block; the card holds {MAX_SMEM}")
+    lib = _narrow_lib()
+    with torch.cuda.device(x.device):
+        xp = pad_channels(x, Cp).contiguous()
+        out = torch.empty_like(xp)
+        err = lib.mrf_stage_narrow_bf16(
+            xp.data_ptr(), out.data_ptr(), stacked["w1_mma"].data_ptr(),
+            stacked["b1_mma"].data_ptr(), stacked["w2_mma"].data_ptr(),
+            stacked["b2_mma"].data_ptr(), B, T, Cp, plan["tile"], len(kernel_sizes),
+            len(dilations), _int_array(kernel_sizes), _int_array(dilations),
+            torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(lib, "mrf_stage_narrow", err)
+    narrow_stage.launches += 1
+    return (out if Cp == C else out[..., :C].contiguous()), 1
+
+
+narrow_stage.launches = 0
+
+
+def _run(name, x, stacked, kernel_sizes, dilations):
+    """The stage on a CUDA x through the kernel of its width (`route`):
+    (out in x's type, launches)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    launch = narrow_stage if route(x.shape[-1]) == "mrf_stage_narrow" else _launch
+    out, n = launch(upcast(x), stacked, kernel_sizes, dilations)
+    return out.to(x.dtype), n
+
+
 def mrf_stack(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     """x [B, T, C], stacked from `stack_mrf_params` -> the averaged MRF
     output [B, T, C].
 
-    CUDA tensors run the hand-written bf16 tensor-core kernel (one launch
-    per branch and pair, two at C > 256 (`pair_launches`), counted in
-    `mrf_stack.launches`; any C <= 512, at `kernel_width`) on the weights of
-    `kernel_weights` (fp32 weights are cast per call); CPU tensors run the
-    plain version in the weights' type.  bf16 x is upcast, and the output
-    comes back in x's type."""
+    CUDA tensors run the hand-written bf16 tensor-core kernel of the width
+    (`route`; any C <= 512, at `kernel_width`), counted in
+    `mrf_stack.launches` (`stage_launches`: one for the whole stage at
+    C <= 16, else one per branch and pair, two at C > 256), on the weights
+    of `kernel_weights` (fp32 weights are cast per call); CPU tensors run
+    the plain version in the weights' type.  bf16 x is upcast, and the
+    output comes back in x's type."""
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf_stack: no kernel for device {x.device}")
-    out, n = _launch(upcast(x), stacked, tuple(kernel_sizes), tuple(dilations))
+    out, n = _run("mrf_stack", x, stacked, kernel_sizes, dilations)
     mrf_stack.launches += n
-    return out.to(x.dtype)
+    return out
 
 
 mrf_stack.launches = 0
@@ -424,8 +581,9 @@ def mrf_stack_folded(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
     prefolded=True takes x in the TPU kernel's folded layout [B, T/F, F*C]
     (x_folded[b, i, f*C + c] == x[b, F*i + f, c]), which is a view of the
     contiguous [B, T, C] signal; otherwise x is [B, T, C].  Returns
-    [B, T, C] in x's type.  CUDA tensors run the same bf16 kernel as
-    `mrf_stack`, counted in `mrf_stack_folded.launches`; CPU tensors run the
+    [B, T, C] in x's type.  CUDA tensors run the kernel of the width, as
+    `mrf_stack` (at C <= 16 `csrc/mrf_stage_narrow.cu`, the whole stage in
+    one launch), counted in `mrf_stack_folded.launches`; CPU tensors run the
     plain version."""
     if prefolded:
         fold = stacked["fold"]
@@ -436,11 +594,9 @@ def mrf_stack_folded(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
         x = x.reshape(B, R * fold, Cf // fold)
     if x.device.type == "cpu":
         return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf_stack_folded: no kernel for device {x.device}")
-    out, n = _launch(upcast(x), stacked, tuple(kernel_sizes), tuple(dilations))
+    out, n = _run("mrf_stack_folded", x, stacked, kernel_sizes, dilations)
     mrf_stack_folded.launches += n
-    return out.to(x.dtype)
+    return out
 
 
 mrf_stack_folded.launches = 0

@@ -68,9 +68,14 @@ class Mesh:
 
 
 def visible_devices():
-    """Every visible CUDA device, or the CPU where there is none."""
+    """Every visible CUDA device.  Raises where there is none, as
+    `utils.tools.resolve_device` does: a caller that means the CPU names
+    it."""
     n = torch.cuda.device_count()
-    return [torch.device(f"cuda:{i}") for i in range(n)] or [torch.device("cpu")]
+    if not n:
+        raise RuntimeError(
+            "no CUDA device is visible; pass device='cpu' to run on the CPU")
+    return [torch.device(f"cuda:{i}") for i in range(n)]
 
 
 def _grid(devices, data_axis, model_axis):
@@ -89,11 +94,13 @@ def make_mesh(devices=None, data_axis=None, model_axis=1):
     serves data parallelism.  In an initialised process group with no
     `devices`: the ranks' mesh (rank = data * model_axis + model, as JAX's
     row-major device grid) with the process group of each axis.  Otherwise
-    a single-process mesh of `devices` (default: every visible card, or the
-    CPU)."""
+    a single-process mesh of `devices`, by default the device
+    `init_distributed` chose for a run of one rank (which makes no process
+    group), else every visible card (raising where there is none)."""
     if devices is not None or not (dist.is_available() and dist.is_initialized()):
-        return Mesh(_grid(devices if devices is not None else visible_devices(),
-                          data_axis, model_axis))
+        if devices is None:
+            devices = [_RANK_DEVICE] if _RANK_DEVICE is not None else visible_devices()
+        return Mesh(_grid(devices, data_axis, model_axis))
     world, rank = dist.get_world_size(), dist.get_rank()
     names = [None] * world
     dist.all_gather_object(names, str(_RANK_DEVICE or torch.device("cpu")))

@@ -3,8 +3,12 @@ under ROOT, for comparing two trees in one call on one card.
 
 Times (CUDA events, TF32 off, random weights and inputs from seed 0) the
 denoiser stack at C = 256 (B=1, T=1000, 20 layers), V1's C = 256 MRF stage
-through three one-branch `mrf_stack` calls (B=1, T=8000), and the whole
-V1 stage through `mrf_stack_streamed` at C = 256 and 512 (B=1, T=8000),
+through three one-branch `mrf_stack` calls (B=1, T=8000), the whole V1
+stage through `mrf_stack_streamed` at C = 256 and 512 (B=1, T=8000), and
+the narrow stages through `mrf_stack_folded` as `fused_apply` calls them
+(B=1, bucket 1000): V1's C = 64 and 32 (T = 128,000 and 256,000) and
+HiFi-GAN V2's four (C = 64, 32, 16, 8 at T = 8,000, 64,000, 128,000 and
+256,000), each stage's launches beside it, and the sum of each request's;
 and prints the card line, then one JSON line labelled LABEL.  Run it on two
 trees in turns (parent, change, change, parent), each tree's kernels built
 in its own `mixgantts_tpu_torch/_build/`:
@@ -33,6 +37,11 @@ if not torch.cuda.is_available():
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 g = torch.Generator("cuda").manual_seed(0)
+
+
+# the stages `fused_apply` folds in one B=1 request at bucket 1000, (C, T)
+NARROW_STAGES = {"v1_folded": ((64, 128000), (32, 256000)),
+                 "v2": ((64, 8000), (32, 64000), (16, 128000), (8, 256000))}
 
 
 def time_ms(fn, iters):
@@ -84,6 +93,19 @@ def main():
             x = rnd(1, 8000, C)
             whole = mrf.kernel_weights(mrf_weights(C, ks), ks)
             out[f"streamed_c{C}_v1_ms"] = time_ms(lambda: mrf.mrf_stack_streamed(x, whole), 10)
+        for name, stages in NARROW_STAGES.items():
+            total = 0.0
+            for C, T in stages:
+                fold = 128 // C
+                x = rnd(1, T // fold, fold * C)
+                st = dict(mrf.kernel_weights(mrf_weights(C, ks), ks), fold=fold)
+                n0 = mrf.mrf_stack_folded.launches
+                mrf.mrf_stack_folded(x, st, ks, prefolded=True)
+                out[f"{name}_c{C}_launches"] = mrf.mrf_stack_folded.launches - n0
+                ms = time_ms(lambda: mrf.mrf_stack_folded(x, st, ks, prefolded=True), 10)
+                out[f"{name}_c{C}_ms"] = ms
+                total += ms
+            out[f"{name}_request_ms"] = total
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)

@@ -4,6 +4,7 @@ one CUDA device (it needs the card and nvcc; no JAX).
     python3 tests/bench_torch_mrf.py variants NAME=SPEC [NAME=SPEC ...]
     python3 tests/bench_torch_mrf.py phases
     python3 tests/bench_torch_mrf.py streamed [NAME=SPEC ...]
+    python3 tests/bench_torch_mrf.py narrow [NAME=SPEC ...]
 
 `variants` builds copies of `csrc/mrf_stack.cu` whose `Cfg` table is
 patched by SPEC and times the MRF calls of one B=1 request at frame bucket
@@ -31,6 +32,16 @@ all-gather, conv2, the epilogue), the launch's span and the CTAs busy per
 SM, beside the time as built and stamped; then each NAME=SPEC variant (see
 `streamed_source`) timed in two rounds in turns, with its ptxas report, its
 plan, recompute share and error against the bf16 plain version.
+
+`narrow` does the same for the narrow stages' kernel
+(`csrc/mrf_stage_narrow.cu`) at the stages it runs in a B=1 HiFi-GAN V2
+request at bucket 1000 (NARROW_STAGES: C = 16 and 8): each stage's time
+as built and stamped, and the cycles thread 0 of
+each block spends a pair in each phase (the wait between pairs, X's build,
+conv1, its epilogue, conv2, its epilogue), the launch's span and the blocks
+busy per SM; then each NAME=SPEC variant (see `narrow_source`) timed in
+two rounds in turns, with its ptxas report, plan and error against the bf16
+plain version.
 
 Builds go to `mixgantts_tpu_torch/_build/bench/`.
 """
@@ -96,9 +107,11 @@ def build(named_sources, source="mrf_stack"):
             raise RuntimeError(f"{name}: nvcc failed\n{out[-4000:]}")
         report, kernel = [], None
         for line in out.splitlines():
-            m = re.search(r"mrf_pair_mmaILi(\d+)ELi(\d+)E|mrf_stage_streamed", line)
+            m = re.search(r"mrf_pair_mmaILi(\d+)ELi(\d+)E|mrf_stage_streamed|"
+                          r"mrf_stage_narrowILi(\d+)E", line)
             if m and "entry function" in line:
-                kernel = f"<{m.group(1)}, {m.group(2)}>" if m.group(1) else "streamed"
+                kernel = (f"<{m.group(1)}, {m.group(2)}>" if m.group(1) else
+                          f"narrow<{m.group(3)}>" if m.group(3) else "streamed")
             elif kernel and ("Used" in line or "spill" in line):
                 report.append(f"{kernel} {line.split(':', 1)[-1].strip()}")
             if "C7520" in line:   # ptxas serialized the wgmmas
@@ -337,6 +350,110 @@ def streamed_variants(specs):
         cuda_build._loaded.pop("mrf_stack_streamed", None)
 
 
+# the stages of a B=1 HiFi-GAN V2 request at bucket 1000 the kernel runs, (C, T)
+NARROW_STAGES = [(16, 128000), (8, 256000)]
+NARROW_PHASES = ("between pairs", "X build", "conv1", "conv1 epilogue", "conv2",
+                 "conv2 epilogue")
+# per block: 0..5 the cycles of each phase summed over its pairs, 6 the last
+# clock, 7 and 8 %globaltimer at its start and end, 9 its pairs
+NARROW_STAMPS = """__device__ long long g_stamps[1 << 14][10];
+#define STAMP(i)                                                                    \\
+  if (threadIdx.x == 0) {                                                           \\
+    long long* s_ = g_stamps[(blockIdx.y * gridDim.x + blockIdx.x) & ((1 << 14) - 1)]; \\
+    const long long now_ = clock64();                                              \\
+    unsigned long long g_;                                                          \\
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));                          \\
+    if ((i) == 6) {                                                                 \\
+      for (int z_ = 0; z_ < 6; ++z_) s_[z_] = 0;                                    \\
+      s_[7] = (long long)g_;                                                        \\
+      s_[9] = 0;                                                                    \\
+    } else if ((i) == 7) {                                                          \\
+      s_[8] = (long long)g_;                                                        \\
+    } else {                                                                        \\
+      s_[i] += now_ - s_[6];                                                        \\
+      s_[9] += (i) == 5;                                                            \\
+    }                                                                               \\
+    s_[6] = now_;                                                                   \\
+  }
+"""
+NARROW_PATCHES = {"c16": "Cfg<16>", "c8": "Cfg<8>"}
+
+
+def narrow_source(spec="", stamps=False):
+    """csrc/mrf_stage_narrow.cu patched by SPEC (`;`-separated):
+    `c16:WG,MT,KCH,S,NB,BLOCKS` and `c8:...` (the fields of `Cfg<16>` and
+    `Cfg<8>`: consumer warpgroups, their 64-row tiles, K rows per ring
+    stage, stages, fragment buffers, blocks an SM); with the STAMP hooks
+    defined where `stamps` is set."""
+    with open(os.path.join(CSRC, "mrf_stage_narrow.cu")) as f:
+        src = f.read()
+    for part in filter(None, spec.split(";")):
+        key, _, val = part.partition(":")
+        cfg = NARROW_PATCHES[key]
+        names = ("kWG", "kMT", "kKCH", "kS", "kNB", "kBlocks")
+        fields = ", ".join(f"{n} = {v}" for n, v in zip(names, val.split(",")))
+        src, n = re.subn(r"struct %s \{\n  static constexpr int [^;]*;" % re.escape(cfg),
+                         f"struct {cfg} {{\n  static constexpr int {fields};", src)
+        if n != 1:
+            raise ValueError(f"cannot apply {part!r}")
+    if stamps:
+        src = src.replace('#include "mrf_mma.cuh"\n', '#include "mrf_mma.cuh"\n' + NARROW_STAMPS, 1)
+        src = src.replace('extern "C" {\n', 'extern "C" {\nint mrf_stage_narrow_stamps(long long* h, '
+                          'int n) { return (int)cudaMemcpyFromSymbol(h, g_stamps, (size_t)n * 80); }\n',
+                          1)
+    return src
+
+
+def narrow(specs):
+    libs = build({"as-built": narrow_source(), "stamped": narrow_source(stamps=True),
+                  **{name: narrow_source(spec) for name, spec in specs.items()}},
+                 "mrf_stage_narrow")
+    for name, (_, report) in libs.items():
+        print(f"[{name}] {specs.get(name, 'as the source is')}: {'; '.join(report)}", flush=True)
+    ks = (3, 7, 11)
+    cases = []
+    for C, T in NARROW_STAGES:
+        st = weights(C, ks)
+        x = torch.randn(1, T, C, device="cuda", generator=torch.Generator("cuda").manual_seed(T))
+        cases.append((C, T, st, x, mrf.mrf_stack_plain(x, st, ks)))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        for C, T, st, x, _ in cases:
+            cuda_build._loaded["mrf_stage_narrow"] = libs["as-built"][0]
+            ms = time_ms(lambda: mrf.mrf_stack(x, st, ks))
+            lib = cuda_build._loaded["mrf_stage_narrow"] = libs["stamped"][0]
+            ms_stamped = time_ms(lambda: mrf.mrf_stack(x, st, ks))
+            plan = mrf.narrow_plan(1, T, C=C)
+            n = plan["blocks"]
+            h = np.zeros((n, 10), np.int64)
+            if lib.mrf_stage_narrow_stamps(h.ctypes.data_as(ctypes.c_void_p), n):
+                raise RuntimeError("reading the stamps failed")
+            per = h[:, :6].sum(axis=0) / h[:, 9].sum()
+            span = h[:, 8].max() - h[:, 7].min()
+            busy = (h[:, 8] - h[:, 7]).sum() / span / n_sm
+            share = mrf.narrow_flops(1, T, C=C) / (2 * 3 * 2 * 21 * C * C * T)
+            print(f"C={C} T={T} (tile {plan['tile']}, {n} blocks, {plan['resident']} resident, "
+                  f"{plan['smem']} B, executed/needed FLOPs {share:.3f}): {ms:.4f} ms as built, "
+                  f"{ms_stamped:.4f} ms stamped; cycles per block and pair: "
+                  + ", ".join(f"{nm} {c:.0f}" for nm, c in zip(NARROW_PHASES, per))
+                  + f"; total {per.sum():.0f}; launch span {span / 1e3:.1f} us, blocks busy per "
+                  f"SM {busy:.2f}", flush=True)
+        for rnd in range(2):
+            names = [n for n in libs if n != "stamped"]
+            for name in (names if rnd == 0 else reversed(names)):
+                cuda_build._loaded["mrf_stage_narrow"] = libs[name][0]
+                parts = []
+                for C, T, st, x, want in cases:
+                    got = mrf.mrf_stack(x, st, ks)
+                    err = ((got - want).abs().max() / want.abs().max()).item()
+                    ms = time_ms(lambda: mrf.mrf_stack(x, st, ks))
+                    tile = mrf.narrow_plan(1, T, C=C)["tile"]
+                    parts.append(f"C={C} T={T} {ms:.4f} ms (tile {tile}, err {err:.1e})")
+                print(f"round {rnd} [{name}] " + "; ".join(parts), flush=True)
+    finally:
+        cuda_build._loaded.pop("mrf_stage_narrow", None)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("bench_torch_mrf: needs a CUDA device")
@@ -350,6 +467,8 @@ def main():
         streamed_phases()
         if rest:
             streamed_variants(dict(a.split("=", 1) for a in rest))
+    elif mode == "narrow":
+        narrow(dict(a.split("=", 1) for a in rest))
     else:
         sys.exit(__doc__)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -19,10 +19,11 @@ kernel with a multi-speaker model's speaker term (in its conditioner
 projection) is held to the same bar, and so is every width C <= 512 (the
 kernel runs at the next of 64, 128, 256 and 512 with zero channels above
 C) and above (the wide route, two launches a layer, at the next multiple of
-64; the plain version never runs on CUDA), and every MRF width C <= 512 (at the next of 32, 64, 128, 256 and 512;
-at 512 two launches a pair): HiFi-GAN V2's stages, HiFi-GAN V1 at
-`upsample_initial_channel` 1024, and the dryrun's synthesis at the JAX
-dryrun's widths, launch the kernels.  The MRF kernels take the TPU kernels'
+64; the plain version never runs on CUDA), and every MRF width C <= 512 (at
+the next of 8, 16, 32, 64, 128, 256 and 512; up to 16 the whole stage in
+one launch of `csrc/mrf_stage_narrow.cu`, at 512 two launches a pair):
+HiFi-GAN V2's stages, HiFi-GAN V1 at `upsample_initial_channel` 1024, and
+the dryrun's synthesis at the JAX dryrun's widths, launch the kernels.  The MRF kernels take the TPU kernels'
 shapes: every odd kernel size up to 11, any number of branches and pairs,
 and every dilation schedule within the 64-frame halo (the whole-stage
 kernel at 128 < C <= 512, run at 256 or 512, up to the widest conv1 reach,
@@ -42,9 +43,11 @@ from mixgantts_tpu_torch.ops.denoiser_stack import (
     speaker_projections,
 )
 from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator
+from mixgantts_tpu_torch.ops import mrf as mrf_ops
 from mixgantts_tpu_torch.ops.mrf import (
-    TAPS, kernel_weights, mrf_stack, mrf_stack_folded, mrf_stack_plain, mrf_stack_streamed,
-    pair_launches, streamed_plan, tile_frames,
+    HALO, MAX_SMEM, TAPS, kernel_weights, mrf_stack, mrf_stack_folded, mrf_stack_plain,
+    mrf_stack_streamed, narrow_plan, narrow_smem_bytes, stage_launches, streamed_plan,
+    tile_frames,
 )
 
 pytestmark = pytest.mark.gpu
@@ -338,10 +341,11 @@ def test_mrf_stack_kernel_tile_edges(cuda, C, case):
 @pytest.mark.parametrize("B", [1, 4])
 @pytest.mark.parametrize("C", [4, 8, 16, 24, 48, 72, 96, 144, 200])
 def test_mrf_kernel_at_every_width(cuda, C, B):
-    """Every C <= 256 runs the kernel, at the next of 32, 64, 128 and 256
-    with zero channels above C (`kernel_width`), and matches its plain
-    version at C: the whole three-branch stage up to 128, one branch a call
-    above (as `fused_apply` calls it); the launch count rises at each call."""
+    """Every C <= 256 runs the kernel, at the next of 8, 16, 32, 64, 128
+    and 256 with zero channels above C (`kernel_width`), and matches its
+    plain version at C: the whole three-branch stage up to 128, one branch a
+    call above (as `fused_apply` calls it); the launch count rises at each
+    call, by one for the whole stage at C <= 16."""
     x = torch.randn(B, 1000, C, device=cuda, generator=torch.Generator(cuda).manual_seed(C))
     calls = [(3, 7, 11)] if C <= 128 else [(3,), (7,), (11,)]
     for ks in calls:
@@ -349,7 +353,7 @@ def test_mrf_kernel_at_every_width(cuda, C, B):
         n0 = mrf_stack.launches
         got = mrf_stack(x, st, ks)
         torch.cuda.synchronize()
-        assert mrf_stack.launches == n0 + 3 * len(ks)
+        assert mrf_stack.launches == n0 + stage_launches(C, len(ks), 3)
         assert got.shape == x.shape
         assert_close(got, mrf_stack_plain(x, st, ks), BF16_TOL)
 
@@ -357,22 +361,25 @@ def test_mrf_kernel_at_every_width(cuda, C, B):
 @pytest.mark.parametrize("C", [4, 8, 16])
 def test_mrf_stack_folded_kernel_at_narrow_widths(cuda, C):
     """The folded entry point at V2's and the dryrun's narrow stages (F =
-    128 / C), run at 32 with zero channels."""
+    128 / C), the whole stage in one launch at 8 (C = 4, zero channels
+    above) and at the stage's own width."""
     fold, T = 128 // C, 4096
     x = torch.randn(2, T, C, device=cuda, generator=torch.Generator(cuda).manual_seed(T + C))
     st = dict(kernel_weights(mrf_weights(C, (3, 7, 11))), fold=fold)
     n0 = mrf_stack_folded.launches
     got = mrf_stack_folded(x.reshape(2, T // fold, fold * C), st, prefolded=True)
     torch.cuda.synchronize()
-    assert mrf_stack_folded.launches == n0 + 9
+    assert mrf_stack_folded.launches == n0 + 1
     assert got.shape == x.shape
     assert_close(got, mrf_stack_plain(x, st), BF16_TOL)
 
 
 def test_hifigan_v2_runs_the_folded_kernel(cuda):
     """HiFi-GAN V2 (jik876/hifi-gan config_v2.json: stages 64, 32, 16, 8)
-    from a seed: a B=1 mel at frame bucket 1000 takes the folded kernel at
-    every stage (36 launches, `mrf_stack` none), and its wave stays within
+    from a seed: a B=1 mel at frame bucket 1000 takes the folded entry point
+    at every stage: the pair kernel at 64 and 32 (9 launches each), the
+    whole-stage kernel at 16 and 8 (one each; 20 in all, `mrf_stack` none),
+    and its wave stays within
     the JAX package's bf16 vocoder bar (SNR > 30 dB) of the same generator's
     fp32 plain path on the CPU."""
     torch.manual_seed(2)
@@ -384,7 +391,7 @@ def test_hifigan_v2_runs_the_folded_kernel(cuda):
         counts = mrf_stack.launches, mrf_stack_folded.launches
         got = gen(mel.to(cuda))
         torch.cuda.synchronize()
-    assert (mrf_stack.launches - counts[0], mrf_stack_folded.launches - counts[1]) == (0, 36)
+    assert (mrf_stack.launches - counts[0], mrf_stack_folded.launches - counts[1]) == (0, 20)
     got = got.cpu().double()
     snr = 10 * np.log10((want.double() ** 2).mean().item()
                         / ((got - want.double()) ** 2).mean().item())
@@ -393,7 +400,8 @@ def test_hifigan_v2_runs_the_folded_kernel(cuda):
 
 def test_dryrun_widths_run_the_kernels(cuda):
     """The dryrun's synthesis model (denoiser 8 channels) and vocoder (16
-    -> stages 8, 4) launch the denoiser kernel and the folded MRF kernel."""
+    -> stages 8, 4) launch the denoiser kernel and the folded MRF kernel,
+    once a stage."""
     from mixgantts_tpu_torch import dryrun
     from mixgantts_tpu_torch.models.hifigan import HiFiGANGenerator as Gen
     model = dryrun._model("shallow", dryrun.tiny_configs(), cuda)
@@ -407,7 +415,7 @@ def test_dryrun_widths_run_the_kernels(cuda):
         torch.cuda.synchronize()
     launches = [fn.launches - n for fn, n in
                 zip((fused_residual_stack, mrf_stack, mrf_stack_folded), counts)]
-    assert launches[0] > 0 and launches[1] == 0 and launches[2] == 4
+    assert launches[0] > 0 and launches[1] == 0 and launches[2] == 2
     assert torch.isfinite(wav).all() and wav.shape == (2, 16 * 16)
 
 
@@ -489,7 +497,7 @@ def test_mrf_stack_kernel_at_every_shape(cuda, C, kernel_sizes, dilations):
     n0 = mrf_stack.launches
     got = mrf_stack(x, st, kernel_sizes, dilations)
     torch.cuda.synchronize()
-    assert mrf_stack.launches == n0 + len(kernel_sizes) * len(dilations) * pair_launches(C)
+    assert mrf_stack.launches == n0 + stage_launches(C, len(kernel_sizes), len(dilations))
     assert_close(got, mrf_stack_plain(x, st, kernel_sizes, dilations), BF16_TOL)
 
 
@@ -518,7 +526,7 @@ def test_mrf_stack_folded_kernel_at_new_kernel_sizes(cuda):
     n0 = mrf_stack_folded.launches
     got = mrf_stack_folded(x.reshape(2, T // fold, fold * C), st, ks, (2, 7), prefolded=True)
     torch.cuda.synchronize()
-    assert mrf_stack_folded.launches == n0 + 6
+    assert mrf_stack_folded.launches == n0 + 1
     assert_close(got, mrf_stack_plain(x, st, ks, (2, 7)), BF16_TOL)
 
 
@@ -672,3 +680,117 @@ def test_fused_apply_stacks_bf16_on_cuda(cuda):
     assert gen._stacked and all(
         key[2] == torch.bfloat16 and st["w1"].dtype == torch.bfloat16 and "w1_mma" in st
         for key, st in gen._stacked.items())
+
+
+# The whole-stage kernel of the narrow stages (csrc/mrf_stage_narrow.cu,
+# C <= 16 in one launch; 16 < C <= 64 stays on the pair kernel, where it is
+# faster): every width up to 64 through the route of its width, every odd
+# k and schedules at the halo's edge (creep 64 for k = 3 and 5, 60, the most
+# a k = 11 branch reaches) at the kernel's widths, B in {1, 4}, T not a
+# multiple of the tile and T < 64.
+NARROW_WIDTHS = [1, 2, 4, 8, 16, 24, 32, 48, 64]
+HALO_EDGE = [((3,), (63,)), ((3,), (1, 2, 4, 8, 16, 27)), ((5,), (31,)), ((5,), (3, 7, 19)),
+             ((11,), (2, 3, 4)), ((11,), (11,)), ((3, 5), (31,))]
+
+
+@pytest.mark.parametrize("B,T", [(1, 3001), (4, 1000), (2, 37)])
+@pytest.mark.parametrize("C", NARROW_WIDTHS)
+def test_narrow_kernel_matches_plain(cuda, C, B, T):
+    """V1's stage at every C <= 64, through both entry points: one launch
+    at C <= 16, one per branch and pair above."""
+    x = torch.randn(B, T, C, device=cuda, generator=torch.Generator(cuda).manual_seed(C + T))
+    st = kernel_weights(mrf_weights(C, (3, 7, 11), seed=C), (3, 7, 11))
+    want = mrf_stack_plain(x, st)
+    n0 = mrf_stack.launches
+    got = mrf_stack(x, st)
+    torch.cuda.synchronize()
+    assert mrf_stack.launches == n0 + stage_launches(C, 3, 3) and got.shape == x.shape
+    assert_close(got, want, BF16_TOL)
+    if 128 % C == 0 and T % (128 // C) == 0:
+        fold = 128 // C
+        n0 = mrf_stack_folded.launches
+        got = mrf_stack_folded(x.reshape(B, T // fold, fold * C), dict(st, fold=fold),
+                               prefolded=True)
+        torch.cuda.synchronize()
+        assert mrf_stack_folded.launches == n0 + stage_launches(C, 3, 3)
+        assert_close(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11])
+@pytest.mark.parametrize("C", [4, 8, 16])
+def test_narrow_kernel_at_every_kernel_size(cuda, C, k):
+    """One-branch stages of every odd k <= 11 (V1's dilations)."""
+    x = torch.randn(2, 2500, C, device=cuda, generator=torch.Generator(cuda).manual_seed(k))
+    st = kernel_weights(mrf_weights(C, (k,), seed=k), (k,))
+    got = mrf_stack(x, st, (k,))
+    torch.cuda.synchronize()
+    assert_close(got, mrf_stack_plain(x, st, (k,)), BF16_TOL)
+
+
+@pytest.mark.parametrize("C", [4, 8, 16])
+@pytest.mark.parametrize("kernel_sizes,dilations", HALO_EDGE)
+def test_narrow_kernel_at_the_halo_edge(cuda, C, kernel_sizes, dilations):
+    """Schedules whose creep reaches the 64-frame halo, and the widest conv1
+    reach (k = 3, d = 63), in one launch."""
+    assert max(mrf_ops.creep(k, dilations) for k in kernel_sizes) >= 60
+    x = torch.randn(1, 4099, C, device=cuda, generator=torch.Generator(cuda).manual_seed(C))
+    st = kernel_weights(mrf_weights(C, kernel_sizes, n_pair=len(dilations)), kernel_sizes)
+    n0 = mrf_stack.launches
+    got = mrf_stack(x, st, kernel_sizes, dilations)
+    torch.cuda.synchronize()
+    assert mrf_stack.launches == n0 + 1
+    assert_close(got, mrf_stack_plain(x, st, kernel_sizes, dilations), BF16_TOL)
+
+
+def test_narrow_stages_never_run_the_plain_version(cuda, monkeypatch):
+    """On CUDA no stage of C <= 64 reaches the plain version: the kernels'
+    counters move (one launch a stage at C <= 16), the plain version's do
+    not."""
+    plain = []
+    for name in ("mrf_stack_plain", "_mrf_stack_plain_bf16"):
+        real = getattr(mrf_ops, name)
+        monkeypatch.setattr(mrf_ops, name,
+                            lambda *a, real=real, name=name, **k: plain.append(name) or real(*a, **k))
+    counts = mrf_stack.launches, mrf_stack_folded.launches
+    for C in NARROW_WIDTHS:
+        x = torch.randn(1, 512, C, device=cuda)
+        st = mrf_weights(C, (3, 7, 11))   # fp32: cast per call
+        mrf_stack(x, st)
+        if 128 % C == 0:
+            mrf_stack_folded(x.reshape(1, 512 * C // 128, 128), dict(st, fold=128 // C),
+                             prefolded=True)
+    torch.cuda.synchronize()
+    assert plain == []
+    assert mrf_stack.launches - counts[0] == sum(stage_launches(c, 3, 3) for c in NARROW_WIDTHS)
+    assert mrf_stack_folded.launches - counts[1] == sum(
+        stage_launches(c, 3, 3) for c in NARROW_WIDTHS if 128 % c == 0)
+
+
+def halo_schedules(k, n_pair):
+    """Every schedule of n_pair dilations >= 1 whose creep at kernel size k
+    fits the halo."""
+    h = max(k // 2, 1)
+    if n_pair == 1:
+        return [(d,) for d in range(1, HALO // h)]
+    return [(d,) + rest for d in range(1, HALO // h)
+            for rest in halo_schedules(k, n_pair - 1)
+            if (k // 2) * (d + 1 + sum(e + 1 for e in rest)) <= HALO]
+
+
+def test_narrow_plans_fit_the_card_for_every_schedule(cuda):
+    """The library's reckoning (`narrow_smem_bytes`): at both widths, every
+    one- and two-pair schedule of every odd k, V1's branches on every
+    single-pair schedule that fits the k = 11 branch, and the halo edge
+    take at most 232,448 B a block at the longest tile, and the plan at
+    HiFi-GAN V2's stage shapes fits too."""
+    schedules = [((k,), ds) for k in range(1, 12, 2) for n in (1, 2)
+                 for ds in halo_schedules(k, n)]
+    schedules += [((3, 7, 11), ds) for ds in halo_schedules(11, 1)] + HALO_EDGE
+    for C in (8, 16):
+        for ks, ds in schedules:
+            smem, tile = narrow_smem_bytes(C, ks, ds)
+            assert tile >= 64 and 0 < smem <= MAX_SMEM, (C, ks, ds, smem, tile)
+    for C, T in ((16, 128000), (8, 256000), (16, 37), (8, 37)):
+        plan = narrow_plan(1, T, C=C)
+        assert plan["smem"] <= MAX_SMEM and plan["tile"] <= narrow_smem_bytes(C)[1]
+        assert plan["blocks"] == -(-T // plan["tile"])

@@ -1,7 +1,8 @@
 """The MRF stage at the widths the CUDA kernel is not built for.
 
-`csrc/mrf_stack.cu` runs C in {32, 64, 128, 256, 512}; `ops.mrf` runs any
-C <= 512 at the next of them, Cp, with zero channels above C
+The kernels run C in {8, 16, 32, 64} (`csrc/mrf_stage_narrow.cu`) and
+{128, 256, 512} (`csrc/mrf_stack.cu`); `ops.mrf` runs any C <= 512 at the
+next of them, Cp, with zero channels above C
 (`kernel_width`, `pad_mrf_width`, `pad_channels`), and cuts the output back
 to C.  What the card computes is the plain stage (`mrf_stack_plain`) on
 those padded tensors: the weights padded once in `kernel_weights` (the
@@ -13,15 +14,19 @@ cases hold that, here on the CPU:
   kernel's bf16 arithmetic, and the channels above C stay exactly zero;
 - `kernel_weights` pads the kernel's tensors once, in the kernel's order,
   and leaves the plain version's at C;
-- at C = 16 and 8 (HiFi-GAN V2's last stages) the padded folded stage
-  against JAX's `mrf_stack_folded` in interpret mode (rtol 1e-4, atol 1e-5,
-  test_pallas.py's MRF tolerance);
+- at C = 16 and 8 (HiFi-GAN V2's last stages, which the narrow kernel runs
+  at their own width) the folded stage against JAX's `mrf_stack_folded` in
+  interpret mode (rtol 1e-4, atol 1e-5, test_pallas.py's MRF tolerance);
 - HiFi-GAN V2's stages (64, 32, 16, 8) and the dryrun's (8, 4) take the
-  folded route at the frame buckets of a request, 9 launches a stage;
+  folded route at the frame buckets of a request: the pair kernel at 64
+  and 32 (9 launches a stage), the whole-stage kernel at 16 and 8 (one);
 - a small V2-shaped HiFi-GAN through `fused_apply`, with each stage's MRF
   as the card's padded route computes it, against the JAX `fused_apply`
   on the same weights (bridged by the JAX package's own
   `convert_torch_generator`; the same tolerance);
+- the kernels' weight layout unpacks back to the padded stacked weights at
+  C = 4, 8, 16, 24 and 64 and every odd k (K padded to 16 at 8 channels),
+  and the route rule gives each width its kernel and launches a stage;
 - above 512 the kernel's width raises, naming the limit.
 """
 
@@ -126,7 +131,7 @@ def test_padded_folded_stage_matches_pallas(C):
         xf, jvoc.stack_mrf_params_folded(flax_stage_params(st, rks), 0, fold),
         interpret=True, prefolded=True)
     got = padded_stage(torch.as_tensor(x), st, rks)
-    assert tmrf.kernel_width(C) == 32
+    assert tmrf.kernel_width(C) == C and tmrf.route(C) == "mrf_stage_narrow"
     np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(B, T, C), rtol=1e-4,
                                atol=1e-5)
 
@@ -138,17 +143,20 @@ def test_padded_folded_stage_matches_pallas(C):
 ])
 def test_narrow_stages_take_the_folded_route(config, T_mel, widths):
     """Every stage of V2 and of the dryrun's vocoder is time-folded, as in
-    the JAX `fused_apply` (F = 128 / C divides the frames), and runs the
-    kernel at 64 or 32: 9 launches a stage, 36 a V2 request."""
+    the JAX `fused_apply` (F = 128 / C divides the frames): the pair kernel
+    at 64 and 32 (9 launches a stage), the whole-stage kernel at its own
+    width below 32 (8 for C = 4, one launch): 20 launches a V2 request."""
     C, T, modes = config["upsample_initial_channel"], T_mel, []
     for u in config["upsample_rates"]:
         C, T = C // 2, T * u
-        modes.append((C, thifigan.stage_mode(C, T), tmrf.kernel_width(C)))
+        modes.append((C, thifigan.stage_mode(C, T), tmrf.route(C), tmrf.kernel_width(C)))
         assert T % (128 // C) == 0
-    assert modes == [(c, "folded", max(c, 32)) for c in widths]
-    launches = len(modes) * len(config["resblock_kernel_sizes"]) * len(
-        config["resblock_dilation_sizes"][0])
-    assert launches == (36 if config is V2_CONFIG else 4)
+    assert modes == [(c, "folded", "mrf_stage_narrow" if c <= 16 else "mrf_pair_mma",
+                      max(c, 8)) for c in widths]
+    launches = sum(tmrf.stage_launches(c, len(config["resblock_kernel_sizes"]),
+                                       len(config["resblock_dilation_sizes"][0]))
+                   for c in widths)
+    assert launches == (20 if config is V2_CONFIG else 2)
 
 
 def test_v2_shaped_hifigan_matches_jax_fused_apply(monkeypatch):
@@ -183,9 +191,69 @@ def test_v2_shaped_hifigan_matches_jax_fused_apply(monkeypatch):
     assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+def unpack_padded_taps(packed, kernel_sizes, Cp):
+    """`w1_mma`/`w2_mma` [n_br, n_pair, packed_taps(Cp)] back to dense [n_br,
+    n_pair, 11, Cp, Cp], and the K rows past k Cp (zero padding to a
+    multiple of 16, at Cp = 8 and odd k) as [n_br, n_pair, pad, Cp]."""
+    n_br, n_pair, _ = packed.shape
+    dense = torch.zeros(n_br, n_pair, tmrf.TAPS, Cp, Cp, dtype=packed.dtype)
+    pads = []
+    for br, k in enumerate(kernel_sizes):
+        K = -(-k * Cp // 16) * 16
+        kk, n = np.meshgrid(np.arange(K), np.arange(Cp), indexing="ij")
+        at = torch.as_tensor((((kk // 16) * (Cp // 8) + n // 8) * 2 + (kk % 16) // 8) * 64
+                             + (n % 8) * 8 + kk % 8)
+        rows = packed[br][:, at]                                  # [n_pair, K, Cp]
+        pad = (tmrf.TAPS - k) // 2
+        dense[br, :, pad:pad + k] = rows[:, :k * Cp].reshape(n_pair, k, Cp, Cp)
+        pads.append(rows[:, k * Cp:])
+    return dense, pads
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11])
+@pytest.mark.parametrize("C", [4, 8, 16, 24, 64])
+def test_kernel_weights_unpack_at_every_narrow_width_and_k(C, k):
+    """The kernels' weight layout, made once in `kernel_weights` at the
+    stage's kernel width (8, 16, 32 or 64 here), unpacks back to the stacked
+    weights padded to that width; at Cp = 8 an odd k's K rows are padded to
+    a multiple of 16 with zeros, and every (branch, pair) holds
+    `packed_taps(Cp)` elements."""
+    ks = (k, 3) if k != 3 else (k,)
+    Cp = tmrf.kernel_width(C)
+    kw = tmrf.kernel_weights(mrf_weights(C, ks, seed=C + k, device="cpu"), ks)
+    padded = tmrf.pad_mrf_width(kw, Cp)
+    for key in ("w1", "w2"):
+        assert kw[key + "_mma"].shape == (len(ks), 3, tmrf.packed_taps(Cp))
+        dense, pads = unpack_padded_taps(kw[key + "_mma"], ks, Cp)
+        assert torch.equal(dense, padded[key])
+        assert all(torch.count_nonzero(p) == 0 for p in pads)
+        assert [p.shape[1] for p in pads] == [-(-kk * Cp // 16) * 16 - kk * Cp for kk in ks]
+
+
+@pytest.mark.parametrize("C,route,width,launches", [
+    (1, "mrf_stage_narrow", 8, 1), (4, "mrf_stage_narrow", 8, 1), (8, "mrf_stage_narrow", 8, 1),
+    (9, "mrf_stage_narrow", 16, 1), (16, "mrf_stage_narrow", 16, 1),
+    (17, "mrf_pair_mma", 32, 9), (24, "mrf_pair_mma", 32, 9), (32, "mrf_pair_mma", 32, 9),
+    (48, "mrf_pair_mma", 64, 9), (64, "mrf_pair_mma", 64, 9), (72, "mrf_pair_mma", 128, 9),
+    (256, "mrf_pair_mma", 256, 9), (257, "mrf_wide_mma", 512, 18), (512, "mrf_wide_mma", 512, 18),
+])
+def test_route_by_width(C, route, width, launches):
+    """Which CUDA kernel a stage of C channels reaches from `mrf_stack` and
+    `mrf_stack_folded`, at which width, and its launches for V1's three
+    branches of three pairs: the whole stage once at C <= 16, one launch
+    per branch and pair above, two at 512; and the mode `fused_apply` calls
+    it in at a request's frames (time-folded for C <= 64 where F = 128 / C
+    divides them)."""
+    assert (tmrf.route(C), tmrf.kernel_width(C), tmrf.stage_launches(C, 3, 3)) == (
+        route, width, launches)
+    T = 8 * 128
+    want = ("folded" if C <= 64 and 128 % C == 0 else "whole" if C <= 128 else "branchwise")
+    assert thifigan.stage_mode(C, T) == want
+
+
 def test_kernel_width_names_its_limit():
     assert [tmrf.kernel_width(c) for c in (1, 8, 32, 33, 64, 65, 129, 256, 257, 512)] == [
-        32, 32, 32, 64, 64, 128, 256, 256, 512, 512]
+        8, 8, 32, 64, 64, 128, 256, 256, 512, 512]
     with pytest.raises(ValueError, match="C <= 512"):
         tmrf.kernel_width(513)
     st = mrf_weights(8, (3,), device="cpu")
