@@ -1,0 +1,9 @@
+"""Share of the profiled stretch of a synthesis run in which no kernel,
+copy or set ran on the device, in %: 100 (1 - busy / window).  Layer:
+device.  Moves utt_per_s."""
+
+
+def read(r):
+    if r.data is None or r.data["kind"] != "synth" or r.profile is None:
+        return None
+    return 100.0 * (1.0 - r.profile.busy_s / r.profile.window_s)
