@@ -1,0 +1,10 @@
+"""Device time of the backward passes a training step: the ops launched
+inside the program's `train.backward` spans (D's and G's `.backward()`,
+autograd's launches included; `benchmark/spans.py`), over the profiled
+chunk's steps.  Layer: train step.  Moves train_frames_per_s."""
+
+import importlib
+
+
+def read(r):
+    return importlib.import_module("benchmark.spans").per_step_ms(r, ("train.backward",))

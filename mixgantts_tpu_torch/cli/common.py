@@ -17,6 +17,7 @@ from ..config import NormStats, get_configs_of
 from ..convert import load_reference_generator
 from ..models.discriminator import JCUDiscriminator
 from ..models.mixgantts import MixGANTTS
+from ..utils.profiling import span
 
 
 def route_paths(train_config, model, path_tag=""):
@@ -92,9 +93,10 @@ def to_device(batch, device):
     through pinned memory without blocking the host when it is a GPU).
     Host-only fields are dropped."""
     out = {}
-    for k, v in model_batch_of(batch).items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
+    with span("data.to_device"):
+        for k, v in model_batch_of(batch).items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=True)
     return out

@@ -36,6 +36,7 @@ from ..ops.mrf import (
     LRELU_SLOPE, kernel_weights, mrf_stack, mrf_stack_folded, stack_mrf_params,
     stack_mrf_params_folded,
 )
+from ..utils.profiling import span
 from ..utils.tools import resolve_device
 from .initializers import init_like_jax
 
@@ -146,7 +147,10 @@ def _generate(generator, mel, mrf_stage):
     type and tanh in fp32.  mel [B, T, n_mels] -> [B, T * hop] fp32."""
     x = generator.conv_pre(mel.transpose(1, 2).to(generator.conv_pre.weight.dtype))
     for i, up in enumerate(generator.ups):
-        x = mrf_stage(i, up(F.leaky_relu(x, LRELU_SLOPE)))
+        with span("vocoder.upsample"):
+            x = up(F.leaky_relu(x, LRELU_SLOPE))
+        with span("vocoder.mrf"):
+            x = mrf_stage(i, x)
     x = generator.conv_post(F.leaky_relu(x, LRELU_SLOPE))
     return torch.tanh(x.float())[:, 0]
 

@@ -47,6 +47,7 @@ import torch.nn as nn
 
 from ..ops import sequence_mask
 from ..parallel.collectives import global_rows
+from ..utils.profiling import span
 from ..utils.tools import resolve_device
 from .aux_decoder import Decoder, PostNet
 from .denoiser import Denoiser
@@ -238,44 +239,45 @@ class MixGANTTS(nn.Module):
         diffusion = self.diffusion
         ov = noise_override or {}
         x_ts = x_t_prevs = x_t_prev_preds = t = None
-        if self.mode == "aux":
-            mel_pred = diffusion.diffuse_trace(coarse_mel, mel_mask, generator,
-                                               noises=ov.get("trace_noises"))
-        elif mels is None:
-            if ov.get("start_noise") is None or ov.get("step_noises") is None:
-                drawn = self.inference_noise(B, cond.shape[1], generator, cond.device)
-                ov = {k: drawn[k] if ov.get(k) is None else ov[k] for k in drawn}
-            start = ov["start_noise"]
-            if shallow:
-                t_start = torch.full((B,), diffusion.num_timesteps - 1,
-                                     dtype=torch.long, device=cond.device)
-                start = diffusion.diffuse(coarse_mel, t_start, start) * maskf
-            x0 = diffusion.sampling(cond, spk, start, ov["step_noises"],
-                                    return_trace=return_trace)
-            mel_pred = diffusion.denorm_spec(x0) * (maskf[None] if return_trace else maskf)
-        else:
-            # training: one random diffusion step per utterance
-            # drawn for the global batch under data parallelism (global_rows)
-            def noise(key):
-                n = ov.get(key)
-                return n if n is not None else global_rows(lambda shape: torch.randn(
-                    shape, generator=generator, device=mels.device, dtype=cond.dtype),
-                    mels.shape)
+        with span("model.diffusion"):
+            if self.mode == "aux":
+                mel_pred = diffusion.diffuse_trace(coarse_mel, mel_mask, generator,
+                                                   noises=ov.get("trace_noises"))
+            elif mels is None:
+                if ov.get("start_noise") is None or ov.get("step_noises") is None:
+                    drawn = self.inference_noise(B, cond.shape[1], generator, cond.device)
+                    ov = {k: drawn[k] if ov.get(k) is None else ov[k] for k in drawn}
+                start = ov["start_noise"]
+                if shallow:
+                    t_start = torch.full((B,), diffusion.num_timesteps - 1,
+                                         dtype=torch.long, device=cond.device)
+                    start = diffusion.diffuse(coarse_mel, t_start, start) * maskf
+                x0 = diffusion.sampling(cond, spk, start, ov["step_noises"],
+                                        return_trace=return_trace)
+                mel_pred = diffusion.denorm_spec(x0) * (maskf[None] if return_trace else maskf)
+            else:
+                # training: one random diffusion step per utterance
+                # drawn for the global batch under data parallelism (global_rows)
+                def noise(key):
+                    n = ov.get(key)
+                    return n if n is not None else global_rows(lambda shape: torch.randn(
+                        shape, generator=generator, device=mels.device, dtype=cond.dtype),
+                        mels.shape)
 
-            t = ov.get("t")
-            if t is None:
-                t = global_rows(lambda shape: torch.randint(
-                    0, diffusion.num_timesteps, shape, generator=generator,
-                    device=mels.device), (B,))
-            x_ts = diffusion.diffuse(mels, t, noise("x_t_noise")) * maskf
-            x_t_prevs = diffusion.diffuse(mels, t - 1, noise("x_t_prev_noise")) * maskf
-            x0_pred = diffusion.denoise_fn(
-                x_ts, t, _detach_if(cond, shallow), _detach_if(spk, shallow), fused=False)
-            x0_pred = torch.clamp(x0_pred * maskf, -1.0, 1.0)
-            x_start = diffusion.norm_spec(coarse_mel.detach()) if shallow else x0_pred
-            x_t_prev_preds = diffusion.q_posterior_sample(
-                x_start, x_ts, t, noise("posterior_noise")) * maskf
-            mel_pred = x0_pred
+                t = ov.get("t")
+                if t is None:
+                    t = global_rows(lambda shape: torch.randint(
+                        0, diffusion.num_timesteps, shape, generator=generator,
+                        device=mels.device), (B,))
+                x_ts = diffusion.diffuse(mels, t, noise("x_t_noise")) * maskf
+                x_t_prevs = diffusion.diffuse(mels, t - 1, noise("x_t_prev_noise")) * maskf
+                x0_pred = diffusion.denoise_fn(
+                    x_ts, t, _detach_if(cond, shallow), _detach_if(spk, shallow), fused=False)
+                x0_pred = torch.clamp(x0_pred * maskf, -1.0, 1.0)
+                x_start = diffusion.norm_spec(coarse_mel.detach()) if shallow else x0_pred
+                x_t_prev_preds = diffusion.q_posterior_sample(
+                    x_start, x_ts, t, noise("posterior_noise")) * maskf
+                mel_pred = x0_pred
 
         return GeneratorOutput(
             mel_pred=mel_pred, mel_lens=aux.mel_lens, mel_mask=mel_mask,
@@ -313,16 +315,19 @@ class MixGANTTS(nn.Module):
                    p_targets, e_targets, d_targets, update_stats):
         """Linguistic encoder -> (aux, shallow: decoder, mel_linear and
         PostNet) -> `AuxStage`."""
-        enc = self.linguistic_encoder(
-            texts, src_lens, word_boundaries, src_w_lens, max_mel_len,
-            p_control=p_control, d_control=d_control,
-            mel_mask=None if mel_lens is None else sequence_mask(mel_lens, max_mel_len),
-            attn_prior=attn_priors, pitch_target=p_targets, energy_target=e_targets,
-            duration_target=d_targets)
+        with span("model.encoder"):
+            enc = self.linguistic_encoder(
+                texts, src_lens, word_boundaries, src_w_lens, max_mel_len,
+                p_control=p_control, d_control=d_control,
+                mel_mask=None if mel_lens is None else sequence_mask(mel_lens, max_mel_len),
+                attn_prior=attn_priors, pitch_target=p_targets, energy_target=e_targets,
+                duration_target=d_targets)
         coarse_mel = None
         if self.mode in ("aux", "shallow"):
-            coarse = self.mel_linear(self.decoder(enc.features, enc.mel_mask))
-            coarse_mel = coarse + self.postnet(coarse, update_stats=update_stats)
+            with span("model.decoder"):
+                coarse = self.mel_linear(self.decoder(enc.features, enc.mel_mask))
+            with span("model.postnet"):
+                coarse_mel = coarse + self.postnet(coarse, update_stats=update_stats)
         return AuxStage(
             features=enc.features, coarse_mel=coarse_mel, postnet_output=coarse_mel,
             speaker_emb=self.speaker_embedding(speakers, spker_embeds),

@@ -52,6 +52,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import cuda_build
 from .mrf import no_tf32, pad_channels, upcast
 
@@ -399,14 +400,15 @@ def fused_residual_stack(x, cond, step_emb, stacked, spk_proj=None):
     card holds at once, one per layer for a sequence too long for that, two
     per layer above 512) to `fused_residual_stack.launches`; CPU tensors run
     the plain version in the weights' type."""
-    if x.device.type == "cpu":
-        return fused_residual_stack_plain(x, cond, step_emb, stacked, spk_proj)
-    if x.device.type != "cuda":
-        raise ValueError(f"denoiser_stack: no kernel for device {x.device}")
-    x_out, skip, launches = _launch(upcast(x), upcast(cond), upcast(step_emb), stacked,
-                                    spk_proj, x.dtype)
-    fused_residual_stack.launches += launches
-    return x_out.to(x.dtype), skip.to(x.dtype)
+    with span("kernel.fused_residual_stack"):
+        if x.device.type == "cpu":
+            return fused_residual_stack_plain(x, cond, step_emb, stacked, spk_proj)
+        if x.device.type != "cuda":
+            raise ValueError(f"denoiser_stack: no kernel for device {x.device}")
+        x_out, skip, launches = _launch(upcast(x), upcast(cond), upcast(step_emb), stacked,
+                                        spk_proj, x.dtype)
+        fused_residual_stack.launches += launches
+        return x_out.to(x.dtype), skip.to(x.dtype)
 
 
 fused_residual_stack.launches = 0

@@ -72,6 +72,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import cuda_build
 
 LRELU_SLOPE = 0.1
@@ -516,26 +517,27 @@ def narrow_stage(x, stacked, kernel_sizes, dilations):
     x with zero channels above C, the output cut back to C), counted in
     `narrow_stage.launches` (as well as in the entry point's count); fp32
     weights are cast (`kernel_weights`) for this call.  Returns (out, 1)."""
-    B, T, C = x.shape
-    Cp = kernel_width(C)
-    stacked = _mma_weights("mrf_stage_narrow", x, stacked, kernel_sizes, dilations, Cp)
-    plan = narrow_plan(B, T, kernel_sizes, dilations, x.device, C)
-    if not 0 < plan["smem"] <= MAX_SMEM:
-        raise ValueError(f"mrf_stage_narrow kernel: C={Cp} needs {plan['smem']} B of shared "
-                         f"memory a block; the card holds {MAX_SMEM}")
-    lib = _narrow_lib()
-    with torch.cuda.device(x.device):
-        xp = pad_channels(x, Cp).contiguous()
-        out = torch.empty_like(xp)
-        err = lib.mrf_stage_narrow_bf16(
-            xp.data_ptr(), out.data_ptr(), stacked["w1_mma"].data_ptr(),
-            stacked["b1_mma"].data_ptr(), stacked["w2_mma"].data_ptr(),
-            stacked["b2_mma"].data_ptr(), B, T, Cp, plan["tile"], len(kernel_sizes),
-            len(dilations), _int_array(kernel_sizes), _int_array(dilations),
-            torch.cuda.current_stream().cuda_stream)
-        cuda_build.check(lib, "mrf_stage_narrow", err)
-    narrow_stage.launches += 1
-    return (out if Cp == C else out[..., :C].contiguous()), 1
+    with span("kernel.narrow_stage"):
+        B, T, C = x.shape
+        Cp = kernel_width(C)
+        stacked = _mma_weights("mrf_stage_narrow", x, stacked, kernel_sizes, dilations, Cp)
+        plan = narrow_plan(B, T, kernel_sizes, dilations, x.device, C)
+        if not 0 < plan["smem"] <= MAX_SMEM:
+            raise ValueError(f"mrf_stage_narrow kernel: C={Cp} needs {plan['smem']} B of "
+                             f"shared memory a block; the card holds {MAX_SMEM}")
+        lib = _narrow_lib()
+        with torch.cuda.device(x.device):
+            xp = pad_channels(x, Cp).contiguous()
+            out = torch.empty_like(xp)
+            err = lib.mrf_stage_narrow_bf16(
+                xp.data_ptr(), out.data_ptr(), stacked["w1_mma"].data_ptr(),
+                stacked["b1_mma"].data_ptr(), stacked["w2_mma"].data_ptr(),
+                stacked["b2_mma"].data_ptr(), B, T, Cp, plan["tile"], len(kernel_sizes),
+                len(dilations), _int_array(kernel_sizes), _int_array(dilations),
+                torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(lib, "mrf_stage_narrow", err)
+        narrow_stage.launches += 1
+        return (out if Cp == C else out[..., :C].contiguous()), 1
 
 
 narrow_stage.launches = 0
@@ -563,11 +565,12 @@ def mrf_stack(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
     of `kernel_weights` (fp32 weights are cast per call); CPU tensors run
     the plain version in the weights' type.  bf16 x is upcast, and the
     output comes back in x's type."""
-    if x.device.type == "cpu":
-        return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
-    out, n = _run("mrf_stack", x, stacked, kernel_sizes, dilations)
-    mrf_stack.launches += n
-    return out
+    with span("kernel.mrf_stack"):
+        if x.device.type == "cpu":
+            return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
+        out, n = _run("mrf_stack", x, stacked, kernel_sizes, dilations)
+        mrf_stack.launches += n
+        return out
 
 
 mrf_stack.launches = 0
@@ -585,18 +588,19 @@ def mrf_stack_folded(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
     `mrf_stack` (at C <= 16 `csrc/mrf_stage_narrow.cu`, the whole stage in
     one launch), counted in `mrf_stack_folded.launches`; CPU tensors run the
     plain version."""
-    if prefolded:
-        fold = stacked["fold"]
-        B, R, Cf = x.shape
-        if Cf % fold:
-            raise ValueError(f"mrf_stack_folded: last dim {Cf} is not a "
-                             f"multiple of the fold {fold}")
-        x = x.reshape(B, R * fold, Cf // fold)
-    if x.device.type == "cpu":
-        return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
-    out, n = _run("mrf_stack_folded", x, stacked, kernel_sizes, dilations)
-    mrf_stack_folded.launches += n
-    return out
+    with span("kernel.mrf_stack_folded"):
+        if prefolded:
+            fold = stacked["fold"]
+            B, R, Cf = x.shape
+            if Cf % fold:
+                raise ValueError(f"mrf_stack_folded: last dim {Cf} is not a "
+                                 f"multiple of the fold {fold}")
+            x = x.reshape(B, R * fold, Cf // fold)
+        if x.device.type == "cpu":
+            return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
+        out, n = _run("mrf_stack_folded", x, stacked, kernel_sizes, dilations)
+        mrf_stack_folded.launches += n
+        return out
 
 
 mrf_stack_folded.launches = 0
@@ -668,30 +672,31 @@ def mrf_stack_streamed(x, stacked, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5))
     (fp32 weights are cast per call); CPU tensors run the plain version in
     the weights' type.  bf16 x is upcast, and the output comes back in x's
     type."""
-    if x.device.type == "cpu":
-        return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf_stack_streamed: no kernel for device {x.device}")
-    dtype, x = x.dtype, upcast(x)
-    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
-    B, T, C = x.shape
-    Cp = streamed_width(C)
-    stacked = _mma_weights("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, Cp)
-    plan = streamed_plan(B, T, kernel_sizes, dilations, x.device, C)
-    lib = _streamed_lib()
-    with torch.cuda.device(x.device):
-        xp = pad_channels(x, Cp).contiguous()
-        out = torch.empty_like(xp)
-        slab = torch.empty(plan["slab"], dtype=torch.float32, device=x.device)
-        err = lib.mrf_stack_streamed_bf16(
-            xp.data_ptr(), out.data_ptr(), slab.data_ptr(),
-            stacked["w1_mma"].data_ptr(), stacked["b1_mma"].data_ptr(),
-            stacked["w2_mma"].data_ptr(), stacked["b2_mma"].data_ptr(), B, T, Cp,
-            plan["tile"], len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
-            _int_array(dilations), torch.cuda.current_stream().cuda_stream)
-        cuda_build.check(lib, "mrf_stack_streamed", err)
-    mrf_stack_streamed.launches += 1
-    return (out if Cp == C else out[..., :C].contiguous()).to(dtype)
+    with span("kernel.mrf_stack_streamed"):
+        if x.device.type == "cpu":
+            return mrf_stack_plain(x, stacked, kernel_sizes, dilations)
+        if x.device.type != "cuda":
+            raise ValueError(f"mrf_stack_streamed: no kernel for device {x.device}")
+        dtype, x = x.dtype, upcast(x)
+        kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+        B, T, C = x.shape
+        Cp = streamed_width(C)
+        stacked = _mma_weights("mrf_stack_streamed", x, stacked, kernel_sizes, dilations, Cp)
+        plan = streamed_plan(B, T, kernel_sizes, dilations, x.device, C)
+        lib = _streamed_lib()
+        with torch.cuda.device(x.device):
+            xp = pad_channels(x, Cp).contiguous()
+            out = torch.empty_like(xp)
+            slab = torch.empty(plan["slab"], dtype=torch.float32, device=x.device)
+            err = lib.mrf_stack_streamed_bf16(
+                xp.data_ptr(), out.data_ptr(), slab.data_ptr(),
+                stacked["w1_mma"].data_ptr(), stacked["b1_mma"].data_ptr(),
+                stacked["w2_mma"].data_ptr(), stacked["b2_mma"].data_ptr(), B, T, Cp,
+                plan["tile"], len(kernel_sizes), len(dilations), _int_array(kernel_sizes),
+                _int_array(dilations), torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(lib, "mrf_stack_streamed", err)
+        mrf_stack_streamed.launches += 1
+        return (out if Cp == C else out[..., :C].contiguous()).to(dtype)
 
 
 mrf_stack_streamed.launches = 0

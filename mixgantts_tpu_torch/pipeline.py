@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .parallel.mesh import Mesh
+from .utils.profiling import span
 from .utils.tools import bucket_length, cast_param, compute_dtype
 
 _GENERATORS_EXHAUSTED = object()
@@ -164,32 +165,33 @@ class TTSPipeline:
         `noise_override` injects the noise instead ({"start_noise":
         [B, T, M], "step_noises": [S, B, T, M]} at the bucketed T), in the
         compute type.  With a mesh, every replica's share is enqueued."""
-        texts = np.asarray(batch["texts"])
-        wb = np.asarray(batch["word_boundaries"])
-        B = texts.shape[0]
-        P = bucket_length(texts.shape[1], self.phone_buckets)
-        W = bucket_length(wb.shape[1], self.phone_buckets)
-        # frame budget: generous duration headroom, capped at max_seq_len
-        T = bucket_length(min(self.max_seq_len, max(64, texts.shape[1] * 16)),
-                          self.length_buckets)
-        arrays = dict(speakers=np.asarray(batch["speakers"]),
-                      texts=np.pad(texts, ((0, 0), (0, P - texts.shape[1]))),
-                      src_lens=np.asarray(batch["src_lens"]),
-                      word_boundaries=np.pad(wb, ((0, 0), (0, W - wb.shape[1]))),
-                      src_w_lens=np.asarray(batch["src_w_lens"]))
-        if batch.get("spker_embeds") is not None:
-            arrays["spker_embeds"] = np.asarray(batch["spker_embeds"])
-        if generator is None:
-            generator = torch.Generator(self.device).manual_seed(self._call_count)
-            self._call_count += 1
-        if noise_override is not None:
-            noise_override = {k: torch.as_tensor(np.asarray(v), dtype=self.compute_dtype)
-                              for k, v in noise_override.items()}
-        controls = (p_control, e_control, d_control)
-        if self.replicas is None:
-            return self._enqueue(self.model, self.vocoder, arrays, T, controls, generator,
-                                 noise_override)
-        return self._submit_sharded(arrays, B, T, controls, generator, noise_override)
+        with span("pipeline.submit"):
+            texts = np.asarray(batch["texts"])
+            wb = np.asarray(batch["word_boundaries"])
+            B = texts.shape[0]
+            P = bucket_length(texts.shape[1], self.phone_buckets)
+            W = bucket_length(wb.shape[1], self.phone_buckets)
+            # frame budget: generous duration headroom, capped at max_seq_len
+            T = bucket_length(min(self.max_seq_len, max(64, texts.shape[1] * 16)),
+                              self.length_buckets)
+            arrays = dict(speakers=np.asarray(batch["speakers"]),
+                          texts=np.pad(texts, ((0, 0), (0, P - texts.shape[1]))),
+                          src_lens=np.asarray(batch["src_lens"]),
+                          word_boundaries=np.pad(wb, ((0, 0), (0, W - wb.shape[1]))),
+                          src_w_lens=np.asarray(batch["src_w_lens"]))
+            if batch.get("spker_embeds") is not None:
+                arrays["spker_embeds"] = np.asarray(batch["spker_embeds"])
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(self._call_count)
+                self._call_count += 1
+            if noise_override is not None:
+                noise_override = {k: torch.as_tensor(np.asarray(v), dtype=self.compute_dtype)
+                                  for k, v in noise_override.items()}
+            controls = (p_control, e_control, d_control)
+            if self.replicas is None:
+                return self._enqueue(self.model, self.vocoder, arrays, T, controls, generator,
+                                     noise_override)
+            return self._submit_sharded(arrays, B, T, controls, generator, noise_override)
 
     def _submit_sharded(self, arrays, B, T, controls, generator, noise):
         """Pad the batch to a multiple of the replicas (repeating row 0),
@@ -250,25 +252,26 @@ class TTSPipeline:
     def collect(self, pending, return_mel=True):
         """Copy a `submit` handle's outputs to the host (this waits for the
         device) and trim each waveform.  Same return as `__call__`."""
-        if isinstance(pending, _ShardedPending):
-            outs = [self.collect(p, return_mel) for p in pending.parts]
-            wavs = [w for o in outs for w in o[0]][:pending.B]
-            mel = np.concatenate([o[1] for o in outs])[:pending.B] if return_mel else None
-            return wavs, mel, np.concatenate([o[2] for o in outs])[:pending.B]
-        B, T = pending.B, pending.T
-        wav = pending.wav.cpu().numpy()
-        mel = pending.mel.float().cpu().numpy() if return_mel else None
-        mel_lens = pending.mel_lens.cpu().numpy()
-        if (mel_lens >= T).any():
-            # a prediction landing exactly on the cap is indistinguishable
-            # from a clamped longer one, hence "may"
-            warnings.warn(
-                f"synthesis frame budget saturated: predicted mel length hit "
-                f"the static cap T={T} (max_seq_len={self.max_seq_len}); the "
-                f"tail of the utterance may have been truncated — raise "
-                f"max_seq_len or split the text", stacklevel=2)
-        wavs = [wav[i, :int(mel_lens[i]) * self.hop_length] for i in range(B)]
-        return wavs, mel, mel_lens
+        with span("pipeline.collect"):
+            if isinstance(pending, _ShardedPending):
+                outs = [self.collect(p, return_mel) for p in pending.parts]
+                wavs = [w for o in outs for w in o[0]][:pending.B]
+                mel = np.concatenate([o[1] for o in outs])[:pending.B] if return_mel else None
+                return wavs, mel, np.concatenate([o[2] for o in outs])[:pending.B]
+            B, T = pending.B, pending.T
+            wav = pending.wav.cpu().numpy()
+            mel = pending.mel.float().cpu().numpy() if return_mel else None
+            mel_lens = pending.mel_lens.cpu().numpy()
+            if (mel_lens >= T).any():
+                # a prediction landing exactly on the cap is indistinguishable
+                # from a clamped longer one, hence "may"
+                warnings.warn(
+                    f"synthesis frame budget saturated: predicted mel length hit "
+                    f"the static cap T={T} (max_seq_len={self.max_seq_len}); the "
+                    f"tail of the utterance may have been truncated — raise "
+                    f"max_seq_len or split the text", stacklevel=2)
+            wavs = [wav[i, :int(mel_lens[i]) * self.hop_length] for i in range(B)]
+            return wavs, mel, mel_lens
 
     def stream(self, batches, p_control=1.0, e_control=1.0, d_control=1.0,
                return_mel=True, depth=2, generators=None):

@@ -64,6 +64,7 @@ import torch
 
 from ..losses import LossConfig, generator_loss, get_adversarial_losses_fn
 from ..parallel.collectives import average_gradients
+from ..utils.profiling import span
 from ..utils.tools import cast_param, compute_dtype
 
 BATCH_MODEL_KEYS = (
@@ -161,8 +162,14 @@ def _update(opt, lr=None):
     """The optimizer's step on the gradients averaged over the data ranks
     (`parallel.collectives.average_gradients`; nothing to average on one
     device)."""
-    average_gradients(opt.params)
-    opt.step(lr)
+    with span("train.update"):
+        average_gradients(opt.params)
+        opt.step(lr)
+
+
+def _backward(loss):
+    with span("train.backward"):
+        loss.backward()
 
 
 def _check_flags(mode, model_config):
@@ -224,13 +231,14 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
     d_call = MixedForward(discriminator, dtype, rounded=D_ROUNDED)
 
     def g_forward(state, batch, noise, update_stats=True, aux_only=False, aux_reuse=None):
-        if mixed:
-            batch = {k: round_floats(v, dtype) if k in FLOAT_BATCH_KEYS else v
-                     for k, v in batch.items()}
-            aux_reuse = round_floats(aux_reuse, dtype)
-        out = g_call(**model_kwargs(batch), noise_override=noise, generator=state.generator,
-                     update_stats=update_stats, aux_only=aux_only, aux_reuse=aux_reuse)
-        return cast_floats(out, torch.float32) if mixed else out
+        with span("train.forward"):
+            if mixed:
+                batch = {k: round_floats(v, dtype) if k in FLOAT_BATCH_KEYS else v
+                         for k, v in batch.items()}
+                aux_reuse = round_floats(aux_reuse, dtype)
+            out = g_call(**model_kwargs(batch), noise_override=noise, generator=state.generator,
+                         update_stats=update_stats, aux_only=aux_only, aux_reuse=aux_reuse)
+            return cast_floats(out, torch.float32) if mixed else out
 
     def d_apply(*args):
         if mixed:
@@ -245,11 +253,12 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
 
         def step_fn(state, batch, noise_overrides=None):
             (noise,) = noise_overrides or (None,)
-            with _mode(model, True):
+            with span("train.step"), _mode(model, True):
                 out = g_forward(state, batch, noise)
-                losses = recon_losses(state, batch, out)
+                with span("train.losses"):
+                    losses = recon_losses(state, batch, out)
                 state.opt_g_fs2.zero_grad()
-                losses["recon_loss"].backward()
+                _backward(losses["recon_loss"])
                 _update(state.opt_g_fs2)
             zero = torch.zeros_like(losses["recon_loss"])
             metrics = dict(losses, total_loss=losses["recon_loss"], G_loss=losses["recon_loss"],
@@ -261,26 +270,30 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
 
     def d_phase(state, out):
         """D's update on the detached pairs of `out`; returns D's loss."""
-        (real_c, real_u), (fake_c, fake_u) = _d_features(d_apply, out, detach=True)
-        r_loss, f_loss = d_loss_fn(real_c[-1], real_u[-1], fake_c[-1], fake_u[-1])
-        D_loss = r_loss + f_loss
-        state.opt_d.zero_grad()
-        D_loss.backward()
-        _update(state.opt_d, state.lr_d)
-        return D_loss
+        with span("train.d_phase"):
+            (real_c, real_u), (fake_c, fake_u) = _d_features(d_apply, out, detach=True)
+            with span("train.losses"):
+                r_loss, f_loss = d_loss_fn(real_c[-1], real_u[-1], fake_c[-1], fake_u[-1])
+                D_loss = r_loss + f_loss
+            state.opt_d.zero_grad()
+            _backward(D_loss)
+            _update(state.opt_d, state.lr_d)
+            return D_loss
 
     def g_phase(state, batch, out):
         """G's losses through the (updated, frozen) D, G's backward and
         update; returns (losses, adv_loss, G_loss)."""
-        with _frozen(discriminator):
-            (real_c, real_u), (fake_c, fake_u) = _d_features(d_apply, out)
-            adv_loss = g_loss_fn(fake_c[-1], fake_u[-1])
-            losses = recon_losses(state, batch, out, Ds=(real_c, real_u, fake_c, fake_u))
-            G_loss = adv_loss + losses["recon_loss"] + losses["fm_loss"]
-            state.opt_g.zero_grad()
-            G_loss.backward()
-        _update(state.opt_g, state.lr_g)
-        return losses, adv_loss, G_loss
+        with span("train.g_phase"):
+            with _frozen(discriminator):
+                (real_c, real_u), (fake_c, fake_u) = _d_features(d_apply, out)
+                with span("train.losses"):
+                    adv_loss = g_loss_fn(fake_c[-1], fake_u[-1])
+                    losses = recon_losses(state, batch, out, Ds=(real_c, real_u, fake_c, fake_u))
+                    G_loss = adv_loss + losses["recon_loss"] + losses["fm_loss"]
+                state.opt_g.zero_grad()
+                _backward(G_loss)
+            _update(state.opt_g, state.lr_g)
+            return losses, adv_loss, G_loss
 
     def gan_step(state, batch, noise_overrides):
         if reuse_g:
@@ -304,12 +317,13 @@ def make_train_step(mode, model, discriminator, model_config, train_config):
         return (D_loss,) + g_phase(state, batch, g_forward(state, batch, noise2))
 
     def step_fn(state, batch, noise_overrides=None):
-        with _mode(model, True), _mode(discriminator, True):
-            D_loss, losses, adv_loss, G_loss = gan_step(state, batch, noise_overrides)
-        metrics = dict(losses, total_loss=D_loss + G_loss, D_loss=D_loss, G_loss=G_loss,
-                       adv_loss=adv_loss)
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("train.step"):
+            with _mode(model, True), _mode(discriminator, True):
+                D_loss, losses, adv_loss, G_loss = gan_step(state, batch, noise_overrides)
+            metrics = dict(losses, total_loss=D_loss + G_loss, D_loss=D_loss, G_loss=G_loss,
+                           adv_loss=adv_loss)
+            state.step += 1
+            return {k: v.detach() for k, v in metrics.items()}
 
     return step_fn
 

@@ -12,6 +12,35 @@ Usage from the train CLI:
                          of K steps into DIR (torch has no live profiler
                          server; TensorBoard's capture button does not
                          speak to this one)
+
+Spans: `span(name)` marks a part of the program as a `record_function`
+range while a torch profiler runs, so the part's host time, and the
+kernels and copies it launches, carry the name in the same trace (the
+train CLI's `--profile_dir` / `--profile_port` captures included).  With
+no profiler running a span costs one check and records nothing.  Names
+(dotted, nested as listed):
+    pipeline.submit, pipeline.collect   `TTSPipeline.submit` / `collect`
+      model.encoder, model.decoder,     the linguistic encoder; the decoder
+      model.postnet, model.diffusion    and mel_linear; the PostNet; the
+                                        diffusion branch (also in training)
+      vocoder.upsample, vocoder.mrf     each HiFi-GAN stage's upsampling
+                                        and MRF (layout changes included)
+        kernel.fused_residual_stack, kernel.mrf_stack,
+        kernel.mrf_stack_folded, kernel.mrf_stack_streamed,
+        kernel.narrow_stage             each kernel entry, casts and
+                                        padding included (the plain
+                                        versions on the CPU too)
+    train.step                          one train step (`make_train_step`)
+      train.d_phase, train.g_phase      D's and G's update
+        train.forward                   a generator forward
+        train.losses                    D's loss; G's adversarial and
+                                        reconstruction losses
+        train.backward                  each `.backward()`, with the
+                                        launches autograd makes meanwhile
+        train.update                    each optimizer update (clipping,
+                                        Adam)
+    data.to_device                      `cli.common.to_device`: pinning
+                                        and the copy
 """
 
 import contextlib
@@ -23,6 +52,18 @@ import urllib.parse
 
 import numpy as np
 import torch
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A context manager that marks the block as span `name` in a running
+    torch profiler's trace (`record_function`), and does nothing when no
+    profiler runs."""
+    if torch.autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _OFF
 
 
 def _activities():
