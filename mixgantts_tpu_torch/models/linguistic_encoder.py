@@ -9,6 +9,22 @@ energy embeddings and the durations (phone-level targets, summed per word
 and rounded), and takes the mel mask of the target mels.  The
 word-to-phoneme position tables are parameters that train, as in the JAX
 package (the decoder's table is a constant in both).
+
+A synthesis call on CUDA replays a CUDA graph of the encoder's body, one
+per key (`LinguisticEncoder.graph_key`), so the host enqueues one graph in
+place of ~1,000 small ops; every other call (training, validation with
+its targets, a sharded forward, the CPU) runs the body eagerly.  A key's
+first call runs eagerly, which sets cuBLAS and cuDNN up; its second
+captures the graph; every call after replays it.  The graphs of one
+encoder allocate from one memory pool, and a replay returns clones of the
+graph's outputs, so a later replay overwrites no tensor a caller holds.
+A graph reads the parameters and buffers at the addresses it was captured
+on, in the types it was captured in: the graphs are dropped when any of
+them moves or changes type (`.to()`, a load with `assign=True`, a
+tensor-parallel gather), and in-place updates (the optimizer, a plain
+`load_state_dict`) reach them.  Counters: `graph_eager` (a key's first
+call), `graph_captures` and `graph_replays`; a call outside the graph's
+rule counts in none.
 """
 
 from typing import NamedTuple
@@ -21,7 +37,9 @@ from ..ops import (
     length_regulate, mapping_mask, rel_position_coef, sequence_mask,
     word_level_pooling,
 )
+from ..parallel.collectives import data_size, model_size
 from ..text.symbols import symbols
+from ..utils.profiling import span
 from .blocks import (
     RelativeFFTBlock, VariancePredictor, WordToPhonemeAttention,
     sinusoid_position_table,
@@ -46,6 +64,33 @@ def _bins(lo, hi, n_bins, quantization):
     else:
         edges = np.linspace(lo, hi, n_bins - 1)
     return torch.tensor(edges, dtype=torch.float32)
+
+
+def _addresses(module, out):
+    """The data address and type of each of `module`'s parameters and
+    buffers, its submodules' included, appended to `out`."""
+    for tensors in (module._parameters, module._buffers):
+        out += [(t.data_ptr(), t.dtype) for t in tensors.values() if t is not None]
+    for m in module._modules.values():
+        _addresses(m, out)
+    return out
+
+
+class _Graphs:
+    """An encoder's CUDA graphs: by key, None after the key's first (eager)
+    call, then (graph, static inputs, static outputs); one memory pool and
+    one capture stream for all of them, and the addresses and types of the
+    tensors they read.  A copy of the module (`copy.deepcopy`, pickling)
+    starts with none."""
+
+    def __init__(self, addresses=None):
+        self.entries, self.pool, self.stream, self.addresses = {}, None, None, addresses
+
+    def __deepcopy__(self, memo):
+        return _Graphs()
+
+    def __reduce__(self):
+        return _Graphs, ()
 
 
 class LinguisticEncoder(nn.Module):
@@ -74,6 +119,8 @@ class LinguisticEncoder(nn.Module):
                              persistent=False)
         self.register_buffer("energy_bins", _bins(*energy_range, n_bins, energy_quantization),
                              persistent=False)
+        self._graphs = _Graphs()
+        self.graph_eager = self.graph_captures = self.graph_replays = 0
 
     @torch.no_grad()
     def reset_like_jax(self, generator=None):
@@ -89,6 +136,80 @@ class LinguisticEncoder(nn.Module):
         prediction is scaled by p_control.  Training gives the mel mask
         [B, T_mel], the targets (pitch and energy [B, P], durations [B, P]
         in frames) and, for the CTC helper, attn_prior [B, P, T_mel]."""
+        inputs = (texts, src_p_len, word_boundary, src_w_len)
+        given = (mel_mask, attn_prior, pitch_target, energy_target, duration_target)
+        if texts.is_cuda:
+            key = self.graph_key(inputs, max_mel_len, p_control, d_control, given)
+            if key is not None:
+                return self._graphed(key, inputs, max_mel_len, p_control, d_control)
+        return self._encode(*inputs, max_mel_len, p_control, d_control, *given)
+
+    def graph_key(self, inputs, max_mel_len, p_control=1.0, d_control=1.0, given=()):
+        """The key of the CUDA graph that replays a call on CUDA with these
+        arguments, or None where the call runs eagerly: in training, with
+        gradients on, with any of `given` (the mel mask, the prior, the
+        targets) not None, with a control that is not a number, or while a
+        mesh axis is larger than 1 (a graph holds no collective).  The key:
+        the inputs' shapes, types and device, the frame axis, the controls
+        (constants in the graph) and the TF32 settings, which choose the
+        kernels."""
+        if (self.training or torch.is_grad_enabled() or any(g is not None for g in given)
+                or not all(isinstance(c, (int, float)) for c in (p_control, d_control))
+                or data_size() > 1 or model_size() > 1):
+            return None
+        return (tuple((t.shape, t.dtype) for t in inputs), inputs[0].device, int(max_mel_len),
+                float(p_control), float(d_control), torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    def _graphed(self, key, inputs, max_mel_len, p_control, d_control):
+        """`key`'s call: eager the first time, captured the second, then
+        replayed on the current stream, with fresh clones of the outputs."""
+        addresses = _addresses(self, [])
+        if addresses != self._graphs.addresses:
+            self._graphs = _Graphs(addresses)
+        graphs = self._graphs
+        if key not in graphs.entries:
+            graphs.entries[key] = None
+            self.graph_eager += 1
+            return self._encode(*inputs, max_mel_len, p_control, d_control)
+        with torch.cuda.device(inputs[0].device):
+            if graphs.entries[key] is None:
+                with span("encoder.capture"):
+                    graphs.entries[key] = self._capture(inputs, max_mel_len, p_control,
+                                                        d_control)
+                self.graph_captures += 1
+            graph, static_inputs, static_out = graphs.entries[key]
+            with span("encoder.replay"):
+                for static, t in zip(static_inputs, inputs):
+                    static.copy_(t)
+                graph.replay()
+                self.graph_replays += 1
+                return LinguisticEncoderOutput(*(
+                    tuple(t.clone() for t in field) if isinstance(field, tuple) else field.clone()
+                    for field in static_out))
+
+    def _capture(self, inputs, max_mel_len, p_control, d_control):
+        """(graph, static inputs, static outputs) of the body on copies of
+        `inputs`, in the encoder's pool, on its capture stream."""
+        graphs = self._graphs
+        if graphs.pool is None:
+            graphs.pool, graphs.stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+        static_inputs = tuple(t.clone() for t in inputs)
+        # one eager pass on the capture stream first, which gives cuBLAS its
+        # workspace for that stream outside the capture
+        graphs.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(graphs.stream):
+            self._encode(*static_inputs, max_mel_len, p_control, d_control)
+        torch.cuda.current_stream().wait_stream(graphs.stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=graphs.pool, stream=graphs.stream):
+            static_out = self._encode(*static_inputs, max_mel_len, p_control, d_control)
+        return graph, static_inputs, static_out
+
+    def _encode(self, texts, src_p_len, word_boundary, src_w_len, max_mel_len, p_control,
+                d_control, mel_mask=None, attn_prior=None, pitch_target=None,
+                energy_target=None, duration_target=None):
+        """The encoder's body (`forward`'s arguments)."""
         B, P = texts.shape
         W = word_boundary.shape[1]
         src_p_mask = sequence_mask(src_p_len, P)

@@ -23,6 +23,10 @@ no profiler running a span costs one check and records nothing.  Names
       model.encoder, model.decoder,     the linguistic encoder; the decoder
       model.postnet, model.diffusion    and mel_linear; the PostNet; the
                                         diffusion branch (also in training)
+        encoder.capture, encoder.replay the encoder's CUDA graph: its capture
+                                        (a key's second call) and each
+                                        replay, with the copies in and the
+                                        clones out
       vocoder.upsample, vocoder.mrf     each HiFi-GAN stage's upsampling
                                         and MRF (layout changes included)
         kernel.fused_residual_stack, kernel.mrf_stack,
