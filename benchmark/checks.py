@@ -8,9 +8,10 @@ Synthesis (per sampled utterance, the widest over the sample):
   widths and frames); the reference then follows the program's choices.
 - `features_err`, `coarse_mel_err`, `mel_err`, `wave_err`: the relative L2
   error, over the utterance's valid frames or samples, of the encoder's
-  features, the coarse mel (decoder, mel_linear, PostNet), the mel after
-  the shallow diffusion step (the denoiser kernel), and the int16 waveform
-  `collect` returned (the vocoder and its MRF kernels).
+  features, the coarse mel (decoder, mel_linear, PostNet; only where the
+  configuration's reference has one), the mel after the reverse steps (the
+  denoiser kernel), and the int16 waveform `collect` returned (the vocoder
+  and its MRF kernels).
 
 Training (the first three steps, which set-up drives through the window's
 own call):
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from . import core
-from .reference.acoustic import Decisions, Generator
+from .reference.acoustic import Decisions
 from .reference.arith import FULL
 from .reference.hifigan import HiFiGAN, to_int16
 
@@ -53,8 +54,7 @@ def rel_err(got, want):
 
 
 def _synth_reference(config, weights, device):
-    rc = core.ref_config(config)
-    G = Generator(rc, config["stats"]).to(device).eval()
+    G = core.reference_generator(config).to(device).eval()
     G.load_state_dict(weights["G"], strict=True)
     V = HiFiGAN(config["hifigan"]).to(device).eval()
     V.load_state_dict(weights["V"], strict=True)
@@ -89,34 +89,36 @@ def synth_call(G, V, config, batch, noise_seed, decisions, device, arith):
                             G.diffusion.num_timesteps, device)
     with arith.context(), torch.no_grad():
         out = G.synthesize(on(texts, P), on(batch["src_lens"]), on(wb, W),
-                           on(batch["src_w_lens"]), T, start, steps, decisions, arith)
+                           on(batch["src_w_lens"]), T, start, steps, decisions, arith,
+                           speakers=on(batch["speakers"]))
         wave = to_int16(V(out.mel, arith),
                         config["preprocess"]["preprocessing"]["audio"]["max_wav_value"])
     return out, wave
 
 
 def synth_numbers(config, program, ref, ref_wave, wavs, mel_lens):
-    """The five synthesis numbers of one call (the widest over its rows)."""
+    """The synthesis numbers of one call (the widest over its rows);
+    `coarse_mel_err` only where the reference has a coarse mel."""
     hop = config["preprocess"]["preprocessing"]["stft"]["hop_length"]
-    nums = {"decision_gap": ref.decision_gap, "features_err": 0.0, "coarse_mel_err": 0.0,
-            "mel_err": 0.0, "wave_err": 0.0}
+    compared = [(name, key, want) for name, key, want in (
+        ("features_err", "features", ref.features), ("coarse_mel_err", "coarse", ref.coarse_mel),
+        ("mel_err", "mel", ref.mel)) if want is not None]
+    nums = {"decision_gap": ref.decision_gap, **{name: 0.0 for name, _, _ in compared},
+            "wave_err": 0.0}
     for b in range(ref.mel.shape[0]):
         n = int(ref.mel_len[b])
         if n == 0 or int(mel_lens[b]) != n:
             nums["wave_err"] = max(nums["wave_err"], 1.0 if int(mel_lens[b]) != n else 0.0)
             continue
-        for key, name in (("features", "features_err"), ("coarse", "coarse_mel_err"),
-                          ("mel", "mel_err")):
-            want = ref.features if key == "features" else (ref.coarse_mel if key == "coarse"
-                                                           else ref.mel)
+        for name, key, want in compared:
             nums[name] = max(nums[name], rel_err(program[key][b, :n].float(), want[b, :n]))
         got = torch.as_tensor(np.asarray(wavs[b])[:n * hop], device=ref_wave.device)
         nums["wave_err"] = max(nums["wave_err"], rel_err(got, ref_wave[b, :n * hop]))
     return nums
 
 
-def widest(per_call, names):
-    return {k: max((n[k] for n in per_call), default=0.0) for k in names}
+def widest(per_call):
+    return {k: max(n[k] for n in per_call) for k in per_call[0]}
 
 
 def judge_synth(config, weights, outputs, device, arith=FULL):
@@ -140,7 +142,7 @@ def judge_synth(config, weights, outputs, device, arith=FULL):
                               program["dur_w"])
         ref, wave = synth_call(G, V, config, o.batch, o.noise_seed, decisions, device, FULL)
         per_call.append(synth_numbers(config, program, ref, wave, wavs, mel_lens))
-    return widest(per_call, SYNTH_NUMBERS)
+    return widest(per_call)
 
 
 # --- training ----------------------------------------------------------------------------
@@ -179,7 +181,8 @@ def judge_train(program, ref):
 
 def verdict(numbers, limits):
     """(correct, [(name, value, limit)]) with every number at or under its
-    limit; a number that is not finite fails."""
-    rows = [(k, float(numbers[k]), float(limits[k])) for k in limits]
+    limit; a number that is not finite, or that the run did not compute
+    (read as inf), fails."""
+    rows = [(k, float(numbers.get(k, np.inf)), float(limits[k])) for k in limits]
     ok = all(np.isfinite(v) and v <= lim for _, v, lim in rows)
     return ok, rows

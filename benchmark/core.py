@@ -1,14 +1,17 @@
 """What every driver shares: the cell, its configuration and traffic
 found by name, seeds derived from `--seed`, the weights made from the
 seed, the program under test built through its public entry points, and
-the reference built beside it.
+the reference built beside it (the class the configuration names,
+`reference_of`).
 
 Nothing here imports the program at module level: a driver imports it
 when it runs, so that a checkout without the program fails there.
 """
 
+import importlib
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -97,19 +100,57 @@ def _merge(base, over):
 
 def tiny(config, traffic):
     """The configuration and traffic of the self-test: every width cut so
-    that a run takes seconds on the CPU."""
+    that a run takes seconds on the CPU (the number of reverse steps and
+    of speakers kept).  The traffic's sizes come from its own `tiny` key,
+    else from TINY_TRAFFIC by its driver."""
     config = dict(config, model=_merge(config["model"], TINY_MODEL),
                   hifigan=_merge(config["hifigan"], TINY_HIFIGAN),
                   stats=dict(config["stats"], max_seq_len=128))
-    return config, _merge(traffic, TINY_TRAFFIC[traffic["driver"]])
+    sizes = traffic.get("tiny", TINY_TRAFFIC.get(traffic["driver"]))
+    if sizes is None:
+        raise ValueError(f"the self-test has no sizes for driver {traffic['driver']!r}: "
+                         f"give the traffic file a 'tiny' key")
+    return config, _merge({k: v for k, v in traffic.items() if k != "tiny"}, sizes)
+
+
+def n_speakers(config):
+    """The configuration's speaker count (`n_speakers`, 1 if not stated)."""
+    return int(config.get("n_speakers", 1))
 
 
 def ref_config(config):
     """The reference's view of a configuration file: the model section,
-    with the symbol count, the mel channels and the training section."""
+    with the symbol count, the mel channels, the speaker count and the
+    training section."""
     return dict(config["model"], n_symbols=config["n_symbols"],
                 n_mels=config["preprocess"]["preprocessing"]["mel"]["n_mel_channels"],
-                train=config["train"])
+                n_speakers=n_speakers(config), train=config["train"])
+
+
+def reference_of(config):
+    """The reference generator class a configuration names under
+    `reference` (`<module>.<class>` of `benchmark/reference/`; by default
+    the shallow `acoustic.Generator`), checked against the configuration's
+    mode and speaker embedder."""
+    name = config.get("reference", "acoustic.Generator")
+    if not re.fullmatch(r"[A-Za-z_]\w*\.[A-Za-z_]\w*", name):
+        raise ValueError(f"reference {name!r}: give <module>.<class> of benchmark/reference/")
+    module, cls = name.split(".")
+    generator = getattr(importlib.import_module(f"{__package__}.reference.{module}"), cls)
+    if generator.mode != config["mode"]:
+        raise ValueError(f"configuration {config.get('name')!r} is in {config['mode']!r} mode; "
+                         f"its reference {name} is in {generator.mode!r} mode")
+    embedder = config["preprocess"]["preprocessing"].get("speaker_embedder", "none")
+    if config["model"].get("multi_speaker") and embedder != "none":
+        raise ValueError(f"speaker embedder {embedder!r}: the reference has the speaker "
+                         f"table only (speaker_embedder 'none')")
+    return generator
+
+
+def reference_generator(config):
+    """The configuration's reference generator, built on the current
+    default device (the meta device for its shapes)."""
+    return reference_of(config)(ref_config(config), config["stats"])
 
 
 def frame_bucket(config, n_phones):
@@ -198,14 +239,14 @@ def program_synth(config, device, weights_seed):
     import torch
     from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
     from mixgantts_tpu_torch.pipeline import TTSPipeline
-    from .reference.acoustic import Generator
     from .reference.hifigan import HiFiGAN
 
     with torch.device("meta"):
-        ref_g = Generator(ref_config(config), config["stats"])
+        ref_g = reference_generator(config)
         ref_v = HiFiGAN(config["hifigan"])
     model = MixGANTTS.from_configs(config["mode"], config["preprocess"], config["model"],
-                                   stats_of(config), n_speakers=1, device=device)
+                                   stats_of(config), n_speakers=n_speakers(config),
+                                   device=device)
     vocoder = build_vocoder(config, device)
     weights = {"G": make_weights(shapes_of(ref_g), config, weights_seed, device),
                "V": make_weights(shapes_of(ref_v), config, sub_seed(weights_seed, "V"), device)}
@@ -223,20 +264,30 @@ def program_synth(config, device, weights_seed):
 def program_train(config, device, weights_seed, generator_seed, restore_step):
     """(train state, chunk_fn, G/D weights) of the program's shallow GAN
     step, built as the train CLI builds it, with the weights made from the
-    seed."""
+    seed.  Only a configuration whose reference the training reference
+    trains (`reference/train_step.py`: shallow mode) is taken."""
     import torch
     from mixgantts_tpu_torch.models.discriminator import JCUDiscriminator
     from mixgantts_tpu_torch.models.mixgantts import MixGANTTS
     from mixgantts_tpu_torch.train import chunk_train_step, create_train_state, make_train_step
-    from .reference.acoustic import Generator
     from .reference.discriminator import JCUDiscriminator as RefD
+    from .reference.train_step import TrainStep
 
+    generator = reference_of(config)
+    if generator is not TrainStep.trains:
+        trained = TrainStep.trains
+        raise ValueError(
+            f"configuration {config.get('name')!r} ({config['mode']} mode, reference "
+            f"{generator.__module__}.{generator.__name__}) has no training reference: "
+            f"benchmark/reference/train_step.py trains {trained.mode} mode's "
+            f"{trained.__module__}.{trained.__name__} only")
     rc = ref_config(config)
     with torch.device("meta"):
-        ref_g = Generator(rc, config["stats"])
+        ref_g = generator(rc, config["stats"])
         ref_d = RefD(rc["n_mels"], rc["denoiser"]["residual_channels"], rc["discriminator"])
     model = MixGANTTS.from_configs(config["mode"], config["preprocess"], config["model"],
-                                   stats_of(config), n_speakers=1, device=device)
+                                   stats_of(config), n_speakers=n_speakers(config),
+                                   device=device)
     disc = JCUDiscriminator.from_configs(config["preprocess"], config["model"], device=device)
     weights = {"G": make_weights(shapes_of(ref_g), config, weights_seed, device),
                "D": make_weights(shapes_of(ref_d), config, sub_seed(weights_seed, "D"), device)}

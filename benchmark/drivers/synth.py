@@ -112,7 +112,7 @@ def run(ctx):
                           sentences)
     for _ in range(spec["warm_rounds"]):
         for sentences in shapes.values():
-            batch = T.synth_batch(sentences, warm, n_symbols, spec["speaker"])
+            batch = T.synth_batch(sentences, warm, n_symbols, 0)
             pipeline.collect(pipeline.submit(batch, generator=torch.Generator(device).manual_seed(
                 core.sub_seed(ctx.seed, "warm-noise"))))
     if device.type == "cuda":
@@ -122,7 +122,7 @@ def run(ctx):
     capture = Capture(model)
     timing = Timing(model, vocoder.generator) if ctx.trace else None
     sample_draw = core.rng(ctx.seed, "sample")
-    stream = T.synth_stream(spec, ctx.seed, n_symbols)
+    stream = T.synth_stream(spec, ctx.seed, n_symbols, core.n_speakers(cfg))
     calls, batches, wavs, kept = [], [], {}, []
     longest_kept = False
     profiler, profiled = None, []

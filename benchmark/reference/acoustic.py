@@ -1,6 +1,17 @@
 """The plain MixGAN-TTS generator in shallow mode: linguistic encoder,
 FFT decoder, mel_linear and PostNet (the coarse mel), and one shallow
-diffusion step through the 20-block gated residual denoiser.
+diffusion step through the 20-block gated residual denoiser.  A
+multi-speaker configuration (`multi_speaker`, speaker embedder "none") adds
+the speaker table `speaker_emb` of `n_speakers` rows and each residual
+block's `speaker_projection` of its row, added to y and never to the
+residual, as the published denoiser adds it.
+
+A configuration names its reference as `<module>.<class>` of this package
+(`benchmark.core.reference_of`; this class by default).  Each such class
+states its `mode`, its number of reverse steps (`reverse_steps`, and so
+`diffusion.num_timesteps`), and builds from (the reference's view of the
+configuration, its statistics); `synthesize` returns a `Synthesized` whose
+`coarse_mel` is None where the mode has none.
 
 Synthesis makes three kinds of discrete decision from continuous values:
 the pitch and energy bins (`torch.bucketize`) and the rounded frames per
@@ -162,16 +173,20 @@ class LinguisticEncoder(nn.Module):
 # --- the denoiser ------------------------------------------------------------------
 
 class ResidualBlock(nn.Module):
-    def __init__(self, d_encoder, C):
+    def __init__(self, d_encoder, C, multi_speaker=False):
         super().__init__()
         self.conv_layer = ConvNorm(C, 2 * C, 3)
         self.diffusion_projection = LinearNorm(C, C)
         self.conditioner_projection = ConvNorm(d_encoder, C, 1)
         self.output_projection = ConvNorm(C, 2 * C, 1)
+        if multi_speaker:
+            self.speaker_projection = LinearNorm(d_encoder, C)
 
-    def forward(self, x, cond, step_emb):
+    def forward(self, x, cond, step_emb, spk=None):
         y0 = x + self.diffusion_projection(step_emb)[:, None, :]
         y = y0 + self.conditioner_projection(cond)
+        if spk is not None:
+            y = y + self.speaker_projection(spk)[:, None, :]
         gate, filt = self.conv_layer(y).chunk(2, dim=-1)
         out, skip = self.output_projection(torch.sigmoid(gate) * torch.tanh(filt)).chunk(2, dim=-1)
         return (out + y0) / math.sqrt(2.0), skip
@@ -192,28 +207,32 @@ class ResidualBlock(nn.Module):
 
 
 class Denoiser(nn.Module):
-    def __init__(self, n_mels, d_encoder, C, n_layers):
+    def __init__(self, n_mels, d_encoder, C, n_layers, multi_speaker=False):
         super().__init__()
         self.C = C
         self.input_projection = nn.Sequential(ConvNorm(n_mels, C, 1), nn.ReLU())
         self.mlp = nn.Sequential(LinearNorm(C, 4 * C), Mish(), LinearNorm(4 * C, C))
-        self.residual_layers = nn.ModuleList(ResidualBlock(d_encoder, C)
+        self.residual_layers = nn.ModuleList(ResidualBlock(d_encoder, C, multi_speaker)
                                              for _ in range(n_layers))
         self.skip_projection = ConvNorm(C, C, 1)
         self.output_projection = ConvNorm(C, n_mels, 1)
 
-    def forward(self, x_t, t, cond, arith=None):
-        """x0 prediction.  With `arith` the residual stack runs in the
-        kernels' arithmetic (synthesis); without, block by block in fp32
-        (training)."""
+    def forward(self, x_t, t, cond, arith=None, spk=None):
+        """x0 prediction, with a multi-speaker model's speaker embedding
+        `spk` [B, H].  With `arith` the residual stack runs in the kernels'
+        arithmetic (synthesis; the speaker term joins the conditioner
+        projection, as the program's kernel takes it); without, block by
+        block in fp32 (training)."""
         x = self.input_projection(x_t)
         step_emb = self.mlp(diffusion_embedding(t, self.C))
         skip_sum = 0
         for block in self.residual_layers:
             if arith is None:
-                x, skip = block(x, cond, step_emb)
+                x, skip = block(x, cond, step_emb, spk)
             else:
                 condp = block.conditioner_projection(cond)
+                if spk is not None:
+                    condp = condp + block.speaker_projection(spk)[:, None, :]
                 step_proj = block.diffusion_projection(step_emb)
                 x, skip = block.kernel_forward(x, condp, step_proj, arith)
             skip_sum = skip_sum + skip
@@ -272,6 +291,47 @@ class Diffusion(nn.Module):
         nonzero = (t > 0).to(x_t.dtype)[:, None, None]
         return mean + nonzero * torch.exp(0.5 * self._at("post_log_var", t)) * noise
 
+    def reverse(self, x, features, step_noises, arith, spk=None):
+        """The reverse steps t = S-1 .. 0 from x: x0 predicted and clamped,
+        then the posterior sample with the step's noise."""
+        B = x.shape[0]
+        for k, i in enumerate(reversed(range(self.num_timesteps))):
+            t = torch.full((B,), i, dtype=torch.long, device=x.device)
+            x0 = torch.clamp(self.denoise_fn(x, t, features, arith, spk), -1.0, 1.0)
+            x = self.posterior_sample(x0, x, t, step_noises[k])
+        return x
+
+
+def make_diffusion(cfg, stats, steps):
+    """The diffusion of `steps` reverse steps (the vpsde schedule) around
+    the configuration's denoiser."""
+    d = cfg["denoiser"]
+    if d["noise_schedule_naive"] != "vpsde":
+        raise ValueError(f"the reference has the vpsde schedule only, not "
+                         f"{d['noise_schedule_naive']!r}")
+    n_mels = cfg["n_mels"]
+    denoiser = Denoiser(n_mels, cfg["transformer"]["encoder_hidden"], d["residual_channels"],
+                        d["residual_layers"], bool(cfg.get("multi_speaker")))
+    return Diffusion(denoiser, vpsde_betas(steps, d["min_beta"], d["max_beta"]),
+                     stats["spec_min"][:n_mels], stats["spec_max"][:n_mels])
+
+
+def speaker_table(cfg):
+    """A multi-speaker model's table of `n_speakers` rows (speaker
+    embedder "none"); None for a single-speaker model."""
+    if not cfg.get("multi_speaker"):
+        return None
+    return nn.Embedding(cfg["n_speakers"], cfg["transformer"]["encoder_hidden"])
+
+
+def speaker_rows(table, speakers):
+    """[B, H] rows of `speakers` [B] (None for a single-speaker model)."""
+    if table is None:
+        return None
+    if speakers is None:
+        raise ValueError("a multi-speaker reference needs the batch's speakers")
+    return table(speakers)
+
 
 class TrainOut(NamedTuple):
     mel_mask: torch.Tensor
@@ -286,7 +346,7 @@ class TrainOut(NamedTuple):
 
 class Synthesized(NamedTuple):
     features: torch.Tensor
-    coarse_mel: torch.Tensor
+    coarse_mel: Optional[torch.Tensor]   # None where the mode has no coarse mel
     mel: torch.Tensor               # raw-scale, masked
     mel_mask: torch.Tensor
     mel_len: torch.Tensor
@@ -295,11 +355,17 @@ class Synthesized(NamedTuple):
 
 
 class Generator(nn.Module):
-    """MixGAN-TTS in shallow mode (single speaker)."""
+    """MixGAN-TTS in shallow mode."""
+
+    mode = "shallow"
+
+    @staticmethod
+    def reverse_steps(cfg):
+        return cfg["denoiser"]["shallow_timesteps"]
 
     def __init__(self, cfg, stats):
         super().__init__()
-        t, d = cfg["transformer"], cfg["denoiser"]
+        t = cfg["transformer"]
         H = t["encoder_hidden"]
         self.n_mels = cfg["n_mels"]
         self.linguistic_encoder = LinguisticEncoder(cfg, stats)
@@ -307,20 +373,18 @@ class Generator(nn.Module):
                                t["conv_kernel_size"], cfg["max_seq_len"], t["decoder_dropout"])
         self.mel_linear = nn.Linear(H, self.n_mels)
         self.postnet = PostNet(n_mels=self.n_mels)
-        betas = vpsde_betas(d["shallow_timesteps"], d["min_beta"], d["max_beta"])
-        self.diffusion = Diffusion(
-            Denoiser(self.n_mels, H, d["residual_channels"], d["residual_layers"]), betas,
-            stats["spec_min"][:self.n_mels], stats["spec_max"][:self.n_mels])
+        self.speaker_emb = speaker_table(cfg)
+        self.diffusion = make_diffusion(cfg, stats, self.reverse_steps(cfg))
 
     def coarse(self, features, mel_mask, update_stats=True):
         coarse = self.mel_linear(self.decoder(features, mel_mask))
         return coarse + self.postnet(coarse, update_stats=update_stats)
 
     def synthesize(self, texts, src_lens, wb, src_w_lens, T, start_noise, step_noises,
-                   decisions=None, arith=FULL):
+                   decisions=None, arith=FULL, speakers=None):
         """The inference path of one batch at frame bucket T, with the
         noise the program drew (`start_noise` [B, T, M], `step_noises`
-        [S, B, T, M])."""
+        [S, B, T, M]) and a multi-speaker model's `speakers` [B]."""
         enc = self.linguistic_encoder(texts, src_lens, wb, src_w_lens, T, decisions=decisions)
         coarse = self.coarse(enc.features, enc.mel_mask)
         maskf = enc.mel_mask[..., None].float()
@@ -328,10 +392,8 @@ class Generator(nn.Module):
         B = texts.shape[0]
         t_last = torch.full((B,), diff.num_timesteps - 1, dtype=torch.long, device=texts.device)
         x = diff.diffuse(coarse, t_last, start_noise) * maskf
-        for k, i in enumerate(reversed(range(diff.num_timesteps))):
-            t = torch.full((B,), i, dtype=torch.long, device=texts.device)
-            x0 = torch.clamp(diff.denoise_fn(x, t, enc.features, arith), -1.0, 1.0)
-            x = diff.posterior_sample(x0, x, t, step_noises[k])
+        x = diff.reverse(x, enc.features, step_noises, arith, speaker_rows(self.speaker_emb,
+                                                                           speakers))
         mel = diff.denorm(x) * maskf
         return Synthesized(enc.features, coarse, mel, enc.mel_mask, enc.mel_len, enc.gap,
                            enc.decisions)
@@ -349,12 +411,14 @@ class Generator(nn.Module):
             pitch_target=batch["p_targets"], energy_target=batch["e_targets"],
             duration_target=batch["d_targets"])
         coarse = self.coarse(enc.features, enc.mel_mask, update_stats)
+        spk = speaker_rows(self.speaker_emb, batch.get("speakers"))
         maskf = enc.mel_mask[..., None].float()
         diff = self.diffusion
         t = draw("t", (mels.shape[0],))
         x_ts = diff.diffuse(mels, t, draw("noise", mels.shape)) * maskf
         x_t_prevs = diff.diffuse(mels, t - 1, draw("noise", mels.shape)) * maskf
-        x0 = diff.denoise_fn(x_ts, t, enc.features.detach())
+        x0 = diff.denoise_fn(x_ts, t, enc.features.detach(),
+                             spk=None if spk is None else spk.detach())
         x0 = torch.clamp(x0 * maskf, -1.0, 1.0)
         x_t_prev_preds = diff.posterior_sample(
             diff.norm(coarse.detach()), x_ts, t, draw("noise", mels.shape)) * maskf

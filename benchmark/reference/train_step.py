@@ -70,12 +70,15 @@ class Adam:
 class TrainStep:
     """G, D, their optimizers and the step of shallow training.  `draw`
     gives the diffusion step t and the noises from the step's own
-    generator; dropout draws from torch's default generator."""
+    generator; dropout draws from torch's default generator.  `trains` is
+    the one reference generator it trains."""
+
+    trains = Generator
 
     def __init__(self, cfg, stats, device, generator):
         self.cfg = cfg
         opt, loss = cfg["train"]["optimizer"], cfg["train"]["loss"]
-        self.G = Generator(cfg, stats).to(device)
+        self.G = self.trains(cfg, stats).to(device)
         self.D = JCUDiscriminator(cfg["n_mels"], cfg["denoiser"]["residual_channels"],
                                   cfg["discriminator"]).to(device)
         self.opt_g = Adam(self.G.parameters(), opt["betas"], opt["grad_clip_thresh"])

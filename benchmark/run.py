@@ -17,6 +17,31 @@ result.  `--self-test` runs the cell's driver on the CPU at tiny widths
 (plumbing only) and prints no result either.  Build caches stay inside the
 checkout: the port's kernels in `mixgantts_tpu_torch/_build/`, Triton's
 and torch's extensions in `.bench_cache/`.
+
+How a configuration is added: new files, and no edit to a file here.
+- `configs/<config>.json`: the port's `preprocess`, `model`, `train` and
+  `hifigan` sections and its statistics, with `mode` (naive, shallow),
+  `n_speakers` (1 if left out; a `multi_speaker` model draws from a table
+  of that many rows) and `reference`, the reference generator as
+  `<module>.<class>` of `reference/` (`acoustic.Generator`, shallow mode,
+  if left out; `naive.Generator` for naive mode).  The class states its
+  `mode` and its reverse steps; the judge, the weights' shapes and the work
+  counts all take it from `core.reference_of`.
+- `traffic/<traffic>.json` where the mix is new: a driver's parameters,
+  `speaker` one id or "uniform" (ids drawn from the seed over
+  `n_speakers`), and optionally `tiny`, the self-test's sizes (else
+  `core.TINY_TRAFFIC` by driver).
+- `limits/<cell>.json`: the numbers `correct` compares and their limits; a
+  number the run does not compute (naive mode has no `coarse_mel_err`) is
+  left out, since a limit on it reads inf.
+- `reference/<module>.py` where the mode or the model is new: plain float32
+  PyTorch, importing nothing of the program.
+- In BENCHMARK.json, the configuration and the cell; and the cell's name
+  appended to the `workloads` list of each metric it reports
+  (`cell_metrics`), nothing else in those entries changed.
+Still fixed: training takes shallow mode only (`reference/train_step.py`;
+`core.program_train` refuses another reference), and HiFi-GAN is the only
+vocoder reference (`reference/hifigan.py`).
 """
 
 import argparse

@@ -9,7 +9,7 @@ phone ids and the values.  So two seeds give the device the same work.
   `templates` batches of `batch` sentences, each of `words` words (uniform)
   of `phones_per_word` phones (uniform), are fixed by `size_seed`; each
   epoch the seed permutes the templates and the sentences inside each, and
-  draws every phone id from the configuration's symbols.  Speaker 0.
+  draws every phone id from the configuration's symbols.
 - `train`: batches of `batch` synthetic utterances as the train CLI's
   dataset pads them (`AcousticDataset.reprocess`).  One multiset of
   `batch` utterance sizes is fixed by `size_seed` and every batch holds
@@ -18,11 +18,16 @@ phone ids and the values.  So two seeds give the device the same work.
   L frames split over its phones.  Its mel, pitch and energy
   are drawn from the seed; its attention prior is a band along the
   diagonal, as the beta-binomial prior lies.
+
+Speakers: a traffic file's `speaker` is one speaker id for every row, or
+"uniform": each row's id drawn uniformly over the configuration's
+`n_speakers` from a stream of its own (`rng(seed, "speakers")`), so that
+the other draws stay what they are with a fixed speaker.
 """
 
 import numpy as np
 
-from .core import bucket, rng
+from .core import bucket, n_speakers, rng
 
 
 def pad(rows, length, value=0):
@@ -43,26 +48,39 @@ def synth_templates(spec):
              for _ in range(spec["batch"])] for _ in range(spec["templates"])]
 
 
+def speaker_ids(spec, r, n, speakers):
+    """[n] ids of `speakers` speakers as the traffic's `speaker` asks
+    (module docstring), drawn from `r` where it says "uniform"."""
+    if spec["speaker"] == "uniform":
+        return r.integers(0, speakers, size=n)
+    if not 0 <= int(spec["speaker"]) < speakers:
+        raise ValueError(f"speaker {spec['speaker']} of a configuration of {speakers}")
+    return np.full(n, int(spec["speaker"]))
+
+
 def synth_batch(sentences, r, n_symbols, speaker):
-    """A batch dict for `TTSPipeline.submit` from phones-per-word lists."""
+    """A batch dict for `TTSPipeline.submit` from phones-per-word lists;
+    `speaker` is one id or one a sentence."""
     texts = [r.integers(1, n_symbols + 1, size=int(sum(wb))) for wb in sentences]
     return {"texts": pad(texts, max(len(t) for t in texts)).astype(np.int64),
             "src_lens": np.array([len(t) for t in texts], dtype=np.int64),
             "word_boundaries": pad([np.array(wb) for wb in sentences],
                                    max(len(wb) for wb in sentences)).astype(np.int64),
             "src_w_lens": np.array([len(wb) for wb in sentences], dtype=np.int64),
-            "speakers": np.full(len(sentences), speaker, dtype=np.int64)}
+            "speakers": np.broadcast_to(np.asarray(speaker, dtype=np.int64),
+                                        (len(sentences),)).copy()}
 
 
-def synth_stream(spec, seed, n_symbols):
+def synth_stream(spec, seed, n_symbols, n_speakers=1):
     """Batches without end: each epoch every template once, in an order
     the seed draws, its sentences shuffled."""
     templates = synth_templates(spec)
-    r = rng(seed, "synth")
+    r, spk = rng(seed, "synth"), rng(seed, "speakers")
     while True:
         for t in r.permutation(len(templates)):
             rows = r.permutation(len(templates[t]))
-            yield synth_batch([templates[t][i] for i in rows], r, n_symbols, spec["speaker"])
+            speakers = speaker_ids(spec, spk, len(rows), n_speakers)
+            yield synth_batch([templates[t][i] for i in rows], r, n_symbols, speakers)
 
 
 def synth_shapes(spec, config):
@@ -106,8 +124,9 @@ def _utterance(size, r, n_symbols, stats):
             "energy": r.normal(0.0, 1.0, size=P).astype(np.float32), "prior": prior}
 
 
-def train_batch(spec, r, n_symbols, stats, config):
-    """One padded batch dict, as `AcousticDataset.reprocess` gives it."""
+def train_batch(spec, r, n_symbols, stats, config, spk=None):
+    """One padded batch dict, as `AcousticDataset.reprocess` gives it;
+    speaker ids drawn from `spk` where the traffic asks (`speaker_ids`)."""
     tpu = config["model"]["tpu"]
     sizes = train_sizes(spec)
     items = [_utterance(sizes[i], r, n_symbols, stats) for i in r.permutation(len(sizes))]
@@ -119,7 +138,7 @@ def train_batch(spec, r, n_symbols, stats, config):
     for i, d in enumerate(items):
         mels[i, :len(d["mel"])] = d["mel"]
         priors[i, :d["prior"].shape[0], :d["prior"].shape[1]] = d["prior"]
-    return {"speakers": np.full(len(items), spec["speaker"], dtype=np.int64),
+    return {"speakers": speaker_ids(spec, spk, len(items), n_speakers(config)).astype(np.int64),
             "texts": pad([d["text"] for d in items], P).astype(np.int64),
             "src_lens": np.array([len(d["text"]) for d in items], dtype=np.int64),
             "word_boundaries": pad([d["wb"] for d in items], W).astype(np.int64),
@@ -134,6 +153,6 @@ def train_batch(spec, r, n_symbols, stats, config):
 
 def train_pool(spec, seed, config):
     """The `pool` batches a run trains on, in turn."""
-    r = rng(seed, "train")
-    return [train_batch(spec, r, config["n_symbols"], config["stats"], config)
+    r, spk = rng(seed, "train"), rng(seed, "speakers")
+    return [train_batch(spec, r, config["n_symbols"], config["stats"], config, spk)
             for _ in range(spec["pool"])]

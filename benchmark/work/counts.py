@@ -1,7 +1,11 @@
 """The work the rooflines and the MFU divide by: operations and bytes
 from shapes, and the peaks of one H100 SXM (NVIDIA's data sheet, dense,
 at the 700 W limit).  `denoiser_work` and `mrf_work` are the formulas the
-port's `chip_smoke.py` bounds its kernels with."""
+port's `chip_smoke.py` bounds its kernels with.  A call's reverse steps and
+its modules are those of the configuration's reference
+(`core.reference_of`)."""
+
+from ..core import ref_config, reference_generator, reference_of
 
 PEAK_FP32 = 67e12      # FLOP/s, float32 outside the tensor cores
 PEAK_BF16 = 989e12     # FLOP/s, bf16 on the tensor cores
@@ -58,10 +62,10 @@ def mrf_stages(hifigan, B, frames):
 def kernel_parts(config, B, T):
     """{"denoiser": (flops, bytes), "mrf": [(flops, bytes) a stage]} of one
     synthesis call: the work of the hand-written kernels, with bf16
-    weights (their operand type)."""
+    weights (their operand type), the denoiser's once a reverse step."""
     d = config["model"]["denoiser"]
     H = config["model"]["transformer"]["encoder_hidden"]
-    steps = d["shallow_timesteps"]
+    steps = reference_of(config).reverse_steps(ref_config(config))
     df, db = denoiser_work(B, T, d["residual_channels"], H, d["residual_layers"], 2,
                            hoisted=False)
     voc = config["hifigan"]
@@ -85,13 +89,12 @@ def synth_flops(config, B, P, W, T):
     phone slots, W word slots and T frames, counted on the reference on the
     meta device; the bf16 part is the kernels' (`kernel_parts`)."""
     import torch
-    from ..core import ref_config
-    from ..reference.acoustic import Generator
     from ..reference.hifigan import HiFiGAN
 
     with torch.device("meta"):
-        G = Generator(ref_config(config), config["stats"]).to("meta").eval()
+        G = reference_generator(config).to("meta").eval()
         V = HiFiGAN(config["hifigan"]).to("meta")
+        speakers = torch.zeros(B, dtype=torch.long)
         texts = torch.ones(B, P, dtype=torch.long)
         lens = torch.full((B,), P, dtype=torch.long)
         wb = torch.ones(B, W, dtype=torch.long)
@@ -101,7 +104,7 @@ def synth_flops(config, B, P, W, T):
 
     def call():
         with torch.no_grad():
-            out = G.synthesize(texts, lens, wb, w_lens, T, noise, steps)
+            out = G.synthesize(texts, lens, wb, w_lens, T, noise, steps, speakers=speakers)
             V(out.mel)
 
     total = counted_flops(call)
