@@ -7,6 +7,10 @@ The reference's key layout puts the denoiser at `diffusion.denoise_fn`.
 The coefficient tables are built in float64 from the beta schedule, cast to
 float32, and kept as non-persistent buffers.  Noise is always passed in, or
 drawn from an explicit `torch.Generator`.  Mels are [B, T, n_mels].
+
+Each reverse step of `sampling` is a span, `diffusion.step` (one a shallow
+call, `timesteps` a naive one), and counts in `reverse_steps`; training's
+branch samples no reverse step and counts none.
 """
 
 import numpy as np
@@ -15,6 +19,7 @@ import torch.nn as nn
 
 from ..ops.schedules import get_noise_schedule_list
 from ..parallel.collectives import global_rows
+from ..utils.profiling import span
 
 
 def schedule_betas(denoiser_config, mode):
@@ -52,6 +57,7 @@ class GaussianDiffusion(nn.Module):
                              persistent=False)
         self.register_buffer("spec_max", torch.tensor(spec_max, dtype=torch.float32),
                              persistent=False)
+        self.reverse_steps = 0
 
     # --- mel normalisation ([spec_min, spec_max] <-> [-1, 1]) --------------
 
@@ -98,9 +104,11 @@ class GaussianDiffusion(nn.Module):
         x = noise
         trace = [x]
         for k, i in enumerate(reversed(range(self.num_timesteps))):
-            t = torch.full((B,), i, dtype=torch.long, device=cond.device)
-            x0_pred = torch.clamp(self.denoise_fn(x, t, cond, spk_emb), -1.0, 1.0)
-            x = self.q_posterior_sample(x0_pred, x, t, step_noises[k])
+            with span("diffusion.step"):
+                t = torch.full((B,), i, dtype=torch.long, device=cond.device)
+                x0_pred = torch.clamp(self.denoise_fn(x, t, cond, spk_emb), -1.0, 1.0)
+                x = self.q_posterior_sample(x0_pred, x, t, step_noises[k])
+            self.reverse_steps += 1
             trace.append(x)
         return torch.stack(trace) if return_trace else x
 

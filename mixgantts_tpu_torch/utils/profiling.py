@@ -27,6 +27,10 @@ no profiler running a span costs one check and records nothing.  Names
                                         (a key's second call) and each
                                         replay, with the copies in and the
                                         clones out
+        diffusion.step                  one reverse step of inference: the
+                                        denoiser, the clamp and the
+                                        posterior sample (one a shallow
+                                        call, `timesteps` a naive one)
       vocoder.upsample, vocoder.mrf     each HiFi-GAN stage's upsampling
                                         and MRF (layout changes included)
         kernel.fused_residual_stack, kernel.mrf_stack,

@@ -67,15 +67,15 @@ def configs():
     return pre, _merge(cfg, TINY), tc
 
 
-def generator():
+def generator(mode="shallow"):
     pre, cfg, _ = configs()
     torch.manual_seed(0)
-    return MixGANTTS.from_configs("shallow", pre, cfg, NormStats.default(), device="cpu")
+    return MixGANTTS.from_configs(mode, pre, cfg, NormStats.default(), device="cpu")
 
 
-def pipeline():
+def pipeline(mode="shallow"):
     pre, cfg, _ = configs()
-    model = generator().eval()
+    model = generator(mode).eval()
     torch.manual_seed(1)
     voc = HiFiGANGenerator.from_config(dict(VOCODER, sampling_rate=22050), device="cpu")
     return TTSPipeline(model, Vocoder("HiFi-GAN", voc.eval(), VOCODER), pre, cfg)
